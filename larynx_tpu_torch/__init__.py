@@ -1,0 +1,452 @@
+"""larynx_tpu_torch: the Larynx TTS pipeline in PyTorch and CUDA.
+
+Port of ``larynx_tpu`` (JAX) to one NVIDIA GPU: text -> phoneme ids ->
+GlowTTS mels -> HiFi-GAN audio, batched through one ``SynthesisEngine`` per
+(voice, vocoder).  The public surface mirrors ``larynx_tpu``'s
+``text_to_speech()``, ``get_tts_model()``, ``get_vocoder_model()``,
+``load_tts_model()`` and ``load_vocoder_model()``, plus a ``device``
+argument: entry points run on ``cuda`` unless the caller names another
+device, and raise when no GPU is present and none is named.
+
+Ported so far: GlowTTS voices and HiFi-GAN vocoders from ``.npz`` voice
+dirs, float32, consecutive same-voice batching.  Other vocoders, model
+families, the scheduler, interleaved batching and bf16 raise
+``NotImplementedError``.
+"""
+
+import logging
+import time
+import typing
+from pathlib import Path
+
+import numpy as np
+
+from larynx_tpu_torch.audio import AudioSettings
+from larynx_tpu_torch.constants import (
+    InferenceBackend,
+    TextToSpeechResult,
+    TextToSpeechType,
+    VocoderQuality,
+    VocoderType,
+)
+from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.text.frontend import sentences as frontend_sentences
+from larynx_tpu_torch.text.ids import load_phoneme_ids, phonemes_to_ids
+from larynx_tpu_torch.text.langs import resolve_lang
+from larynx_tpu_torch.voices import (
+    DEFAULT_VOICE_URL_FORMAT,
+    VOCODER_ALIASES,
+    VOCODER_QUALITY,
+    download_voice,
+    get_voice_download_name,
+    get_voices_dirs,
+    resolve_voice_name,
+    split_voice_name,
+    valid_voice_dir,
+)
+
+_LOGGER = logging.getLogger("larynx_tpu_torch")
+
+__version__ = "1.0.0"
+
+_DEFAULT_AUDIO_SETTINGS = AudioSettings()
+
+
+def text_to_speech(
+    text: str,
+    voice_or_lang: str = "en-us",
+    vocoder_or_quality: typing.Union[str, VocoderQuality] = VocoderQuality.HIGH,
+    ssml: bool = False,
+    backend: typing.Optional[InferenceBackend] = None,
+    tts_settings: typing.Optional[typing.Dict[str, typing.Any]] = None,
+    vocoder_settings: typing.Optional[typing.Dict[str, typing.Any]] = None,
+    denoiser_strength: float = 0.0,
+    use_cuda: bool = False,  # accepted for API parity; ``device`` decides
+    half: bool = False,
+    executor=None,  # accepted for API parity; unused
+    custom_voices_dir: typing.Optional[typing.Union[str, Path]] = None,
+    url_format: str = DEFAULT_VOICE_URL_FORMAT,
+    max_batch: int = 8,
+    seed: typing.Optional[int] = None,
+    scheduler: typing.Optional[typing.Any] = None,
+    interleaved_batching: typing.Optional[bool] = None,
+    no_download: bool = False,
+    audio_settings_overrides: typing.Optional[typing.Dict[str, typing.Any]] = None,
+    device=None,
+) -> typing.Iterator[TextToSpeechResult]:
+    """Synthesize text into per-sentence audio results, in document order.
+
+    Same arguments as ``larynx_tpu.text_to_speech`` plus ``device``.
+    Consecutive sentences of one voice are batched through one engine.
+    """
+    device = resolve_device(device)
+    if half:
+        raise NotImplementedError("bf16 (half=True) is not ported yet")
+    if scheduler is not None:
+        raise NotImplementedError("the batch scheduler is not ported yet")
+    if interleaved_batching:
+        raise NotImplementedError("interleaved batching is not ported yet")
+
+    def results():
+        jobs = _build_jobs(
+            text, voice_or_lang, vocoder_or_quality, ssml=ssml, backend=backend,
+            custom_voices_dir=custom_voices_dir, url_format=url_format,
+            no_download=no_download, audio_settings_overrides=audio_settings_overrides,
+        )
+        yield from _run_jobs(
+            jobs,
+            tts_settings=tts_settings,
+            vocoder_settings=vocoder_settings,
+            denoiser_strength=denoiser_strength,
+            max_batch=max_batch,
+            seed=seed,
+            device=device,
+        )
+
+    return results()
+
+
+def _build_jobs(
+    text,
+    voice_or_lang,
+    vocoder_or_quality,
+    ssml=False,
+    backend=None,
+    custom_voices_dir=None,
+    url_format=DEFAULT_VOICE_URL_FORMAT,
+    no_download=False,
+    audio_settings_overrides=None,
+):
+    """Frontend + model resolution -> per-sentence job dicts."""
+    resolved_name = resolve_voice_name(voice_or_lang)
+    try:
+        voice_lang, _voice_name, _voice_type = split_voice_name(resolved_name)
+    except ValueError:
+        voice_lang = voice_or_lang
+    voice_lang = resolve_lang(voice_lang)
+
+    jobs: typing.List[typing.Dict[str, typing.Any]] = []
+    for sentence in frontend_sentences(text, lang=voice_lang, ssml=ssml, explicit_lang=False):
+        tts_model_names = []
+        if sentence.voice:
+            tts_model_names.append(sentence.voice)
+        if sentence.lang:
+            if resolve_lang(sentence.lang) == voice_lang:
+                tts_model_names.append(resolved_name)
+            else:
+                tts_model_names.append(sentence.lang)
+        tts_model_names.append(resolved_name)
+        tts_model_names.append(voice_or_lang)
+
+        tts_model = None
+        for tts_voice_name in filter(None, tts_model_names):
+            tts_model = get_tts_model(
+                tts_voice_name,
+                backend=backend,
+                custom_voices_dir=custom_voices_dir,
+                url_format=url_format,
+                no_download=no_download,
+                audio_settings_overrides=audio_settings_overrides,
+            )
+            if tts_model is not None:
+                break
+        if tts_model is None:
+            raise RuntimeError(f"Failed to load voice {voice_or_lang!r}")
+
+        vocoder_model = get_vocoder_model(
+            vocoder_or_quality,
+            backend=backend,
+            custom_voices_dir=custom_voices_dir,
+            url_format=url_format,
+            no_download=no_download,
+        )
+        if vocoder_model is None:
+            raise RuntimeError(f"Failed to load vocoder {vocoder_or_quality!r}")
+
+        audio_settings = tts_model.audio_settings or _DEFAULT_AUDIO_SETTINGS
+        sent_phonemes = [w.phonemes for w in sentence if w.phonemes]
+        sent_phoneme_ids = phonemes_to_ids(sent_phonemes, tts_model.phoneme_to_id)
+
+        pause_before_ms = sentence.pause_before_ms
+        pause_after_ms = sentence.pause_after_ms
+        if sentence.words:
+            pause_before_ms += sentence.words[0].pause_before_ms
+            pause_after_ms += sentence.words[-1].pause_after_ms
+
+        marks_before = list(sentence.marks_before)
+        marks_after = list(sentence.marks_after)
+        for word_idx, word in enumerate(sentence):
+            if word.marks_before:
+                if word_idx == 0:
+                    marks_before.extend(word.marks_before)
+                else:
+                    marks_after.extend(word.marks_before)
+            if word.marks_after:
+                marks_after.extend(word.marks_after)
+
+        jobs.append(
+            {
+                "ids": np.asarray(sent_phoneme_ids, dtype=np.int64),
+                "tts_model": tts_model,
+                "vocoder_model": vocoder_model,
+                "audio_settings": audio_settings,
+                "pause_before_ms": pause_before_ms,
+                "pause_after_ms": pause_after_ms,
+                "result": TextToSpeechResult(
+                    text=sentence.text_with_ws,
+                    audio=None,
+                    sample_rate=audio_settings.sample_rate,
+                    marks_before=marks_before,
+                    marks_after=marks_after,
+                ),
+            }
+        )
+    return jobs
+
+
+def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch, seed, device):
+    """Batch consecutive same-(voice, vocoder) jobs; yield in document order."""
+    noise_scale = 0.667
+    length_scale = 1.0
+    if tts_settings:
+        noise_scale = float(tts_settings.get("noise_scale", noise_scale))
+        length_scale = float(tts_settings.get("length_scale", length_scale))
+    if vocoder_settings:
+        denoiser_strength = float(vocoder_settings.get("denoiser_strength", denoiser_strength))
+
+    groups: typing.List[typing.List[int]] = []
+    for i, job in enumerate(jobs):
+        if groups and (
+            jobs[groups[-1][0]]["tts_model"] is job["tts_model"]
+            and jobs[groups[-1][0]]["vocoder_model"] is job["vocoder_model"]
+        ):
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+
+    units = []
+    for group in groups:
+        engine = _get_engine(jobs[group[0]]["tts_model"], jobs[group[0]]["vocoder_model"], device)
+        lengths = [len(jobs[i]["ids"]) for i in group]
+        for batch in engine.policy.group_by_text_bucket(lengths, max_batch):
+            units.append((engine, [group[k] for k in batch]))
+
+    done = [False] * len(jobs)
+    next_to_yield = 0
+    for j, (engine, indices) in enumerate(units):
+        start = time.perf_counter()
+        n = len(indices)
+        audios = engine.synthesize_batch(
+            [jobs[i]["ids"] for i in indices],
+            noise_scale=noise_scale,
+            length_scale=length_scale,
+            seed=seed,
+            denoiser_strength=denoiser_strength,
+            batch_index=j,
+        )
+        elapsed = time.perf_counter() - start
+
+        for i, audio in zip(indices, audios):
+            job = jobs[i]
+            settings = job["audio_settings"]
+            _LOGGER.debug(
+                "Real-time factor: %0.4f (infer=%0.3f sec, audio=%0.2f sec)",
+                elapsed / max(audio.shape[-1] / settings.sample_rate, 1e-9) / n,
+                elapsed / n,
+                audio.shape[-1] / settings.sample_rate,
+            )
+            before = max(0, (job["pause_before_ms"] * settings.sample_rate) // 1000)
+            after = max(0, (job["pause_after_ms"] * settings.sample_rate) // 1000)
+            if before > 0 or after > 0:
+                audio = np.pad(audio, pad_width=(before, after), constant_values=0)
+            job["result"].audio = audio
+            done[i] = True
+
+        while next_to_yield < len(jobs) and done[next_to_yield]:
+            yield jobs[next_to_yield]["result"]
+            next_to_yield += 1
+
+
+# -----------------------------------------------------------------------------
+# Engine and model caches
+
+_ENGINE_CACHE: typing.Dict[typing.Tuple[int, int, str], typing.Any] = {}
+
+
+def _get_engine(tts_model, vocoder_model, device):
+    """One engine per (voice params, vocoder params, device)."""
+    from larynx_tpu_torch.glow_tts import GlowTextToSpeech
+    from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
+    from larynx_tpu_torch.runtime.engine import SynthesisEngine
+
+    key = (id(tts_model), id(vocoder_model), str(device))
+    engine = _ENGINE_CACHE.get(key)
+    if engine is None:
+        if not isinstance(tts_model, GlowTextToSpeech) or not isinstance(
+            vocoder_model, HiFiGanVocoder
+        ):
+            raise NotImplementedError("only GlowTTS + HiFi-GAN is ported yet")
+        engine = _ENGINE_CACHE[key] = SynthesisEngine(
+            tts_model.params,
+            tts_model.model_config,
+            tts_model.audio_settings or _DEFAULT_AUDIO_SETTINGS,
+            vocoder_kind="hifi_gan",
+            vocoder_params=vocoder_model.params,
+            vocoder_cfg=vocoder_model.model_config,
+            device=device,
+        )
+    return engine
+
+
+_TTS_MODEL_CACHE: typing.Dict[str, typing.Any] = {}
+
+
+def get_tts_model(
+    name: str = "",
+    lang: str = "en-us",
+    backend: typing.Optional[InferenceBackend] = None,
+    url_format: str = DEFAULT_VOICE_URL_FORMAT,
+    custom_voices_dir: typing.Optional[typing.Union[str, Path]] = None,
+    no_download: bool = False,
+    audio_settings_overrides: typing.Optional[typing.Dict[str, typing.Any]] = None,
+):
+    """Find (or download), load and cache a voice; None if not found."""
+    resolved_name = resolve_voice_name(name or resolve_lang(lang))
+    if not audio_settings_overrides:  # overridden models are not cached
+        maybe_model = _TTS_MODEL_CACHE.get(resolved_name)
+        if maybe_model is not None:
+            return maybe_model
+
+    try:
+        voice_lang, voice_name, voice_model_type = split_voice_name(resolved_name)
+    except ValueError:
+        return None
+    voice_dir_name = f"{voice_name}-{voice_model_type}"
+
+    model_dir: typing.Optional[Path] = None
+    voices_dirs = get_voices_dirs(custom_voices_dir)
+    for voices_dir in voices_dirs:
+        maybe_dir = voices_dir / voice_lang / voice_dir_name
+        if valid_voice_dir(maybe_dir):
+            model_dir = maybe_dir
+            break
+    if model_dir is None:
+        for voices_dir in voices_dirs:
+            if not voices_dir.is_dir():
+                continue
+            for maybe_dir in voices_dir.rglob(voice_dir_name):
+                if valid_voice_dir(maybe_dir):
+                    model_dir = maybe_dir
+                    break
+            if model_dir is not None:
+                break
+    if model_dir is None and not no_download:
+        url = url_format.format(voice=get_voice_download_name(resolved_name))
+        try:
+            model_dir = download_voice(resolved_name, voices_dirs[0], url)
+        except Exception:
+            _LOGGER.exception("download failed for %s", resolved_name)
+            return None
+    if model_dir is None:
+        return None
+
+    import json
+
+    with open(model_dir / "phonemes.txt", "r", encoding="utf-8") as f:
+        phoneme_to_id = load_phoneme_ids(f)
+    with open(model_dir / "config.json", "r", encoding="utf-8") as f:
+        audio_config = dict(json.load(f)["audio"])
+    if audio_settings_overrides:
+        audio_config.update(audio_settings_overrides)
+
+    model = load_tts_model(voice_model_type, model_dir, backend=backend)
+    model.phoneme_to_id = phoneme_to_id
+    model.audio_settings = AudioSettings(**audio_config)
+    if not audio_settings_overrides:
+        _TTS_MODEL_CACHE[resolved_name] = model
+    return model
+
+
+def load_tts_model(
+    model_type: typing.Union[str, TextToSpeechType],
+    model_path: typing.Union[str, Path],
+    backend: typing.Optional[InferenceBackend] = None,
+):
+    """Load an acoustic model from a voice dir."""
+    if model_type == TextToSpeechType.GLOW_TTS:
+        from larynx_tpu_torch.glow_tts import GlowTextToSpeech
+
+        return GlowTextToSpeech(model_path, backend=backend)
+    if model_type == TextToSpeechType.TACOTRON2:
+        raise NotImplementedError("Tacotron2 is not ported yet")
+    raise ValueError(f"Unknown text to speech model type: {model_type}")
+
+
+_VOCODER_MODEL_CACHE: typing.Dict[str, typing.Any] = {}
+
+
+def get_vocoder_model(
+    name_or_quality: typing.Union[str, VocoderQuality] = VocoderQuality.HIGH,
+    backend: typing.Optional[InferenceBackend] = None,
+    url_format: str = DEFAULT_VOICE_URL_FORMAT,
+    custom_voices_dir: typing.Optional[typing.Union[str, Path]] = None,
+    no_download: bool = False,
+):
+    """Find (or download), load and cache a vocoder; None if not found."""
+    quality_key = (
+        name_or_quality.value if isinstance(name_or_quality, VocoderQuality) else name_or_quality
+    )
+    maybe_model = _VOCODER_MODEL_CACHE.get(quality_key)
+    if maybe_model is not None:
+        return maybe_model
+    if quality_key == VocoderType.GRIFFIN_LIM.value:
+        raise NotImplementedError("Griffin-Lim is not ported yet")
+
+    resolved = VOCODER_QUALITY.get(quality_key)
+    if resolved is None:
+        alias = VOCODER_ALIASES.get(quality_key, quality_key)
+        resolved = alias if "/" in alias else alias.replace("-", "/", 1)
+    if "/" not in resolved:
+        raise ValueError(
+            f"Unknown vocoder {name_or_quality!r} (expected high/medium/low or "
+            "<model_type>/<model_name>)"
+        )
+    model_type, model_name = resolved.split("/", maxsplit=1)
+    if model_type != VocoderType.HIFI_GAN.value:
+        raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
+
+    model_dir: typing.Optional[Path] = None
+    voices_dirs = get_voices_dirs(custom_voices_dir)
+    for voices_dir in voices_dirs:
+        maybe_dir = voices_dir / model_type / model_name
+        if valid_voice_dir(maybe_dir):
+            model_dir = maybe_dir
+            break
+    if model_dir is None and not no_download:
+        url = url_format.format(voice=f"{model_type}_{model_name}")
+        try:
+            model_dir = download_voice(model_name, voices_dirs[0], url)
+        except Exception:
+            _LOGGER.exception("download failed for vocoder %s", model_name)
+            return None
+    if model_dir is None:
+        return None
+
+    model = load_vocoder_model(VocoderType.HIFI_GAN, model_dir, backend=backend)
+    _VOCODER_MODEL_CACHE[quality_key] = model
+    return model
+
+
+def load_vocoder_model(
+    model_type: typing.Union[str, VocoderType],
+    model_path: typing.Union[str, Path],
+    backend: typing.Optional[InferenceBackend] = None,
+):
+    """Load a vocoder from its dir."""
+    if model_type == VocoderType.HIFI_GAN:
+        from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
+
+        return HiFiGanVocoder(model_path, backend=backend)
+    if model_type in (VocoderType.GRIFFIN_LIM, VocoderType.WAVEGLOW):
+        raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
+    raise ValueError(f"Unknown vocoder model type: {model_type}")

@@ -1,0 +1,107 @@
+"""GlowTTS inference in two stages, as in ``larynx_tpu/models/glow_tts/model.py``.
+
+  stage A  ``encode``            ids [B,T] -> (x_m, x_logs, logw, w_ceil,
+                                 y_lengths, x_mask)
+  stage B  ``expand_and_decode`` expand means to [B,M,C] by a cumsum
+                                 compare, sample, run the reverse flow.
+
+Latent noise is an optional tensor argument; when absent it is drawn from
+an explicit ``torch.Generator``.  Single-speaker voices only.
+"""
+
+import math
+import typing
+
+import torch
+
+from larynx_tpu_torch.models.glow_tts import encoder as enc
+from larynx_tpu_torch.models.glow_tts import flows
+from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
+from larynx_tpu_torch.models.nn import matmul1x1, sequence_mask
+
+Params = typing.Dict[str, typing.Any]
+
+
+def encode(
+    params: Params,
+    cfg: GlowTTSConfig,
+    ids: torch.Tensor,
+    lengths: torch.Tensor,
+    length_scale: typing.Union[float, torch.Tensor] = 1.0,
+):
+    """ids [B, T] -> (x_m, x_logs, logw, w_ceil, y_lengths, x_mask).
+
+    The duration math stays float32: exp -> ceil -> y_lengths floored to a
+    multiple of n_sqz, at least n_sqz.
+    """
+    p = params["encoder"]
+    t = ids.shape[1]
+    mask = sequence_mask(lengths, t)  # [B, T]
+    mask1 = mask[..., None]
+
+    x = p["emb"][ids] * math.sqrt(cfg.enc_channels)
+    if cfg.prenet:
+        x = enc.prenet(p["prenet"], x, mask1)
+    x = enc.encoder_stack(p["layers"], x, mask1, cfg)
+
+    x_m = matmul1x1(x, p["proj_m_w"], p["proj_m_b"]) * mask1
+    if cfg.mean_only:
+        x_logs = torch.zeros_like(x_m)
+    else:
+        x_logs = matmul1x1(x, p["proj_s_w"], p["proj_s_b"]) * mask1
+
+    logw = enc.duration_predictor(p["dp"], x, mask1)[..., 0]  # [B, T]
+    w = torch.exp(logw.float()) * mask * length_scale
+    w_ceil = torch.ceil(w)
+    y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1)
+    y_lengths = (y_lengths.to(torch.int32) // cfg.n_sqz) * cfg.n_sqz
+    y_lengths = torch.clamp(y_lengths, min=cfg.n_sqz)
+    return x_m, x_logs, logw, w_ceil, y_lengths, mask
+
+
+def expand_and_decode(
+    params: Params,
+    cfg: GlowTTSConfig,
+    x_m: torch.Tensor,
+    x_logs: torch.Tensor,
+    w_ceil: torch.Tensor,
+    y_lengths: torch.Tensor,
+    mel_max_length: int,
+    noise_scale: typing.Union[float, torch.Tensor] = 1.0,
+    noise: typing.Optional[torch.Tensor] = None,
+    generator: typing.Optional[torch.Generator] = None,
+):
+    """(x_m [B,T,C], durations [B,T]) -> mel [B, M, C], mel mask [B, M].
+
+    ``mel_max_length`` (M) must be >= max(y_lengths) and a multiple of
+    n_sqz.  ``noise`` [B, M, C] is the standard-normal latent noise; when
+    None it is drawn from ``generator``.
+    """
+    b, t, c = x_m.shape
+    m = mel_max_length
+
+    cum = torch.cumsum(w_ceil, dim=1)  # [B, T]
+    frames = torch.arange(m, device=cum.device, dtype=cum.dtype)
+    # phoneme index of each frame: #{i : cum[i] <= frame}
+    idx = (cum[:, :, None] <= frames[None, None, :]).to(torch.int64).sum(dim=1)
+    in_range = idx < t  # frames beyond the total duration get zeros
+    idx = torch.clamp(idx, max=t - 1)
+
+    gather_idx = idx[..., None].expand(b, m, c)
+    valid = in_range[..., None].to(x_m.dtype)
+    z_m = torch.gather(x_m, 1, gather_idx) * valid
+    z_logs = torch.gather(x_logs, 1, gather_idx) * valid
+
+    z_mask = sequence_mask(y_lengths, m)  # [B, M]
+    if noise is None:
+        noise = torch.randn(
+            (b, m, c), generator=generator, device=x_m.device, dtype=x_m.dtype
+        )
+    z = (z_m + torch.exp(z_logs) * noise * noise_scale) * z_mask[..., None]
+    mel = flows.decoder_reverse(params["decoder"], z, z_mask, cfg)
+    return mel, z_mask
+
+
+def decode_reverse(params: Params, cfg: GlowTTSConfig, z, z_mask):
+    """Raw reverse flow: latent [B, M, C] -> mel [B, M, C]."""
+    return flows.decoder_reverse(params["decoder"], z, z_mask, cfg)

@@ -1,0 +1,35 @@
+"""HiFi-GAN bias denoiser (spectral subtraction) on the device.
+
+Counterpart of ``larynx_tpu/models/hifi_gan/denoiser.py``: the vocoder's
+bias signature comes from vocoding an 88-frame zero mel; the first STFT
+frame's magnitude of that bias audio, scaled by the strength, is subtracted
+from the output's magnitude, clipped at zero, and the waveform rebuilt with
+the original phase.
+"""
+
+import torch
+
+import larynx_tpu_torch.dsp.stft as dsp
+
+BIAS_MEL_FRAMES = 88
+
+
+def compute_bias_spec(
+    bias_audio: torch.Tensor, fft_size: int = 1024, hop: int = 256
+) -> torch.Tensor:
+    """bias audio [B, T] -> first-frame magnitude spectrum [B, n_freq, 1]."""
+    mag, _ = dsp.stft_magnitude_phase(bias_audio, fft_size, hop)
+    return mag[:, :, 0:1]
+
+
+def denoise(
+    audio: torch.Tensor,
+    bias_spec: torch.Tensor,
+    strength,
+    fft_size: int = 1024,
+    hop: int = 256,
+) -> torch.Tensor:
+    """audio [B, T]; bias_spec [B or 1, n_freq, 1]; strength scalar or [B, 1, 1]."""
+    mag, phase = dsp.stft_magnitude_phase(audio, fft_size, hop)
+    mag = torch.clamp(mag - bias_spec * strength, min=0.0)
+    return dsp.inverse_magnitude_phase(mag, phase, fft_size, hop)

@@ -1,0 +1,358 @@
+"""The synthesis engine: staged, bucketed, batched inference on one device.
+
+Counterpart of the HiFi-GAN batch path of ``larynx_tpu/runtime/engine.py``:
+
+  stage A  encode      ids [B,T]        -> means / durations / y_lengths
+  stage B  decode      means [B,T]      -> mel [B,M,C]        (flow reverse)
+  stage C  vocode      mel [B,M,C]      -> int16 audio [B,M*up]
+
+Between A and B the host reads the per-sentence mel lengths and picks the
+mel bucket M.  Stage C runs length-sorted ragged row groups, each at its
+own bucketed width, with the same group plan as the JAX engine, then the
+optional bias denoiser and int16 peak normalisation on the device.
+"""
+
+import logging
+import typing
+
+import numpy as np
+import torch
+
+import larynx_tpu_torch.dsp.mel as dspmel
+import larynx_tpu_torch.dsp.stft as dsp
+from larynx_tpu_torch.audio import AudioSettings
+from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.models.glow_tts import model as glow_model
+from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
+from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
+from larynx_tpu_torch.models.hifi_gan import model as hifi_model
+from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+from larynx_tpu_torch.runtime.buckets import BucketPolicy
+from larynx_tpu_torch.weights import tree_to
+
+_LOGGER = logging.getLogger("larynx_tpu_torch.engine")
+
+SILENCE_LOG_MEL = float(np.log(1e-5))
+
+# Group-plan constants of the JAX engine's defaults: upper bound on
+# (rows x mel frames) per vocoder call, and the estimated int16 bytes below
+# which a plan neither ramps its first group nor splits a small batch.
+# Kept equal so every row is vocoded at the same width as there.
+MAX_VOCODE_AREA = 16384
+RAMP_MIN_BYTES = 8_000_000
+
+
+def postprocess(mel: torch.Tensor, z_mask: torch.Tensor, settings: AudioSettings):
+    """[B, M, C] mel -> [B, C, M] denormalised, silence in padded frames."""
+    mel_pp = dspmel.mel_postprocess(mel.float().transpose(1, 2), settings)
+    return torch.where(z_mask[:, None, :] > 0, mel_pp, SILENCE_LOG_MEL)
+
+
+def to_int16(audio: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Peak-normalise over each row's valid samples (floor 0.01), clip to
+    +-32767 and truncate toward zero."""
+    t = audio.shape[-1]
+    sample_mask = torch.arange(t, device=audio.device)[None, :] < n_valid[:, None]
+    masked = torch.where(sample_mask, audio.abs(), 0.0)
+    peak = torch.clamp(masked.amax(dim=-1, keepdim=True), min=0.01)
+    scaled = torch.clamp(audio * (32767.0 / peak), -32767.0, 32767.0)
+    return scaled.to(torch.int16)
+
+
+class SynthesisEngine:
+    """Parameters and staged inference for one (GlowTTS voice, HiFi-GAN) pair."""
+
+    def __init__(
+        self,
+        glow_params,
+        glow_cfg: GlowTTSConfig,
+        audio_settings: AudioSettings,
+        vocoder_kind: str = "hifi_gan",
+        vocoder_params=None,
+        vocoder_cfg: typing.Optional[HiFiGanConfig] = None,
+        policy: typing.Optional[BucketPolicy] = None,
+        seed: int = 1234,
+        device=None,
+    ):
+        if vocoder_kind != "hifi_gan":
+            raise NotImplementedError(f"vocoder {vocoder_kind!r} is not ported yet")
+        if vocoder_cfg is None or vocoder_params is None:
+            raise ValueError("the hifi_gan engine needs vocoder params and config")
+        if glow_cfg.n_speakers > 1:
+            raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
+        self.device = resolve_device(device)
+        self.glow_cfg = glow_cfg
+        self.audio_settings = audio_settings
+        self.vocoder_kind = vocoder_kind
+        self.vocoder_cfg = vocoder_cfg
+        self.policy = policy or BucketPolicy(n_sqz=glow_cfg.n_sqz)
+        self.seed = seed
+        self.upsample = vocoder_cfg.total_upsample
+        self.glow_params = tree_to(glow_params, self.device)
+        self.vocoder_params = hifi_model.pack_params(
+            tree_to(vocoder_params, self.device), vocoder_cfg
+        )
+        self._bias_spec = None  # lazy denoiser bias
+        self.generator_calls = 0  # HiFi-GAN generator runs, bias included
+
+    # ------------------------------------------------------------------
+    # helpers
+
+    @staticmethod
+    def _row_values(value, b_bucket: int) -> np.ndarray:
+        """Scalar or per-row sequence -> [b_bucket] f32, padding rows
+        filled with the last given value."""
+        arr = np.empty((b_bucket,), dtype=np.float32)
+        if np.ndim(value) == 0:
+            arr[:] = float(value)
+        else:
+            value = np.asarray(value, dtype=np.float32)
+            arr[: len(value)] = value
+            arr[len(value):] = value[-1] if len(value) else 0.0
+        return arr
+
+    def _row_param(self, value, b_bucket: int, ndim: int) -> torch.Tensor:
+        """Scalar or per-row sequence -> [b_bucket, 1, ...] f32 tensor."""
+        arr = self._row_values(value, b_bucket).reshape((b_bucket,) + (1,) * (ndim - 1))
+        return torch.from_numpy(arr).to(self.device)
+
+    def _noise_generator(self, seed: typing.Optional[int], batch_index: int):
+        """A generator seeded from (seed or the engine's seed, batch index)."""
+        base = self.seed if seed is None else seed
+        state = np.random.SeedSequence([base & 0xFFFFFFFF, batch_index]).generate_state(1)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(state[0]))
+        return gen
+
+    def _generate(self, mel: torch.Tensor) -> torch.Tensor:
+        self.generator_calls += 1
+        return hifi_model.generator(self.vocoder_params, self.vocoder_cfg, mel).float()
+
+    # ------------------------------------------------------------------
+    # stages
+
+    def _pad_id_batch(self, id_seqs):
+        """Pad id sequences to (text, batch) buckets; pad rows get length 1."""
+        n = len(id_seqs)
+        t_bucket = self.policy.text_bucket(max(len(s) for s in id_seqs))
+        b_bucket = self.policy.batch_bucket(n)
+        ids = np.zeros((b_bucket, t_bucket), dtype=np.int64)
+        lengths = np.zeros((b_bucket,), dtype=np.int64)
+        for i, seq in enumerate(id_seqs):
+            ids[i, : len(seq)] = seq
+            lengths[i] = len(seq)
+        lengths[n:] = 1
+        return (
+            torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(lengths).to(self.device),
+            b_bucket,
+        )
+
+    @torch.inference_mode()
+    def encode_launch(self, id_seqs, length_scale=1.0):
+        """Encode a batch -> (x_m, x_logs, logw, w_ceil, y_lengths, x_mask), g.
+
+        ``g`` (speaker conditioning) is always None here."""
+        ids, lengths, b_bucket = self._pad_id_batch(id_seqs)
+        out = glow_model.encode(
+            self.glow_params, self.glow_cfg, ids, lengths,
+            length_scale=self._row_param(length_scale, b_bucket, 2),
+        )
+        return out, None
+
+    @torch.inference_mode()
+    def decode_launch(
+        self,
+        enc_out,
+        y_lengths: np.ndarray,
+        g,
+        n: int,
+        noise_scale=0.667,
+        seed: typing.Optional[int] = None,
+        batch_index: int = 0,
+    ):
+        """Flow decode at ``policy.mel_bucket(max y_length)`` -> (mel, z_mask)."""
+        x_m, x_logs, _logw, w_ceil, y_dev, _mask = enc_out
+        mel_bucket = self.policy.mel_bucket(int(y_lengths[:n].max()))
+        return glow_model.expand_and_decode(
+            self.glow_params, self.glow_cfg, x_m, x_logs, w_ceil, y_dev,
+            mel_max_length=mel_bucket,
+            noise_scale=self._row_param(noise_scale, x_m.shape[0], 3),
+            generator=self._noise_generator(seed, batch_index),
+        )
+
+    @torch.inference_mode()
+    def vocode_launch(self, mel, z_mask, n_valid: int, denoiser_strength, y_lengths=None):
+        """Vocode the first ``n_valid`` rows -> [(int16 part, row indices)]."""
+        return self._vocode_launch_hifi(mel, z_mask, n_valid, denoiser_strength, y_lengths)
+
+    def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool) -> torch.Tensor:
+        """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)]."""
+        mel_pp = postprocess(mel, z_mask, self.audio_settings)
+        audio = self._generate(mel_pp.transpose(1, 2))
+        n_valid = z_mask.sum(dim=1).to(torch.int64) * self.upsample
+        if denoise:
+            fft = self.audio_settings.filter_length
+            hop = self.audio_settings.hop_length
+            audio = hifi_denoiser.denoise(audio, bias_spec, strength, fft, hop)
+            # denoised length per row: frames(n_valid) * hop + fft
+            nf = torch.clamp(n_valid - fft, min=0)
+            n_valid = (nf + hop - 1) // hop * hop + fft
+        return to_int16(audio, n_valid)
+
+    def _vocode_launch_hifi(self, mel, z_mask, n_valid, denoiser_strength, y_lengths=None):
+        """Length-sorted ragged row groups, each at its own bucketed width."""
+        b, m, _ = mel.shape
+        denoise = bool(np.any(np.asarray(denoiser_strength) > 0))
+        bias = self._get_bias_spec() if denoise else None
+        str_rows = self._row_values(denoiser_strength, b)
+
+        if y_lengths is not None:
+            lens = np.asarray(y_lengths)[:n_valid].astype(np.int64)
+        else:
+            lens = np.full((n_valid,), m, dtype=np.int64)
+        order = np.argsort(-lens, kind="stable")
+        if np.array_equal(order, np.arange(n_valid)) and n_valid == b:
+            mel_s, mask_s = mel, z_mask
+        else:
+            idx = torch.from_numpy(order).to(self.device)
+            mel_s, mask_s = mel.index_select(0, idx), z_mask.index_select(0, idx)
+        sorted_lens = lens[order]
+
+        # denoised rows crop to nf*hop + fft samples, slightly past the
+        # y*up valid length: widen the per-group bucket by the STFT tail
+        margin = -(-self.audio_settings.filter_length // self.upsample) if denoise else 0
+        parts = []
+        for start, group, m_g in self._ragged_group_plan(
+            sorted_lens, n_valid, m, MAX_VOCODE_AREA, margin=margin
+        ):
+            rows = order[start : start + group]
+            part = self._vocode(
+                mel_s[start : start + group, :m_g],
+                mask_s[start : start + group, :m_g],
+                bias,
+                self._row_param(str_rows[rows], group, 3),
+                denoise,
+            )
+            parts.append((part, [int(i) for i in rows]))
+        return parts
+
+    def _ragged_group_plan(
+        self, sorted_lens: np.ndarray, n_valid: int, m: int, area: int, margin: int = 0
+    ) -> typing.List[typing.Tuple[int, int, int]]:
+        """[(start, rows, frame_bucket)] over length-descending rows.
+
+        The JAX engine's plan: rows at least half the group width ride
+        along, a >= 2x length drop starts a narrower group, group sizes are
+        powers of two; large plans ramp the first group (1, 1, 2, ...),
+        small ones of <= 8 rows merge into one group at the longest row's
+        bucket.
+        """
+        est_bytes = 2 * self.upsample * sum(
+            min(self.policy.mel_bucket(int(n) + margin), m) for n in sorted_lens[:n_valid]
+        )
+        ramp = est_bytes >= RAMP_MIN_BYTES
+
+        if 1 < n_valid <= 8 and est_bytes < RAMP_MIN_BYTES:
+            m_g = min(self.policy.mel_bucket(int(sorted_lens[0]) + margin), m)
+            if n_valid * m_g <= area:
+                return [(0, n_valid, m_g)]
+
+        plan = []
+        start = 0
+        while start < n_valid:
+            m_g = min(self.policy.mel_bucket(int(sorted_lens[start]) + margin), m)
+            remaining = n_valid - start
+            fit = max(1, area // m_g)
+            ext = 1
+            while (
+                start + ext < n_valid
+                and self.policy.mel_bucket(int(sorted_lens[start + ext])) * 2 > m_g
+            ):
+                ext += 1
+            group = 1 << (min(fit, ext, remaining).bit_length() - 1)
+            if ramp and start == 0 and 1 < group < n_valid:
+                size = 1
+                while size <= group // 2:
+                    plan.append((start, size, m_g))
+                    start += size
+                    size = min(size * 2, group)
+                continue
+            plan.append((start, group, m_g))
+            start += group
+        return plan
+
+    @torch.inference_mode()
+    def _get_bias_spec(self) -> torch.Tensor:
+        """First-frame magnitude of the vocoder's output for an 88-frame zero mel."""
+        if self._bias_spec is None:
+            zeros = torch.zeros(
+                (1, hifi_denoiser.BIAS_MEL_FRAMES, self.vocoder_cfg.num_mels),
+                device=self.device,
+            )
+            self._bias_spec = hifi_denoiser.compute_bias_spec(
+                self._generate(zeros),
+                self.audio_settings.filter_length,
+                self.audio_settings.hop_length,
+            )
+        return self._bias_spec
+
+    # ------------------------------------------------------------------
+    # host side
+
+    @staticmethod
+    def vocode_collect(parts, b: int) -> typing.List[np.ndarray]:
+        """Vocode parts -> per-row int16 arrays in original row order."""
+        rows: typing.List[typing.Optional[np.ndarray]] = [None] * b
+        for part, idxs in parts:
+            arr = part.cpu().numpy()
+            for j, i in enumerate(idxs):
+                if i < b:
+                    rows[i] = arr[j]
+        return [r if r is not None else np.zeros((0,), np.int16) for r in rows]
+
+    def crop_rows(self, audio_rows, y_lengths: np.ndarray, n: int, denoiser_strength):
+        """Per-sentence valid-sample crops of vocode_collect's rows."""
+        denoised = bool(np.any(np.asarray(denoiser_strength) > 0))
+        fft = self.audio_settings.filter_length
+        hop = self.audio_settings.hop_length
+        out = []
+        for i in range(n):
+            n_samples = int(y_lengths[i]) * self.upsample
+            if denoised:
+                n_samples = dsp.num_frames(n_samples, fft, hop) * hop + fft
+            n_samples = min(n_samples, audio_rows[i].shape[-1])
+            out.append(np.ascontiguousarray(audio_rows[i][:n_samples]))
+        return out
+
+    def synthesize_batch(
+        self,
+        id_seqs: typing.Sequence[np.ndarray],
+        noise_scale: float = 0.667,
+        length_scale: float = 1.0,
+        seed: typing.Optional[int] = None,
+        denoiser_strength: float = 0.0,
+        batch_index: int = 0,
+    ) -> typing.List[np.ndarray]:
+        """Synthesize a group of sentences (same text bucket) to int16 audio."""
+        n = len(id_seqs)
+        enc_out, g = self.encode_launch(id_seqs, length_scale)
+        y_lengths = enc_out[4].cpu().numpy()
+        mel, z_mask = self.decode_launch(
+            enc_out, y_lengths, g, n,
+            noise_scale=noise_scale, seed=seed, batch_index=batch_index,
+        )
+        parts = self.vocode_launch(mel, z_mask, n, denoiser_strength, y_lengths=y_lengths)
+        audio_rows = self.vocode_collect(parts, mel.shape[0])
+        return self.crop_rows(audio_rows, y_lengths, n, denoiser_strength)
+
+    def warmup(self, text_lengths=(16, 64), batch_sizes=(1,)):
+        """Run each (batch, text length) shape once."""
+        rng = np.random.default_rng(0)
+        for b in batch_sizes:
+            for t in text_lengths:
+                seqs = [
+                    rng.integers(1, self.glow_cfg.num_symbols, size=t).astype(np.int64)
+                    for _ in range(b)
+                ]
+                self.synthesize_batch(seqs)

@@ -1,0 +1,230 @@
+"""Parameters: the native (.npz) layout to the port's tensors, and random init.
+
+The native checkpoint layout is the JAX package's parameter tree
+(``convert/native.py``): convs ``[k, C_in, C_out]``, transposed convs
+``[k, C_in, C_out]`` (correlation form), 1x1 projections ``[C_in, C_out]``,
+with per-layer / per-block params stacked on leading axes.
+:func:`params_from_jax` transposes once, at load, to PyTorch's layout:
+convs ``[C_out, C_in, k]``, transposed convs ``[C_in, C_out, k]`` and 1x1
+projections ``[C_out, C_in]`` (leading stack axes are kept).
+
+:func:`init_params` draws a random native tree with the JAX package's
+shapes and distributions from a ``torch.Generator``, so a machine without
+JAX can stage a voice directory.
+"""
+
+import math
+import typing
+
+import numpy as np
+import torch
+
+from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
+from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+
+Params = typing.Dict[str, typing.Any]
+
+_CONV_KEYS = {"w", "conv1_w", "conv2_w", "in_w"}
+_MAT_KEYS = {
+    "q_w", "k_w", "v_w", "o_w", "proj_w", "proj_m_w", "proj_s_w",
+    "start_w", "end_w", "res_skip_w",
+}
+
+
+def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str) -> np.ndarray:
+    key = path[-1]
+    if kind == "hifi_gan" and path[0] == "ups" and key == "w":
+        return np.moveaxis(arr, -3, -1)  # [k, Ci, Co] -> [Ci, Co, k]
+    if key in _CONV_KEYS:
+        return np.swapaxes(arr, -3, -1)  # [..., k, Ci, Co] -> [..., Co, Ci, k]
+    if kind == "glow_tts" and key in _MAT_KEYS:
+        return np.swapaxes(arr, -2, -1)  # [..., Ci, Co] -> [..., Co, Ci]
+    return arr
+
+
+def params_from_jax(tree: Params, kind: str, device=None) -> Params:
+    """Native parameter tree (numpy) -> the port's tensors.
+
+    ``kind`` is ``"glow_tts"`` or ``"hifi_gan"``.  Floating leaves become
+    float32; integer leaves keep their type.
+    """
+    if kind not in ("glow_tts", "hifi_gan"):
+        raise ValueError(f"unknown parameter kind {kind!r}")
+    if kind == "glow_tts" and "emb_g" in tree:
+        raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+        arr = _convert(path, np.asarray(node), kind)
+        if np.issubdtype(arr.dtype, np.floating):
+            arr = arr.astype(np.float32)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    return walk(tree, ())
+
+
+def tree_to(tree, device) -> typing.Any:
+    """Move every tensor of a parameter tree to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+# -----------------------------------------------------------------------------
+# Random init in the native layout
+
+
+def _uniform(gen, shape, bound) -> np.ndarray:
+    return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound).numpy()
+
+
+def _normal(gen, shape, std=1.0) -> np.ndarray:
+    return (torch.randn(shape, generator=gen) * std).numpy()
+
+
+def _xavier(gen, shape, fan_in, fan_out) -> np.ndarray:
+    return _uniform(gen, shape, math.sqrt(6.0 / (fan_in + fan_out)))
+
+
+def _conv_init(gen, k, c_in, c_out):
+    bound = 1.0 / math.sqrt(c_in * k)
+    return _uniform(gen, (k, c_in, c_out), bound), _uniform(gen, (c_out,), bound)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _init_glow_tts(gen: torch.Generator, cfg: GlowTTSConfig) -> Params:
+    if cfg.n_speakers > 1:
+        raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
+    h, dk = cfg.enc_channels, cfg.k_channels
+    zeros, ones = np.zeros, np.ones
+    encoder: Params = {"emb": _normal(gen, (cfg.num_symbols, h), h**-0.5)}
+    if cfg.prenet:
+        layers = []
+        for _ in range(3):
+            w, b = _conv_init(gen, 5, h, h)
+            layers.append({"w": w, "b": b, "ln_g": ones(h), "ln_b": zeros(h)})
+        encoder["prenet"] = {"layers": layers, "proj_w": zeros((h, h)), "proj_b": zeros(h)}
+
+    enc_layers = []
+    for _ in range(cfg.n_layers_enc):
+        conv1_w, conv1_b = _conv_init(gen, cfg.kernel_size, h, cfg.filter_channels)
+        conv2_w, conv2_b = _conv_init(gen, cfg.kernel_size, cfg.filter_channels, h)
+        layer = {}
+        for name in ("q", "k", "v", "o"):
+            layer[f"{name}_w"] = _xavier(gen, (h, h), h, h)
+            layer[f"{name}_b"] = zeros(h)
+        layer.update(
+            ln1_g=ones(h), ln1_b=zeros(h), conv1_w=conv1_w, conv1_b=conv1_b,
+            conv2_w=conv2_w, conv2_b=conv2_b, ln2_g=ones(h), ln2_b=zeros(h),
+        )
+        if cfg.window_size is not None:
+            layer["emb_rel_k"] = _normal(gen, (2 * cfg.window_size + 1, dk), dk**-0.5)
+            layer["emb_rel_v"] = _normal(gen, (2 * cfg.window_size + 1, dk), dk**-0.5)
+        enc_layers.append(layer)
+    encoder["layers"] = _stack(enc_layers)
+
+    encoder["proj_m_w"] = _xavier(gen, (h, cfg.mel_channels), h, cfg.mel_channels)
+    encoder["proj_m_b"] = zeros(cfg.mel_channels)
+    if not cfg.mean_only:
+        encoder["proj_s_w"] = _xavier(gen, (h, cfg.mel_channels), h, cfg.mel_channels)
+        encoder["proj_s_b"] = zeros(cfg.mel_channels)
+
+    fdp = cfg.filter_channels_dp
+    dp_conv1_w, dp_conv1_b = _conv_init(gen, cfg.kernel_size, h + cfg.gin_channels, fdp)
+    dp_conv2_w, dp_conv2_b = _conv_init(gen, cfg.kernel_size, fdp, fdp)
+    encoder["dp"] = {
+        "conv1_w": dp_conv1_w, "conv1_b": dp_conv1_b, "ln1_g": ones(fdp), "ln1_b": zeros(fdp),
+        "conv2_w": dp_conv2_w, "conv2_b": dp_conv2_b, "ln2_g": ones(fdp), "ln2_b": zeros(fdp),
+        "proj_w": _xavier(gen, (fdp, 1), fdp, 1), "proj_b": zeros(1),
+    }
+
+    c_sqz, hd = cfg.sqz_channels, cfg.dec_channels
+    blocks = []
+    for _ in range(cfg.n_blocks_dec):
+        q = np.linalg.qr(_normal(gen, (cfg.n_split, cfg.n_split)).astype(np.float64))[0]
+        if np.linalg.det(q) < 0:
+            q[:, 0] *= -1
+        in_w, in_b, rs_w, rs_b = [], [], [], []
+        for i in range(cfg.n_block_layers):
+            w, b = _conv_init(gen, cfg.kernel_size_dec, hd, 2 * hd)
+            in_w.append(w)
+            in_b.append(b)
+            if i < cfg.n_block_layers - 1:
+                w, b = _conv_init(gen, 1, hd, 2 * hd)
+                rs_w.append(w[0])
+                rs_b.append(b)
+            else:  # last layer emits skip only: zero-pad the res half
+                w, b = _conv_init(gen, 1, hd, hd)
+                rs_w.append(np.concatenate([zeros((hd, hd)), w[0]], axis=-1))
+                rs_b.append(np.concatenate([zeros(hd), b]))
+        start_w, start_b = _conv_init(gen, 1, c_sqz // 2, hd)
+        blocks.append({
+            "actnorm": {"logs": zeros(c_sqz), "bias": zeros(c_sqz)},
+            "invconv": {"weight": q, "weight_inv": np.linalg.inv(q)},
+            "coupling": {
+                "start_w": start_w[0], "start_b": start_b,
+                "end_w": zeros((hd, c_sqz)), "end_b": zeros(c_sqz),
+                "wn": {
+                    "in_w": np.stack(in_w), "in_b": np.stack(in_b),
+                    "res_skip_w": np.stack(rs_w), "res_skip_b": np.stack(rs_b),
+                },
+            },
+        })
+    tree = {"encoder": encoder, "decoder": _stack(blocks)}
+    return _as_float32(tree)
+
+
+def _init_hifi_gan(gen: torch.Generator, cfg: HiFiGanConfig) -> Params:
+    def conv(k, c_in, c_out):
+        w, b = _conv_init(gen, k, c_in, c_out)
+        return {"w": w, "b": b}
+
+    c0 = cfg.upsample_initial_channel
+    params: Params = {"conv_pre": conv(7, cfg.num_mels, c0)}
+    ups, ch = [], c0
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        c_out = c0 // (2 ** (i + 1))
+        ups.append(conv(k, ch, c_out))
+        ch = c_out
+    params["ups"] = ups
+    resblocks = []
+    for i in range(len(cfg.upsample_rates)):
+        c = c0 // (2 ** (i + 1))
+        for ks, ds in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            if cfg.resblock == "1":
+                resblocks.append({
+                    "convs1": [conv(ks, c, c) for _ in ds],
+                    "convs2": [conv(ks, c, c) for _ in ds],
+                })
+            else:
+                resblocks.append({"convs": [conv(ks, c, c) for _ in ds]})
+    params["resblocks"] = resblocks
+    params["conv_post"] = conv(7, ch, 1)
+    return params
+
+
+def _as_float32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_float32(v) for v in tree]
+    return np.asarray(tree, dtype=np.float32)
+
+
+def init_params(generator: torch.Generator, cfg) -> Params:
+    """Random native-layout (numpy) params for a GlowTTS or HiFi-GAN config."""
+    if isinstance(cfg, GlowTTSConfig):
+        return _init_glow_tts(generator, cfg)
+    if isinstance(cfg, HiFiGanConfig):
+        return _init_hifi_gan(generator, cfg)
+    raise TypeError(f"no init for {type(cfg).__name__}")
