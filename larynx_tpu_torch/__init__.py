@@ -1,16 +1,16 @@
 """larynx_tpu_torch: the Larynx TTS pipeline in PyTorch and CUDA.
 
 Port of ``larynx_tpu`` (JAX) to one NVIDIA GPU: text -> phoneme ids ->
-GlowTTS mels -> HiFi-GAN audio, batched through one ``SynthesisEngine`` per
-(voice, vocoder).  The public surface mirrors ``larynx_tpu``'s
+GlowTTS mels -> HiFi-GAN or WaveGlow audio, batched through one
+``SynthesisEngine`` per (voice, vocoder).  The public surface mirrors ``larynx_tpu``'s
 ``text_to_speech()``, ``get_tts_model()``, ``get_vocoder_model()``,
 ``load_tts_model()`` and ``load_vocoder_model()``, plus a ``device``
 argument: entry points run on ``cuda`` unless the caller names another
 device, and raise when no GPU is present and none is named.
 
-Ported so far: GlowTTS voices and HiFi-GAN vocoders from ``.npz`` voice
-dirs, float32, consecutive same-voice batching.  Other vocoders, model
-families, the scheduler, interleaved batching and bf16 raise
+Ported so far: GlowTTS voices, HiFi-GAN and WaveGlow vocoders from
+``.npz`` voice dirs, float32, consecutive same-voice batching.  Griffin-Lim,
+other model families, the scheduler, interleaved batching and bf16 raise
 ``NotImplementedError``.
 """
 
@@ -278,22 +278,27 @@ def _get_engine(tts_model, vocoder_model, device):
     from larynx_tpu_torch.glow_tts import GlowTextToSpeech
     from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
     from larynx_tpu_torch.runtime.engine import SynthesisEngine
+    from larynx_tpu_torch.waveglow import WaveGlowVocoder
 
     key = (id(tts_model), id(vocoder_model), str(device))
     engine = _ENGINE_CACHE.get(key)
     if engine is None:
-        if not isinstance(tts_model, GlowTextToSpeech) or not isinstance(
-            vocoder_model, HiFiGanVocoder
-        ):
-            raise NotImplementedError("only GlowTTS + HiFi-GAN is ported yet")
+        if not isinstance(tts_model, GlowTextToSpeech):
+            raise NotImplementedError("only GlowTTS voices are ported yet")
+        if isinstance(vocoder_model, HiFiGanVocoder):
+            extra = {"vocoder_kind": "hifi_gan"}
+        elif isinstance(vocoder_model, WaveGlowVocoder):
+            extra = {"vocoder_kind": "waveglow", "waveglow_sigma": vocoder_model.sigma}
+        else:
+            raise NotImplementedError(f"vocoder {type(vocoder_model).__name__} is not ported yet")
         engine = _ENGINE_CACHE[key] = SynthesisEngine(
             tts_model.params,
             tts_model.model_config,
             tts_model.audio_settings or _DEFAULT_AUDIO_SETTINGS,
-            vocoder_kind="hifi_gan",
             vocoder_params=vocoder_model.params,
             vocoder_cfg=vocoder_model.model_config,
             device=device,
+            **extra,
         )
     return engine
 
@@ -412,7 +417,7 @@ def get_vocoder_model(
             "<model_type>/<model_name>)"
         )
     model_type, model_name = resolved.split("/", maxsplit=1)
-    if model_type != VocoderType.HIFI_GAN.value:
+    if model_type not in (VocoderType.HIFI_GAN.value, VocoderType.WAVEGLOW.value):
         raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
 
     model_dir: typing.Optional[Path] = None
@@ -432,7 +437,7 @@ def get_vocoder_model(
     if model_dir is None:
         return None
 
-    model = load_vocoder_model(VocoderType.HIFI_GAN, model_dir, backend=backend)
+    model = load_vocoder_model(VocoderType(model_type), model_dir, backend=backend)
     _VOCODER_MODEL_CACHE[quality_key] = model
     return model
 
@@ -447,6 +452,10 @@ def load_vocoder_model(
         from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
 
         return HiFiGanVocoder(model_path, backend=backend)
-    if model_type in (VocoderType.GRIFFIN_LIM, VocoderType.WAVEGLOW):
+    if model_type == VocoderType.WAVEGLOW:
+        from larynx_tpu_torch.waveglow import WaveGlowVocoder
+
+        return WaveGlowVocoder(model_path, backend=backend)
+    if model_type == VocoderType.GRIFFIN_LIM:
         raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
     raise ValueError(f"Unknown vocoder model type: {model_type}")

@@ -1,0 +1,129 @@
+"""WaveGlow vocoder, inference: mel [B, M, n_mels] -> waveform [B, M * stride].
+
+Counterpart of ``larynx_tpu/models/waveglow/model.py`` (``infer`` and the
+pieces it runs; ``forward`` and ``loss_fn`` are training and not ported).
+Audio samples fold into ``groups`` channels per time block; the mel is
+upsampled by a transposed conv and folded the same way as conditioning.
+Inference walks the flows backwards: per flow, the WN stack conditioned on
+the mel gives the affine coupling's (b, log_s), the coupling is inverted and
+the invertible 1x1 undone; every ``early_every`` flows, ``early_size``
+channels of the prior enter.
+
+Every WN layer runs through ``ops.wn_layer.fused_wn_layer_state``, one
+kernel launch per layer on CUDA, as the JAX package runs it through its
+Pallas kernel; :func:`pack_params` packs the layers' weights once, at load.
+The start and end 1x1s, the invertible 1x1 and the coupling stay plain
+torch.  The upsampler is a plain transposed conv trimmed to M * stride: the
+JAX package's phased matmul form only works around XLA's lowering.
+"""
+
+import typing
+
+import torch
+import torch.nn.functional as F
+
+from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
+from larynx_tpu_torch.ops.wn_layer import fused_wn_layer_state, pack_wn_layer
+
+Params = typing.Dict[str, typing.Any]
+
+
+def pack_params(params: Params, cfg: WaveGlowConfig) -> Params:
+    """params plus, per flow, ``wn["layers"]``: the :class:`WNLayer` of each
+    WN layer, with layer i's rows ``[2ch*i, 2ch*(i+1))`` of the stack's
+    conditioning 1x1.  Call once, on the device the vocoder runs on."""
+    flows = []
+    for flow in params["flows"]:
+        wn = flow["wn"]
+        two_ch = wn["in_w"][0].shape[0]
+        layers = []
+        for i in range(cfg.wn_layers):
+            rows = slice(i * two_ch, (i + 1) * two_ch)
+            layers.append(pack_wn_layer(
+                wn["in_w"][i], wn["in_b"][i], wn["cond_w"][rows], wn["cond_b"][rows],
+                wn["res_skip_w"][i], wn["res_skip_b"][i],
+            ))
+        flows.append(dict(flow, wn=dict(wn, layers=layers)))
+    return dict(params, flows=flows)
+
+
+def _upsample_cond(params: Params, cfg: WaveGlowConfig, mel: torch.Tensor) -> torch.Tensor:
+    """mel [B, M, n_mels] -> grouped conditioning [B, blocks, n_mels*groups].
+
+    ConvTranspose1d upsample trimmed to M * stride, then ``groups``
+    consecutive samples fold into channels as ``mel_ch * groups + offset``.
+    """
+    up = params["upsample"]
+    t = mel.shape[1] * cfg.upsample_stride
+    spect = F.conv_transpose1d(mel.transpose(1, 2), up["w"], up["b"], stride=cfg.upsample_stride)
+    spect = spect[:, :, :t]  # [B, n_mels, T]
+    b = spect.shape[0]
+    blocks = t // cfg.groups
+    spect = spect.reshape(b, cfg.mel_channels, blocks, cfg.groups).permute(0, 2, 1, 3)
+    return spect.reshape(b, blocks, cfg.mel_channels * cfg.groups).contiguous()
+
+
+def _wn(p: Params, cfg: WaveGlowConfig, x0: torch.Tensor, spect_g: torch.Tensor) -> torch.Tensor:
+    """Conditioned WaveNet stack -> coupling (b, log_s) channels.
+
+    x0 [B, blocks, n_half]; spect_g [B, blocks, n_mels*groups]."""
+    h = F.linear(x0, p["start_w"], p["start_b"]).contiguous()
+    skip = None
+    for i, layer in enumerate(p["layers"]):
+        h, skip = fused_wn_layer_state(
+            h, spect_g, skip, layer, dilation=2**i,
+            first=i == 0, last=i == cfg.wn_layers - 1,
+        )
+    return F.linear(skip, p["end_w"], p["end_b"])
+
+
+def _group_audio(audio: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, T] -> [B, T//groups, groups] (consecutive samples as channels)."""
+    b, t = audio.shape
+    return audio[:, : (t // groups) * groups].reshape(b, t // groups, groups)
+
+
+def infer(
+    params: Params,
+    cfg: WaveGlowConfig,
+    mel: torch.Tensor,
+    z: typing.Optional[torch.Tensor] = None,
+    generator: typing.Optional[torch.Generator] = None,
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """mel [B, M, n_mels] -> audio [B, M * upsample_stride]; ``params``
+    from :func:`pack_params`.
+
+    ``z`` ([B, blocks, groups], the forward output layout) is the prior;
+    without it, ``sigma * N(0, 1)`` is drawn from ``generator``.
+    """
+    cond = _upsample_cond(params, cfg, mel)
+    b, blocks = cond.shape[0], cond.shape[1]
+    if z is None:
+        z = sigma * torch.randn(
+            (b, blocks, cfg.groups), generator=generator, device=mel.device, dtype=mel.dtype
+        )
+
+    # the forward pass emits early chunks first and the residual tail last:
+    # walk the same layout backwards
+    early_flows = [k for k in range(cfg.flows) if k % cfg.early_every == 0 and k > 0]
+    offs = 0
+    chunks = {}
+    for k in early_flows:
+        chunks[k] = z[..., offs : offs + cfg.early_size]
+        offs += cfg.early_size
+    x = z[..., offs:]
+
+    for k in reversed(range(cfg.flows)):
+        flow = params["flows"][k]
+        n_half = x.shape[-1] // 2
+        x0, x1 = x[..., :n_half], x[..., n_half:]
+        out = _wn(flow["wn"], cfg, x0, cond)
+        b_t, log_s = out[..., :n_half], out[..., n_half:]
+        x1 = (x1 - b_t) * torch.exp(-log_s)
+        x = torch.cat([x0, x1], dim=-1)
+        x = F.linear(x, flow["convinv"]["w_inv"])  # einsum("btc,dc->btd")
+        if k in chunks:
+            x = torch.cat([chunks[k], x], dim=-1)
+
+    return x.reshape(b, blocks * cfg.groups)

@@ -1,0 +1,284 @@
+"""Fused WaveGlow WN layer.
+
+Counterpart of ``larynx_tpu/ops/wn_layer.py``: both its Pallas kernels,
+``fused_wn_layer_state`` (the layer plus the residual/skip state update,
+the production path of ``models/waveglow/model.py::_wn``) and
+``fused_wn_layer`` (the layer alone, returning rs).  Both wrappers launch
+the CUDA kernel ``csrc/wn_layer.cu`` for a CUDA tensor and run the plain
+torch version (:func:`wn_layer_state_plain`, :func:`wn_layer_plain`) for a
+CPU tensor.  There is no other route: a CUDA tensor the kernel cannot take
+raises.
+
+One layer, for h [B, T, ch], cond [B, T, cc] (channels-last):
+
+    a   = conv_d(h, w_in) + cond @ w_cond + (b_in + b_cond)     [B, T, 2ch]
+    g   = tanh(a[..., :ch]) * sigmoid(a[..., ch:])               [B, T, ch]
+    rs  = g @ w_rs + b_rs                                        [B, T, rs_out]
+
+with conv_d the k=3 conv of dilation d, zero-padded outside [0, T).  The
+state update: ``h += rs[..., :ch]`` and ``skip += rs[..., ch:]``, except on
+the last layer (rs_out == ch), where h passes through and all of rs is
+skip; on the first layer ``skip = s``.
+
+Weights travel packed (:func:`pack_wn_layer`, once, at load) in a
+:class:`WNLayer`: the torch-layout tensors for the plain version, the folded
+bias, and, where the kernel takes the geometry (ch = 256, cc a multiple of
+32), the kernel's tensor-core fragment order (:func:`pack_fragments`).
+"""
+
+import ctypes
+import dataclasses
+import typing
+
+import torch
+import torch.nn.functional as F
+
+KERNEL_CHANNELS = 256  # ch the kernel is built for (csrc/wn_layer.cu kCh)
+COND_ALIGN = 32  # cc must be a multiple of the kernel's K chunk
+
+# kernel modes (csrc/wn_layer.cu Mode)
+MODE_RS, MODE_MID, MODE_FIRST, MODE_LAST, MODE_FIRST_LAST = range(5)
+
+
+@dataclasses.dataclass(frozen=True)
+class WNLayer:
+    """One WN layer's weights: ``w_in`` [2ch, ch, 3] (conv), ``w_cond``
+    [2ch, cc], ``bias_a`` = b_in + b_cond [2ch], ``w_rs`` [rs_out, ch],
+    ``b_rs`` [rs_out]; ``frag_in`` / ``frag_rs`` the kernel's fragment
+    order of [w_in taps; w_cond] and w_rs (None where the kernel does not
+    take the geometry)."""
+
+    w_in: torch.Tensor
+    w_cond: torch.Tensor
+    bias_a: torch.Tensor
+    w_rs: torch.Tensor
+    b_rs: torch.Tensor
+    frag_in: typing.Optional[torch.Tensor]
+    frag_rs: typing.Optional[torch.Tensor]
+
+
+def kernel_takes(ch: int, cc: int) -> bool:
+    """True when the CUDA kernel is built for this (ch, cc) geometry."""
+    return ch == KERNEL_CHANNELS and cc % COND_ALIGN == 0 and cc > 0
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """[K, N] (K input rows, N = 256 or 512 output columns) -> the
+    kernel's mma.m16n8k8 B-fragment order, flat f32.
+
+    Order ``[K/8][warp 8][pair N/128][lane 32][4]``: warp w owns the
+    output columns ``256*half + 32*w + 8*q + g`` (half < N/256, q < 4),
+    its n-chunk ``nc = 4*half + q``; a pair holds n-chunks 2p and 2p+1 as
+    ``[b0(2p), b1(2p), b0(2p+1), b1(2p+1)]`` with lane = 4*g + t,
+    ``b0(nc) = W[8*ks + t][col(nc) + g]`` and ``b1 = W[8*ks + t + 4][...]``.
+    So a warp holds both halves (tanh and sigmoid) of its 32 channels.
+    """
+    k, n = w.shape
+    if k % 8 or n % 256:
+        raise ValueError(f"pack_fragments takes [8k, 256n], got {tuple(w.shape)}")
+    nh = n // 256
+    v = w.reshape(k // 8, 2, 4, nh, 8, 4, 8)  # (ks, kk, t, half, warp, q, g)
+    v = v.permute(0, 4, 3, 5, 6, 2, 1)  # (ks, warp, half, q, g, t, kk)
+    v = v.reshape(k // 8, 8, nh * 2, 2, 32, 2)  # (ks, warp, pair, nc % 2, lane, kk)
+    return v.permute(0, 1, 2, 4, 3, 5).contiguous().reshape(-1)
+
+
+def pack_wn_layer(
+    in_w: torch.Tensor,
+    in_b: torch.Tensor,
+    cond_w: torch.Tensor,
+    cond_b: torch.Tensor,
+    rs_w: torch.Tensor,
+    rs_b: torch.Tensor,
+) -> WNLayer:
+    """One layer's torch-layout params -> :class:`WNLayer`, on their device.
+
+    ``in_w`` [2ch, ch, 3]; ``cond_w`` [2ch, cc] / ``cond_b`` [2ch] are the
+    layer's rows of the stack's conditioning 1x1; ``rs_w`` [rs_out, ch].
+    """
+    two_ch, ch, _k = in_w.shape
+    cc = cond_w.shape[-1]
+    frag_in = frag_rs = None
+    if kernel_takes(ch, cc) and in_w.shape[-1] == 3:
+        taps = [in_w[:, :, tap].t() for tap in range(3)]  # [ch, 2ch] each
+        frag_in = pack_fragments(torch.cat(taps + [cond_w.t()], dim=0).float())
+        frag_rs = pack_fragments(rs_w.t().float())
+    return WNLayer(
+        in_w, cond_w, (in_b + cond_b).contiguous(), rs_w, rs_b, frag_in, frag_rs
+    )
+
+
+# -----------------------------------------------------------------------------
+# Plain versions
+
+
+def _gated(h, cond, w_in, w_cond, bias_a, dilation):
+    k = w_in.shape[-1]
+    a = F.conv1d(h.transpose(1, 2), w_in, None, padding=(k - 1) // 2 * dilation,
+                 dilation=dilation).transpose(1, 2)
+    a = a + F.linear(cond, w_cond) + bias_a
+    ch = h.shape[-1]
+    return torch.tanh(a[..., :ch]) * torch.sigmoid(a[..., ch:])
+
+
+def wn_layer_plain(h, cond, w_in, w_cond, bias_a, w_rs, b_rs, dilation: int) -> torch.Tensor:
+    """rs [B, T, rs_out] of one layer, in plain torch."""
+    return F.linear(_gated(h, cond, w_in, w_cond, bias_a, dilation), w_rs, b_rs)
+
+
+def wn_layer_state_plain(
+    h, cond, skip, w_in, w_cond, bias_a, w_rs, b_rs, dilation: int,
+    first: bool = False, last: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """(h_new, skip_new) of one layer, in plain torch; ``skip`` is ignored
+    (may be None) when ``first``."""
+    ch = h.shape[-1]
+    rs = wn_layer_plain(h, cond, w_in, w_cond, bias_a, w_rs, b_rs, dilation)
+    if last:
+        h_new, s = h, rs
+    else:
+        h_new, s = h + rs[..., :ch], rs[..., ch:]
+    return h_new, (s if first else skip + s)
+
+
+# -----------------------------------------------------------------------------
+# Kernel wrappers
+
+
+def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
+    if h.dim() != 3 or cond.dim() != 3 or cond.shape[:2] != h.shape[:2]:
+        raise ValueError(
+            f"h must be [B, T, ch] and cond [B, T, cc], got {tuple(h.shape)}, {tuple(cond.shape)}"
+        )
+    ch, cc = h.shape[-1], cond.shape[-1]
+    if not kernel_takes(ch, cc):
+        raise NotImplementedError(
+            f"wn_layer kernel takes ch={KERNEL_CHANNELS} and cc a multiple of "
+            f"{COND_ALIGN}, got ch={ch}, cc={cc}"
+        )
+    if layer.frag_in is None or layer.frag_rs is None:
+        raise ValueError("the layer was packed without kernel fragments")
+    if rs_out not in (ch, 2 * ch):
+        raise ValueError(f"rs_out must be {ch} or {2 * ch}, got {rs_out}")
+    if dilation < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
+    if layer.frag_in.numel() != (3 * ch + cc) * 2 * ch or layer.frag_rs.numel() != ch * rs_out:
+        raise ValueError("kernel fragments do not match the layer's geometry")
+    tensors = [("h", h), ("cond", cond), ("frag_in", layer.frag_in),
+               ("frag_rs", layer.frag_rs), ("bias_a", layer.bias_a), ("b_rs", layer.b_rs)]
+    if skip is not None:
+        if skip.shape != h.shape:
+            raise ValueError(f"skip must be {tuple(h.shape)}, got {tuple(skip.shape)}")
+        tensors.append(("skip", skip))
+    for name, t in tensors:
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"wn_layer kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _setup(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wn_layer_f32.restype = i
+    lib.wn_layer_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.wn_layer_error_string.restype = ctypes.c_char_p
+    lib.wn_layer_error_string.argtypes = [i]
+
+
+def _library() -> ctypes.CDLL:
+    from larynx_tpu_torch.ops.build import load_library
+
+    lib = load_library("wn_layer")
+    if not hasattr(lib, "_larynx_ready"):
+        _setup(lib)
+        lib._larynx_ready = True
+    return lib
+
+
+def _launch(lib, mode, h, cond, skip, layer, dilation, h_out, skip_out, rs):
+    b, t, _ = h.shape
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    with torch.cuda.device(h.device):
+        err = lib.wn_layer_f32(
+            h.data_ptr(), cond.data_ptr(), ptr(skip), layer.frag_in.data_ptr(),
+            layer.bias_a.data_ptr(), layer.frag_rs.data_ptr(), layer.b_rs.data_ptr(),
+            ptr(h_out), ptr(skip_out), ptr(rs), b, t, cond.shape[-1], layer.b_rs.numel(),
+            dilation, mode, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wn_layer launch failed: {lib.wn_layer_error_string(err).decode()}")
+
+
+def fused_wn_layer_state(
+    h: torch.Tensor,
+    cond: torch.Tensor,
+    skip: typing.Optional[torch.Tensor],
+    layer: WNLayer,
+    dilation: int,
+    first: bool = False,
+    last: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """One WN layer with its state update -> (h_new, skip_new).
+
+    A CPU tensor runs :func:`wn_layer_state_plain`; a CUDA tensor launches
+    the kernel (one launch) or raises.  h_new is a new tensor (neighbouring
+    time tiles read h's halo), or h itself on the last layer; skip_new is a
+    new tensor.  ``skip`` may be None when ``first``.
+    """
+    ch = h.shape[-1]
+    rs_out = layer.b_rs.numel()
+    if last != (rs_out == ch):
+        raise ValueError(f"last={last} but rs_out={rs_out} with ch={ch}")
+    if not first and skip is None:
+        raise ValueError("skip is required unless first")
+    if h.device.type == "cpu":
+        return wn_layer_state_plain(
+            h, cond, skip, layer.w_in, layer.w_cond, layer.bias_a, layer.w_rs, layer.b_rs,
+            dilation, first, last,
+        )
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_wn_layer_state runs on cpu or cuda tensors, got {h.device}")
+    skip_in = None if first else skip
+    _check(h, cond, skip_in, layer, rs_out, dilation)
+    lib = _library()
+    mode = {(False, False): MODE_MID, (True, False): MODE_FIRST,
+            (False, True): MODE_LAST, (True, True): MODE_FIRST_LAST}[(first, last)]
+    h_new = h if last else torch.empty_like(h)
+    skip_new = torch.empty_like(h)
+    _launch(lib, mode, h, cond, skip_in, layer, dilation, None if last else h_new, skip_new, None)
+    fused_wn_layer_state.launches += 1
+    return h_new, skip_new
+
+
+fused_wn_layer_state.launches = 0  # kernel launches made by fused_wn_layer_state
+
+
+def fused_wn_layer(
+    h: torch.Tensor, cond: torch.Tensor, layer: WNLayer, dilation: int
+) -> torch.Tensor:
+    """One WN layer -> rs [B, T, rs_out], without the state update.
+
+    A CPU tensor runs :func:`wn_layer_plain`; a CUDA tensor launches the
+    kernel (one launch) or raises.
+    """
+    if h.device.type == "cpu":
+        return wn_layer_plain(
+            h, cond, layer.w_in, layer.w_cond, layer.bias_a, layer.w_rs, layer.b_rs, dilation
+        )
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_wn_layer runs on cpu or cuda tensors, got {h.device}")
+    rs_out = layer.b_rs.numel()
+    _check(h, cond, None, layer, rs_out, dilation)
+    lib = _library()
+    rs = torch.empty(h.shape[:2] + (rs_out,), dtype=h.dtype, device=h.device)
+    _launch(lib, MODE_RS, h, cond, None, layer, dilation, None, None, rs)
+    fused_wn_layer.launches += 1
+    return rs
+
+
+fused_wn_layer.launches = 0  # kernel launches made by fused_wn_layer

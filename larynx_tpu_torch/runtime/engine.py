@@ -1,6 +1,7 @@
 """The synthesis engine: staged, bucketed, batched inference on one device.
 
-Counterpart of the HiFi-GAN batch path of ``larynx_tpu/runtime/engine.py``:
+Counterpart of the single-device HiFi-GAN and WaveGlow batch paths of
+``larynx_tpu/runtime/engine.py``:
 
   stage A  encode      ids [B,T]        -> means / durations / y_lengths
   stage B  decode      means [B,T]      -> mel [B,M,C]        (flow reverse)
@@ -10,6 +11,8 @@ Between A and B the host reads the per-sentence mel lengths and picks the
 mel bucket M.  Stage C runs length-sorted ragged row groups, each at its
 own bucketed width, with the same group plan as the JAX engine, then the
 optional bias denoiser and int16 peak normalisation on the device.
+WaveGlow's prior is drawn once for the whole batch, zeroed past each row's
+valid blocks and sliced per group, as there.
 """
 
 import logging
@@ -27,6 +30,8 @@ from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
 from larynx_tpu_torch.models.hifi_gan import model as hifi_model
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+from larynx_tpu_torch.models.waveglow import model as wg_model
+from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 from larynx_tpu_torch.runtime.buckets import BucketPolicy
 from larynx_tpu_torch.weights import tree_to
 
@@ -40,6 +45,13 @@ SILENCE_LOG_MEL = float(np.log(1e-5))
 # Kept equal so every row is vocoded at the same width as there.
 MAX_VOCODE_AREA = 16384
 RAMP_MIN_BYTES = 8_000_000
+
+
+def waveglow_area() -> int:
+    """(rows x mel frames) bound per WaveGlow vocoder call: a quarter of
+    MAX_VOCODE_AREA, as the JAX engine's default (its WN stack keeps
+    several [blocks, 2 * wn_channels] buffers live per row)."""
+    return max(64, MAX_VOCODE_AREA // 4)
 
 
 def postprocess(mel: torch.Tensor, z_mask: torch.Tensor, settings: AudioSettings):
@@ -60,7 +72,8 @@ def to_int16(audio: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
 
 
 class SynthesisEngine:
-    """Parameters and staged inference for one (GlowTTS voice, HiFi-GAN) pair."""
+    """Parameters and staged inference for one (GlowTTS voice, vocoder) pair;
+    the vocoder is HiFi-GAN or WaveGlow."""
 
     def __init__(
         self,
@@ -69,15 +82,16 @@ class SynthesisEngine:
         audio_settings: AudioSettings,
         vocoder_kind: str = "hifi_gan",
         vocoder_params=None,
-        vocoder_cfg: typing.Optional[HiFiGanConfig] = None,
+        vocoder_cfg: typing.Union[HiFiGanConfig, WaveGlowConfig, None] = None,
         policy: typing.Optional[BucketPolicy] = None,
         seed: int = 1234,
+        waveglow_sigma: float = 0.9,
         device=None,
     ):
-        if vocoder_kind != "hifi_gan":
+        if vocoder_kind not in ("hifi_gan", "waveglow"):
             raise NotImplementedError(f"vocoder {vocoder_kind!r} is not ported yet")
         if vocoder_cfg is None or vocoder_params is None:
-            raise ValueError("the hifi_gan engine needs vocoder params and config")
+            raise ValueError(f"the {vocoder_kind} engine needs vocoder params and config")
         if glow_cfg.n_speakers > 1:
             raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
         self.device = resolve_device(device)
@@ -87,13 +101,17 @@ class SynthesisEngine:
         self.vocoder_cfg = vocoder_cfg
         self.policy = policy or BucketPolicy(n_sqz=glow_cfg.n_sqz)
         self.seed = seed
-        self.upsample = vocoder_cfg.total_upsample
+        self.waveglow_sigma = waveglow_sigma
         self.glow_params = tree_to(glow_params, self.device)
-        self.vocoder_params = hifi_model.pack_params(
-            tree_to(vocoder_params, self.device), vocoder_cfg
-        )
+        if vocoder_kind == "hifi_gan":
+            pack = hifi_model.pack_params
+            self.upsample, self.num_mels = vocoder_cfg.total_upsample, vocoder_cfg.num_mels
+        else:
+            pack = wg_model.pack_params
+            self.upsample, self.num_mels = vocoder_cfg.upsample_stride, vocoder_cfg.mel_channels
+        self.vocoder_params = pack(tree_to(vocoder_params, self.device), vocoder_cfg)
         self._bias_spec = None  # lazy denoiser bias
-        self.generator_calls = 0  # HiFi-GAN generator runs, bias included
+        self.generator_calls = 0  # vocoder runs (generator or WaveGlow infer), bias included
 
     # ------------------------------------------------------------------
     # helpers
@@ -116,16 +134,22 @@ class SynthesisEngine:
         arr = self._row_values(value, b_bucket).reshape((b_bucket,) + (1,) * (ndim - 1))
         return torch.from_numpy(arr).to(self.device)
 
-    def _noise_generator(self, seed: typing.Optional[int], batch_index: int):
-        """A generator seeded from (seed or the engine's seed, batch index)."""
+    def _noise_generator(self, seed: typing.Optional[int], batch_index: int, stream: int = 0):
+        """A generator seeded from (seed or the engine's seed, batch index);
+        stream 0 is the decode noise, stream 1 the WaveGlow prior."""
         base = self.seed if seed is None else seed
-        state = np.random.SeedSequence([base & 0xFFFFFFFF, batch_index]).generate_state(1)
+        entropy = [base & 0xFFFFFFFF, batch_index] + ([stream] if stream else [])
+        state = np.random.SeedSequence(entropy).generate_state(1)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(state[0]))
         return gen
 
-    def _generate(self, mel: torch.Tensor) -> torch.Tensor:
+    def _generate(self, mel: torch.Tensor, z: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mel [B, M, C] -> float audio [B, M * upsample]; ``z`` is
+        WaveGlow's prior [B, blocks, groups]."""
         self.generator_calls += 1
+        if self.vocoder_kind == "waveglow":
+            return wg_model.infer(self.vocoder_params, self.vocoder_cfg, mel, z=z).float()
         return hifi_model.generator(self.vocoder_params, self.vocoder_cfg, mel).float()
 
     # ------------------------------------------------------------------
@@ -182,14 +206,38 @@ class SynthesisEngine:
         )
 
     @torch.inference_mode()
-    def vocode_launch(self, mel, z_mask, n_valid: int, denoiser_strength, y_lengths=None):
-        """Vocode the first ``n_valid`` rows -> [(int16 part, row indices)]."""
-        return self._vocode_launch_hifi(mel, z_mask, n_valid, denoiser_strength, y_lengths)
+    def vocode_launch(
+        self, mel, z_mask, n_valid: int, denoiser_strength, y_lengths=None,
+        seed: typing.Optional[int] = None, batch_index: int = 0,
+    ):
+        """Vocode the first ``n_valid`` rows -> [(int16 part, row indices)].
 
-    def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool) -> torch.Tensor:
+        ``seed`` and ``batch_index`` seed WaveGlow's prior, on a stream of
+        its own beside the decode noise's."""
+        z_full = None
+        if self.vocoder_kind == "waveglow":
+            z_full = self._waveglow_prior(mel.shape[0], mel.shape[1], z_mask, seed, batch_index)
+        return self._vocode_groups(mel, z_mask, n_valid, denoiser_strength, y_lengths, z_full)
+
+    def _waveglow_prior(self, b: int, m: int, z_mask, seed, batch_index) -> torch.Tensor:
+        """sigma * N(0, 1) for the whole [b, blocks, groups] batch, zeroed past
+        each row's y_length * blocks_per_frame: the padded tail is then
+        (near-)silence under any bucket width."""
+        cfg = self.vocoder_cfg
+        blocks_full = m * cfg.upsample_stride // cfg.groups
+        blocks_per_frame = cfg.upsample_stride // cfg.groups
+        z_full = self.waveglow_sigma * torch.randn(
+            (b, blocks_full, cfg.groups), device=self.device,
+            generator=self._noise_generator(seed, batch_index, stream=1),
+        )
+        valid_blocks = z_mask.sum(dim=1).to(torch.int64) * blocks_per_frame
+        inside = torch.arange(blocks_full, device=self.device)[None, :] < valid_blocks[:, None]
+        return torch.where(inside[..., None], z_full, 0.0)
+
+    def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool, z=None) -> torch.Tensor:
         """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)]."""
         mel_pp = postprocess(mel, z_mask, self.audio_settings)
-        audio = self._generate(mel_pp.transpose(1, 2))
+        audio = self._generate(mel_pp.transpose(1, 2), z)
         n_valid = z_mask.sum(dim=1).to(torch.int64) * self.upsample
         if denoise:
             fft = self.audio_settings.filter_length
@@ -200,9 +248,12 @@ class SynthesisEngine:
             n_valid = (nf + hop - 1) // hop * hop + fft
         return to_int16(audio, n_valid)
 
-    def _vocode_launch_hifi(self, mel, z_mask, n_valid, denoiser_strength, y_lengths=None):
-        """Length-sorted ragged row groups, each at its own bucketed width."""
+    def _vocode_groups(self, mel, z_mask, n_valid, denoiser_strength, y_lengths, z_full):
+        """Length-sorted ragged row groups, each at its own bucketed width;
+        WaveGlow's groups are bounded by the smaller :func:`waveglow_area`
+        and take their rows and blocks of the prior ``z_full``."""
         b, m, _ = mel.shape
+        area = MAX_VOCODE_AREA if z_full is None else waveglow_area()
         denoise = bool(np.any(np.asarray(denoiser_strength) > 0))
         bias = self._get_bias_spec() if denoise else None
         str_rows = self._row_values(denoiser_strength, b)
@@ -213,10 +264,11 @@ class SynthesisEngine:
             lens = np.full((n_valid,), m, dtype=np.int64)
         order = np.argsort(-lens, kind="stable")
         if np.array_equal(order, np.arange(n_valid)) and n_valid == b:
-            mel_s, mask_s = mel, z_mask
+            mel_s, mask_s, z_s = mel, z_mask, z_full
         else:
             idx = torch.from_numpy(order).to(self.device)
             mel_s, mask_s = mel.index_select(0, idx), z_mask.index_select(0, idx)
+            z_s = None if z_full is None else z_full.index_select(0, idx)
         sorted_lens = lens[order]
 
         # denoised rows crop to nf*hop + fft samples, slightly past the
@@ -224,15 +276,20 @@ class SynthesisEngine:
         margin = -(-self.audio_settings.filter_length // self.upsample) if denoise else 0
         parts = []
         for start, group, m_g in self._ragged_group_plan(
-            sorted_lens, n_valid, m, MAX_VOCODE_AREA, margin=margin
+            sorted_lens, n_valid, m, area, margin=margin
         ):
             rows = order[start : start + group]
+            z_g = None
+            if z_s is not None:
+                blocks_g = m_g * self.vocoder_cfg.upsample_stride // self.vocoder_cfg.groups
+                z_g = z_s[start : start + group, :blocks_g]
             part = self._vocode(
                 mel_s[start : start + group, :m_g],
                 mask_s[start : start + group, :m_g],
                 bias,
                 self._row_param(str_rows[rows], group, 3),
                 denoise,
+                z_g,
             )
             parts.append((part, [int(i) for i in rows]))
         return parts
@@ -284,14 +341,19 @@ class SynthesisEngine:
 
     @torch.inference_mode()
     def _get_bias_spec(self) -> torch.Tensor:
-        """First-frame magnitude of the vocoder's output for an 88-frame zero mel."""
+        """First-frame magnitude of the vocoder's output for an 88-frame zero
+        mel (and, for WaveGlow, a zero prior: sigma 0, NVIDIA's Denoiser mode)."""
         if self._bias_spec is None:
-            zeros = torch.zeros(
-                (1, hifi_denoiser.BIAS_MEL_FRAMES, self.vocoder_cfg.num_mels),
-                device=self.device,
-            )
+            frames = hifi_denoiser.BIAS_MEL_FRAMES
+            zeros = torch.zeros((1, frames, self.num_mels), device=self.device)
+            z = None
+            if self.vocoder_kind == "waveglow":
+                cfg = self.vocoder_cfg
+                z = torch.zeros(
+                    (1, frames * cfg.upsample_stride // cfg.groups, cfg.groups), device=self.device
+                )
             self._bias_spec = hifi_denoiser.compute_bias_spec(
-                self._generate(zeros),
+                self._generate(zeros, z),
                 self.audio_settings.filter_length,
                 self.audio_settings.hop_length,
             )
@@ -342,7 +404,10 @@ class SynthesisEngine:
             enc_out, y_lengths, g, n,
             noise_scale=noise_scale, seed=seed, batch_index=batch_index,
         )
-        parts = self.vocode_launch(mel, z_mask, n, denoiser_strength, y_lengths=y_lengths)
+        parts = self.vocode_launch(
+            mel, z_mask, n, denoiser_strength, y_lengths=y_lengths,
+            seed=seed, batch_index=batch_index,
+        )
         audio_rows = self.vocode_collect(parts, mel.shape[0])
         return self.crop_rows(audio_rows, y_lengths, n, denoiser_strength)
 

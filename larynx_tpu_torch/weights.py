@@ -3,10 +3,12 @@
 The native checkpoint layout is the JAX package's parameter tree
 (``convert/native.py``): convs ``[k, C_in, C_out]``, transposed convs
 ``[k, C_in, C_out]`` (correlation form), 1x1 projections ``[C_in, C_out]``,
-with per-layer / per-block params stacked on leading axes.
-:func:`params_from_jax` transposes once, at load, to PyTorch's layout:
-convs ``[C_out, C_in, k]``, transposed convs ``[C_in, C_out, k]`` and 1x1
-projections ``[C_out, C_in]`` (leading stack axes are kept).
+with per-layer / per-block params stacked on leading axes (WaveGlow keeps
+its per-layer params as lists).  :func:`params_from_jax` transposes once,
+at load, to PyTorch's layout: convs ``[C_out, C_in, k]``, transposed convs
+``[C_in, C_out, k]`` and 1x1 projections ``[C_out, C_in]`` (leading stack
+axes are kept).  WaveGlow's invertible 1x1s (``convinv.w``/``w_inv``) are
+already ``[C_out, C_in]`` in the native layout and stay as they are.
 
 :func:`init_params` draws a random native tree with the JAX package's
 shapes and distributions from a ``torch.Generator``, so a machine without
@@ -21,6 +23,7 @@ import torch
 
 from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 
 Params = typing.Dict[str, typing.Any]
 
@@ -29,9 +32,27 @@ _MAT_KEYS = {
     "q_w", "k_w", "v_w", "o_w", "proj_w", "proj_m_w", "proj_s_w",
     "start_w", "end_w", "res_skip_w",
 }
+_WAVEGLOW_MAT_KEYS = {"start_w", "cond_w", "res_skip_w", "end_w"}
+
+
+def _convert_waveglow(path: typing.Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
+    """upsample.w [k, Ci, Co] -> [Ci, Co, k]; each WN layer's in_w [k, Ci, Co]
+    -> [Co, Ci, k]; the WN's 1x1s [Ci, Co] -> [Co, Ci], so cond_w
+    [cc, 2ch*L] becomes [2ch*L, cc] and layer i reads its rows
+    [2ch*i, 2ch*(i+1)); convinv.w / w_inv unchanged."""
+    key = next(p for p in reversed(path) if not p.isdigit())  # past list indices
+    if path[0] == "upsample" and key == "w":
+        return np.moveaxis(arr, -3, -1)
+    if key == "in_w":
+        return np.swapaxes(arr, -3, -1)
+    if key in _WAVEGLOW_MAT_KEYS:
+        return np.swapaxes(arr, -2, -1)
+    return arr
 
 
 def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "waveglow":
+        return _convert_waveglow(path, arr)
     key = path[-1]
     if kind == "hifi_gan" and path[0] == "ups" and key == "w":
         return np.moveaxis(arr, -3, -1)  # [k, Ci, Co] -> [Ci, Co, k]
@@ -45,10 +66,10 @@ def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str) -> np.nda
 def params_from_jax(tree: Params, kind: str, device=None) -> Params:
     """Native parameter tree (numpy) -> the port's tensors.
 
-    ``kind`` is ``"glow_tts"`` or ``"hifi_gan"``.  Floating leaves become
-    float32; integer leaves keep their type.
+    ``kind`` is ``"glow_tts"``, ``"hifi_gan"`` or ``"waveglow"``.  Floating
+    leaves become float32; integer leaves keep their type.
     """
-    if kind not in ("glow_tts", "hifi_gan"):
+    if kind not in ("glow_tts", "hifi_gan", "waveglow"):
         raise ValueError(f"unknown parameter kind {kind!r}")
     if kind == "glow_tts" and "emb_g" in tree:
         raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
@@ -213,6 +234,44 @@ def _init_hifi_gan(gen: torch.Generator, cfg: HiFiGanConfig) -> Params:
     return params
 
 
+def _init_waveglow(gen: torch.Generator, cfg: WaveGlowConfig) -> Params:
+    """The JAX init: normal x 0.05 weights, normal x 0.01 biases, a QR
+    rotation with det > 0 (and its inverse) per invertible 1x1, and zero
+    end convs, so every coupling starts as the identity."""
+    def conv(k, c_in, c_out):
+        return _normal(gen, (k, c_in, c_out), 0.05), _normal(gen, (c_out,), 0.01)
+
+    up_w, up_b = conv(cfg.upsample_kernel, cfg.mel_channels, cfg.mel_channels)
+    params: Params = {"upsample": {"w": up_w, "b": up_b}, "flows": []}
+    ch = cfg.wn_channels
+    for k in range(cfg.flows):
+        c = cfg.channels_at_flow(k)
+        n_half = c // 2
+        w = np.linalg.qr(_normal(gen, (c, c)).astype(np.float64))[0]
+        if np.linalg.det(w) < 0:
+            w[:, 0] *= -1
+        start_w, start_b = conv(1, n_half, ch)
+        cond_w, cond_b = conv(1, cfg.mel_channels * cfg.groups, 2 * ch * cfg.wn_layers)
+        in_w, in_b, rs_w, rs_b = [], [], [], []
+        for i in range(cfg.wn_layers):
+            wi, bi = conv(cfg.wn_kernel_size, ch, 2 * ch)
+            in_w.append(wi)
+            in_b.append(bi)
+            wr, br = conv(1, ch, 2 * ch if i < cfg.wn_layers - 1 else ch)
+            rs_w.append(wr[0])
+            rs_b.append(br)
+        params["flows"].append({
+            "convinv": {"w": w, "w_inv": np.linalg.inv(w)},
+            "wn": {
+                "start_w": start_w[0], "start_b": start_b,
+                "cond_w": cond_w[0], "cond_b": cond_b,
+                "in_w": in_w, "in_b": in_b, "res_skip_w": rs_w, "res_skip_b": rs_b,
+                "end_w": np.zeros((ch, 2 * n_half)), "end_b": np.zeros(2 * n_half),
+            },
+        })
+    return _as_float32(params)
+
+
 def _as_float32(tree):
     if isinstance(tree, dict):
         return {k: _as_float32(v) for k, v in tree.items()}
@@ -222,9 +281,12 @@ def _as_float32(tree):
 
 
 def init_params(generator: torch.Generator, cfg) -> Params:
-    """Random native-layout (numpy) params for a GlowTTS or HiFi-GAN config."""
+    """Random native-layout (numpy) params for a GlowTTS, HiFi-GAN or
+    WaveGlow config."""
     if isinstance(cfg, GlowTTSConfig):
         return _init_glow_tts(generator, cfg)
     if isinstance(cfg, HiFiGanConfig):
         return _init_hifi_gan(generator, cfg)
+    if isinstance(cfg, WaveGlowConfig):
+        return _init_waveglow(generator, cfg)
     raise TypeError(f"no init for {type(cfg).__name__}")

@@ -1,0 +1,220 @@
+"""The port's WN layer (plain versions behind the wrappers) against the JAX package.
+
+The plain versions, reached through ``fused_wn_layer_state`` and
+``fused_wn_layer`` on CPU tensors, are held against the JAX Pallas kernels
+run in interpret mode (as ``tests/test_pallas_ops.py`` runs them on the
+CPU), on the same numpy inputs: single layers at dilation 1, 4 and 128 in
+every mode, a three-layer stack at the WaveGlow wn_256 width (ch 256,
+cc 640), and a narrow geometry.  T is never a multiple of the Pallas tile.
+
+Tolerance: 2e-5 absolute, float32, the bound ``test_pallas_ops`` uses for
+the state kernel against XLA.  A layer's pre-gate sum runs over 3*ch + cc
+products (1408 at wn_256) of weights ~0.05 and O(1) inputs, summed in
+other orders: ~1e-6 observed.
+
+Also here: the kernel's weight-fragment layout (built on the CPU at load)
+and the wrappers' guards: the plain version only for CPU tensors, and no
+fallback when the CUDA library cannot be had.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from larynx_tpu.ops.wn_layer import fused_wn_layer as j_wn_layer
+from larynx_tpu.ops.wn_layer import fused_wn_layer_state as j_wn_layer_state
+from larynx_tpu_torch.ops import wn_layer
+
+ATOL = 2e-5
+
+
+def _layer_np(rng, ch, cc, rs_out):
+    """One layer in the JAX layout: w_in [3, ch, 2ch], w_cond [cc, 2ch], w_rs [ch, rs_out]."""
+    n = lambda shape, s: (rng.standard_normal(shape) * s).astype(np.float32)  # noqa: E731
+    return dict(
+        w_in=n((3, ch, 2 * ch), 0.05), b_in=n((2 * ch,), 0.01),
+        w_cond=n((cc, 2 * ch), 0.05), b_cond=n((2 * ch,), 0.01),
+        w_rs=n((ch, rs_out), 0.05), b_rs=n((rs_out,), 0.01),
+    )
+
+
+def _pack(layer_np) -> wn_layer.WNLayer:
+    """The JAX-layout numpy layer -> the port's packed layer (torch layout)."""
+    t = {k: torch.from_numpy(v) for k, v in layer_np.items()}
+    return wn_layer.pack_wn_layer(
+        t["w_in"].permute(2, 1, 0).contiguous(), t["b_in"], t["w_cond"].t().contiguous(),
+        t["b_cond"], t["w_rs"].t().contiguous(), t["b_rs"],
+    )
+
+
+def _jax_args(layer_np):
+    return [jnp.asarray(layer_np[k]) for k in ("w_in", "b_in", "w_cond", "b_cond", "w_rs", "b_rs")]
+
+
+@pytest.mark.parametrize("dilation", [1, 4, 128])
+@pytest.mark.parametrize("position", ["first", "mid", "last", "first_last"])
+def test_wn_layer_state_matches_pallas(dilation, position):
+    """One layer with its state update, at wn_256 width, T = 300."""
+    first, last = position.startswith("first"), position.endswith("last")
+    ch, cc, b, t = 256, 640, 2, 300
+    rng = np.random.default_rng(dilation)
+    layer = _layer_np(rng, ch, cc, ch if last else 2 * ch)
+    h = rng.standard_normal((b, t, ch)).astype(np.float32)
+    cond = rng.standard_normal((b, t, cc)).astype(np.float32)
+    skip = None if first else rng.standard_normal((b, t, ch)).astype(np.float32)
+
+    ref_h, ref_s = j_wn_layer_state(
+        jnp.asarray(h), jnp.asarray(cond), None if first else jnp.asarray(skip),
+        *_jax_args(layer), dilation=dilation, first=first, last=last, tile=128, interpret=True,
+    )
+    out_h, out_s = wn_layer.fused_wn_layer_state(
+        torch.from_numpy(h), torch.from_numpy(cond), None if first else torch.from_numpy(skip),
+        _pack(layer), dilation=dilation, first=first, last=last,
+    )
+    np.testing.assert_allclose(out_h.numpy(), np.asarray(ref_h), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(out_s.numpy(), np.asarray(ref_s), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("rs_out", [512, 256])
+@pytest.mark.parametrize("dilation", [1, 4, 128])
+def test_wn_layer_matches_pallas(dilation, rs_out):
+    """The layer alone (rs), at wn_256 width, T = 200."""
+    ch, cc, b, t = 256, 640, 2, 200
+    rng = np.random.default_rng(10 + dilation)
+    layer = _layer_np(rng, ch, cc, rs_out)
+    h = rng.standard_normal((b, t, ch)).astype(np.float32)
+    cond = rng.standard_normal((b, t, cc)).astype(np.float32)
+    ref = j_wn_layer(jnp.asarray(h), jnp.asarray(cond), *_jax_args(layer), dilation=dilation,
+                     tile=128, interpret=True)
+    out = wn_layer.fused_wn_layer(torch.from_numpy(h), torch.from_numpy(cond), _pack(layer),
+                                  dilation=dilation)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("ch,cc,t", [(256, 640, 150), (32, 64, 77)], ids=["wn_256", "narrow"])
+def test_wn_stack_matches_pallas(ch, cc, t):
+    """A three-layer stack (first, middle, last; dilations 1, 2, 4): the
+    state walks through the port's layers as through the Pallas kernels."""
+    rng = np.random.default_rng(ch)
+    layers = [_layer_np(rng, ch, cc, ch if i == 2 else 2 * ch) for i in range(3)]
+    h0 = rng.standard_normal((2, t, ch)).astype(np.float32)
+    cond = rng.standard_normal((2, t, cc)).astype(np.float32)
+
+    jh, js = jnp.asarray(h0), None
+    th, ts = torch.from_numpy(h0), None
+    for i, layer in enumerate(layers):
+        flags = dict(dilation=2**i, first=i == 0, last=i == 2)
+        jh, js = j_wn_layer_state(jh, jnp.asarray(cond), js, *_jax_args(layer), **flags,
+                                  tile=64, interpret=True)
+        th, ts = wn_layer.fused_wn_layer_state(th, torch.from_numpy(cond), ts, _pack(layer),
+                                               **flags)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [512, 256])
+def test_pack_fragments_layout(n):
+    """The documented fragment order, element by element, at K = 48."""
+    k = 48
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    frags = wn_layer.pack_fragments(w).reshape(k // 8, 8, n // 128, 32, 4)
+    for ks in (0, 3, 5):
+        for warp in (0, 5, 7):
+            for nc in range(n // 64):  # n-chunks per warp
+                col = (nc // 4) * 256 + warp * 32 + (nc % 4) * 8
+                for lane in (0, 9, 31):
+                    g, t = lane // 4, lane % 4
+                    pair, e = divmod(nc, 2)
+                    got = frags[ks, warp, pair, lane, 2 * e : 2 * e + 2].tolist()
+                    assert got == [w[8 * ks + t, col + g].item(), w[8 * ks + t + 4, col + g].item()]
+
+
+def test_pack_wn_layer_geometry():
+    rng = np.random.default_rng(0)
+    wide = _pack(_layer_np(rng, 256, 640, 512))
+    assert wide.frag_in.numel() == (3 * 256 + 640) * 512 and wide.frag_rs.numel() == 256 * 512
+    narrow = _pack(_layer_np(rng, 32, 64, 64))
+    assert narrow.frag_in is None and narrow.frag_rs is None  # the kernel takes ch=256 only
+    assert not wn_layer.kernel_takes(256, 100) and wn_layer.kernel_takes(256, 64)
+
+
+def _inputs(ch=256, cc=640, t=40, rs_out=512):
+    rng = np.random.default_rng(5)
+    layer = _pack(_layer_np(rng, ch, cc, rs_out))
+    h = torch.from_numpy(rng.standard_normal((1, t, ch)).astype(np.float32))
+    cond = torch.from_numpy(rng.standard_normal((1, t, cc)).astype(np.float32))
+    return layer, h, cond
+
+
+def test_wn_wrappers_run_plain_only_on_cpu(monkeypatch):
+    layer, h, cond = _inputs()
+    before = (wn_layer.fused_wn_layer_state.launches, wn_layer.fused_wn_layer.launches)
+    out = wn_layer.fused_wn_layer(h, cond, layer, dilation=2)
+    ref = wn_layer.wn_layer_plain(h, cond, layer.w_in, layer.w_cond, layer.bias_a, layer.w_rs,
+                                  layer.b_rs, 2)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    h_new, skip = wn_layer.fused_wn_layer_state(h, cond, None, layer, dilation=2, first=True)
+    ref_h, ref_s = wn_layer.wn_layer_state_plain(h, cond, None, layer.w_in, layer.w_cond,
+                                                 layer.bias_a, layer.w_rs, layer.b_rs, 2, True)
+    torch.testing.assert_close(h_new, ref_h, rtol=0, atol=0)
+    torch.testing.assert_close(skip, ref_s, rtol=0, atol=0)
+    # the CPU path launches nothing
+    assert (wn_layer.fused_wn_layer_state.launches, wn_layer.fused_wn_layer.launches) == before
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("plain version taken for a non-CPU tensor")
+
+    monkeypatch.setattr(wn_layer, "wn_layer_plain", no_plain)
+    monkeypatch.setattr(wn_layer, "wn_layer_state_plain", no_plain)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        wn_layer.fused_wn_layer(h.to("meta"), cond.to("meta"), layer, dilation=1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        wn_layer.fused_wn_layer_state(h.to("meta"), cond.to("meta"), None, layer, dilation=1,
+                                      first=True)
+
+
+def test_wn_wrappers_launch_or_raise_for_cuda(monkeypatch):
+    """A CUDA tensor goes to the kernel: when the kernel cannot be had, both
+    wrappers raise instead of falling back to the plain version."""
+    layer, _h, _cond = _inputs()
+
+    class CudaLike:
+        device = torch.device("cuda", 0)
+        shape = (1, 40, 256)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("plain version taken for a CUDA tensor")
+
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(wn_layer, "wn_layer_plain", no_plain)
+    monkeypatch.setattr(wn_layer, "wn_layer_state_plain", no_plain)
+    monkeypatch.setattr(wn_layer, "_check", lambda *args: None)
+    monkeypatch.setattr(wn_layer, "_library", no_library)
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        wn_layer.fused_wn_layer(CudaLike(), CudaLike(), layer, dilation=1)
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        wn_layer.fused_wn_layer_state(CudaLike(), CudaLike(), None, layer, dilation=1, first=True)
+
+
+def test_wn_wrappers_reject_what_the_kernel_does_not_take():
+    layer, h, cond = _inputs()
+    wn_layer._check(h, cond, None, layer, 512, 1)
+    with pytest.raises(TypeError):
+        wn_layer._check(h.double(), cond, None, layer, 512, 1)
+    with pytest.raises(NotImplementedError):
+        wn_layer._check(torch.zeros((1, 40, 128)), cond, None, layer, 512, 1)
+    with pytest.raises(NotImplementedError):
+        wn_layer._check(h, torch.zeros((1, 40, 100)), None, layer, 512, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        wn_layer._check(torch.zeros((1, 256, 40)).transpose(1, 2), cond, None, layer, 512, 1)
+    with pytest.raises(ValueError, match="skip"):
+        wn_layer._check(h, cond, torch.zeros((1, 39, 256)), layer, 512, 1)
+    with pytest.raises(ValueError, match="fragments"):
+        wn_layer._check(h, cond, None, layer, 256, 1)
+    with pytest.raises(ValueError, match="last"):
+        wn_layer.fused_wn_layer_state(h, cond, h, layer, dilation=1, last=True)
+    with pytest.raises(ValueError, match="skip is required"):
+        wn_layer.fused_wn_layer_state(h, cond, None, layer, dilation=1)
