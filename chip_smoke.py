@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, with times for the kernel, the plain version and a
      cuDNN/cuBLAS yardstick, and the card's lower bound for the same work:
-     mrf_section (HiFi-GAN) and wn_layer (WaveGlow: every mode, a ragged
-     T and a whole 8-layer WN stack).
+     mrf_section (HiFi-GAN) and wn_layer (WaveGlow: every mode, ragged T
+     with an odd tile count and a one-step tail, and a whole 8-layer WN
+     stack), each WN row with its share of the bound.
   3. the HiFi-GAN path: ``larynx_tpu_torch.text_to_speech`` at full width
      (GlowTTS harvard dims + HiFi-GAN universal_large, random weights from
      a fixed seed) on eight pangram sentences, with and without the
@@ -308,7 +309,8 @@ def random_wn_layer(wn_layer, gen, rs_out, ch=256, cc=640):
 def wn_cost(b, t, layer, first, last, rs_mode=False, ch=256, cc=640):
     """(ops seconds, bytes seconds) of one WN layer at the card's peaks: the
     products the kernel runs (3 TF32 operations per f32 FLOP) and the bytes
-    it must move (each input read once, each output written once)."""
+    it must move (each input read once, each output written once; the f32
+    weights once, not the kernel's TF32 hi/lo copy of them)."""
     rs_out = layer.b_rs.numel()
     flops = 2.0 * b * t * (2 * ch * (3 * ch + cc) + ch * rs_out)
     act = b * t * ch
@@ -316,7 +318,8 @@ def wn_cost(b, t, layer, first, last, rs_mode=False, ch=256, cc=640):
         io = act + b * t * cc + b * t * rs_out
     else:
         io = act + b * t * cc + act + (0 if first else act) + (0 if last else act)
-    weights = layer.frag_in.numel() + layer.frag_rs.numel() + layer.bias_a.numel() + rs_out
+    weights = (layer.w_in.numel() + layer.w_cond.numel() + layer.w_rs.numel()
+               + layer.bias_a.numel() + rs_out)
     return TF32_PER_F32 * flops / TF32_PEAK_FLOPS, 4.0 * (io + weights) / HBM_BYTES_PER_S
 
 
@@ -336,6 +339,7 @@ def check_wn(wn_layer, main_shapes):
         ("ragged T, middle layer", 2, 1000, 128, False, False, None, False),
         ("ragged T, first and last layer", 3, 777, 32, True, True, None, False),
         ("ragged T, K4 rs 256", 2, 1000, 64, False, False, 256, False),
+        ("B=1, T=64*16+1 (one-step tail), middle layer", 1, 1025, 16, False, False, None, False),
     ]
     rows = []
     for label, b, t, d, first, last, k4, main in cases:
@@ -375,10 +379,12 @@ def check_wn(wn_layer, main_shapes):
             "library_ms": time_ms(library), "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
         }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         log(f"wn_layer {label}: B={b} T={t} d={d} max_abs_err={err:.3g} (tol {WN_TOLERANCE}) "
             f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, cuDNN+cuBLAS products "
-            f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+            f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+            f"{row['bound_share']:.1%} of bound")
 
     # a whole WN stack at each main-path shape: h and skip after 8 layers
     stacks = []
@@ -422,10 +428,12 @@ def check_wn(wn_layer, main_shapes):
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
         }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         stacks.append(row)
         log(f"wn_layer 8-layer stack B={b} T={t} (dilations 1..128): max_abs_err={err:.3g} "
             f"(tol {WN_TOLERANCE}) kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-            f"cuDNN+cuBLAS products {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms")
+            f"cuDNN+cuBLAS products {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, "
+            f"{row['bound_share']:.1%} of bound")
     return rows, stacks
 
 
@@ -690,11 +698,18 @@ def main() -> int:
     start = time.perf_counter()
     build.build(["mrf_section", "wn_layer"])
     for name in ("mrf_section", "wn_layer"):
-        ptxas = sorted({line.split(":", 1)[-1].strip()
-                        for line in build.BUILD_LOGS.get(name, "").splitlines()
-                        if "registers" in line or "spill" in line})
+        lines = build.BUILD_LOGS.get(name, "").splitlines()
+        ptxas = sorted({line.split(":", 1)[-1].split(" for the function")[0].strip()
+                        for line in lines
+                        if "registers" in line or "spill" in line or "Performance Loss" in line})
         log(f"built {name} in {time.perf_counter() - start:.1f} s; ptxas: "
             + ("; ".join(ptxas) or "already built"))
+        if name == "wn_layer" and any(
+                "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+                for line in lines):
+            raise AssertionError(f"{name}: the kernel spills registers")
+    log(f"wn_layer: dynamic shared memory {wn_layer._library().wn_layer_smem_bytes()} bytes "
+        "per block, 384 threads, clusters of 2 blocks")
 
     # plain references and the main path run in full f32
     torch.backends.cudnn.allow_tf32 = False

@@ -1,4 +1,4 @@
-// Fused WaveGlow WN layer for Hopper (sm_90a), f32.
+// Fused WaveGlow WN layer for Hopper (sm_90a), f32: wgmma, TMA, mbarriers, clusters.
 //
 // Replaces both TPU kernels of larynx_tpu/ops/wn_layer.py:
 //   K3  fused_wn_layer_state  (_kernel_state, pallas_call at :258)
@@ -23,278 +23,521 @@
 // What bounds it: operations.  A time step costs 2 * (2ch * (3ch + CC) +
 // ch * RS) = 1.70 MFLOP at ch=256, CC=640, RS=512 against ~(3 * 256 + 640)
 // * 4 bytes of activation I/O (~300 FLOP/byte), and the weights (3.4 MB)
-// are shared by every time step.  So the design feeds the tensor cores and
-// keeps the pre-gate and gated activations on chip:
+// are shared by every time step.  Each f32 product runs as three TF32
+// tensor-core products (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, f32
+// accumulate), so the bound is 3 TF32 operations per FLOP at the dense
+// TF32 peak.  The design keeps the tensor cores fed from shared memory:
 //
-//   * one block per (64-step time tile, batch row), 8 warps.  The first
-//     product [64, 3ch + CC] x [3ch + CC, 2ch] runs as a K loop over
-//     32-column chunks of its A operand (a tap of h at offset -d, 0 or +d,
-//     or a slice of cond), staged in shared memory by a 3-deep cp.async
-//     ring; rows outside [0, T) are zero-filled, which is exactly the
-//     conv's zero padding, for any dilation (no contiguous halo is held,
-//     so d = 128 costs what d = 1 costs).
-//   * each warp owns 32 channels and computes both their tanh and their
-//     sigmoid columns for all 64 rows, so the gate is formed in registers;
-//     the gated tile [64, 256] goes to shared memory as the A operand of
-//     the second product, [64, 256] x [256, RS], whose accumulators feed
-//     the state update straight from registers.
-//   * every product is mma.sync m16n8k8 TF32 in a 3xTF32 split (a*b ~
-//     a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, f32 accumulate): f32-level error
-//     at three tensor-core products per FMA.
-//   * the weights (3.4 MB per layer) cannot live in shared memory as the
-//     TPU kernel keeps them in VMEM.  They are arranged in mma fragment
-//     order once, at load (ops/wn_layer.py::pack_fragments), stay in the
-//     50 MB L2, and go from L2 straight into registers one k-step ahead,
-//     each warp reading its own columns as 512-byte coalesced rows; the
-//     TF32 hi/lo split is done in registers (half the L2 traffic of a
-//     pre-split copy).
-// wgmma and TMA are the next step (later work).
+//   * one block per 64-step time tile of one batch row (wgmma M = 64): a
+//     producer warpgroup and two consumer warpgroups; setmaxnreg moves the
+//     producer's registers to the consumers.  Consumer c owns channels
+//     [128c, 128c + 128): the first product's tanh and sigmoid columns of
+//     those channels (N = 256, wgmma m64n256k8, 128 f32 accumulators a
+//     thread), so the gate is formed in registers.
+//   * every wgmma reads both operands from shared memory, as exact TF32
+//     values (hardware TF32 drops the low 13 bits, so hi is rounded to
+//     nearest and lo is the rounded remainder).
+//   * A (activations): one producer thread brings each 32-column K chunk by
+//     TMA, a box of 64 rows of h at offset -d, 0 or +d (or of cond) from a
+//     3-D tensor map [B, T, C], 128-byte swizzled, into a 4-deep ring.  A
+//     box row outside [0, T) is zero-filled by the hardware, which is
+//     exactly the conv's zero padding, for any dilation (no halo is held),
+//     and never reads the neighbouring batch row.  Two producer warps split
+//     each chunk in place into its TF32 hi plane and a lo plane beside it;
+//     the swizzled layout is already the canonical K-major wgmma layout.
+//   * B (weights) is packed once at load (ops/wn_layer.py::pack_weights) as
+//     exact TF32 hi and lo planes, K-major in the wgmma core-matrix order,
+//     one 32 KB stage per k-step, so each stage is one bulk TMA copy into a
+//     4-deep mbarrier ring.  Blocks run as clusters of 2 neighbouring time
+//     tiles; each block copies half of every stage and multicasts it to
+//     both, so every weight byte leaves L2 once per pair of tiles.  A
+//     block whose tile lies past T (odd tile counts) runs the same protocol
+//     on zero-filled rows and stores nothing.
+//   * the second product, g @ Wrs, streams through the same weight ring and
+//     accumulates in the first product's registers; its A operand, the
+//     gated tile, goes through the idle A region one channel half at a
+//     time as TF32 planes (consumer 1 parks its half meanwhile), and its
+//     accumulators feed the state update straight from registers.
+//   * one accumulator set, no register-held A fragments and no calls keep
+//     the consumers within their registers, so ptxas keeps the wgmma
+//     pipeline asynchronous: two groups of 3 products in flight per
+//     warpgroup, the stages released as they drain.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kCh = 256;           // WN channels
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;          // time steps per block
-constexpr int kMC = kTile / 16;    // 16-row m-chunks; every warp covers all rows
-constexpr int kKC = 32;            // K columns per staged A chunk
-constexpr int kStages = 3;         // cp.async ring depth
-constexpr int kSA = kKC + 4;       // A chunk row stride (floats): conflict-free fragment loads
-constexpr int kSG = kCh + 4;       // gated tile row stride
-constexpr int kNC1 = 2 * kCh / (8 * kWarps);  // n-chunks per warp, first product (8)
-constexpr size_t kSmemBytes = sizeof(float) * (kStages * kTile * kSA + kTile * kSG);
+constexpr int kCh = 256;                      // WN channels
+constexpr int kTile = 64;                     // time steps per block (wgmma M)
+constexpr int kConsumers = 2;                 // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kCluster = 2;                   // blocks sharing each weight stage
+constexpr int kKC = 32;                       // K columns per A chunk: one 128-byte swizzle row
+constexpr int kAStages = 4;
+constexpr int kSplitWarps = 2;                // producer warps that split A chunks into TF32 planes
+constexpr int kAChunkBytes = kTile * kKC * 4;
+constexpr int kARegion = 2 * kAStages * kAChunkBytes;  // A hi and lo rings, later the gated tile
+constexpr int kBStages = 4;
+constexpr int kBStageBytes = 32768;           // one k-step of the first product, hi and lo
+constexpr int kNW1 = 2 * kCh / kConsumers;    // first-product columns per consumer (256)
+constexpr int kStashBytes = kTile * kCh / kConsumers * 4;  // one consumer's gated half, raw
+constexpr size_t kSmemBytes =
+    1024 + kARegion + kStashBytes + kBStages * kBStageBytes + (3 * kAStages + 2 * kBStages) * 8;
+static_assert(2 * kStashBytes <= kARegion, "a half of the gated tile, hi and lo, must fit over the A rings");
+static_assert(kSmemBytes <= 232448, "over the shared memory a block can have");
+static_assert(kBStageBytes == kConsumers * 2 * kNW1 * 8 * 4, "a first-product stage is one k-step");
 
 enum Mode { kRs = 0, kMid = 1, kFirst = 2, kLast = 3, kFirstLast = 4 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
+// ---- PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive on the barrier at the same offset in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
 
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+// TMA: box {kKC, kTile, 1} of a 3-D tensor map at (c0, c1, c2) -> dst
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
+// bulk TMA copy of `bytes` contiguous bytes -> dst in every block of the
+// cluster, completing on the barrier at the same offset in each
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar) {
+  const uint16_t mask = (1u << kCluster) - 1;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void named_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
 
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Output column of a warp's n-chunk nc: half (nc / 4) of the product's
-// columns, the warp's 32 channels, 8 columns per chunk.
-__device__ __forceinline__ int chunk_col(int warp, int nc) {
-  return (nc >> 2) * kCh + warp * 32 + (nc & 3) * 8;
+// keep the compiler from moving accumulator accesses across wgmma fences
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// acc[j][nc] += A[16 rows of chunk j][8 k] x B[8 k][8 cols of chunk nc] for
-// one k-step: A from shared memory (row stride S), B fragments as loaded
-// from the packed weights (float4 per pair of n-chunks).
-template <int NC, int S>
-__device__ __forceinline__ void mma_step(float (&acc)[kMC][NC][4], const float* a_base,
-                                         const float4 (&bf)[NC / 2], int g, int t) {
-  uint32_t bh[NC][2], bl[NC][2];
-#pragma unroll
-  for (int p = 0; p < NC / 2; ++p) {
-    split(bf[p].x, bh[2 * p][0], bl[2 * p][0]);
-    split(bf[p].y, bh[2 * p][1], bl[2 * p][1]);
-    split(bf[p].z, bh[2 * p + 1][0], bl[2 * p + 1][0]);
-    split(bf[p].w, bh[2 * p + 1][1], bl[2 * p + 1][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < kMC; ++j) {
-    const float* p0 = a_base + (16 * j + g) * S + t;
-    const float* p1 = p0 + 8 * S;
-    const float av[4] = {p0[0], p1[0], p0[4], p1[4]};
-    uint32_t ahi[4], alo[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) split(av[q], ahi[q], alo[q]);
-#pragma unroll
-    for (int nc = 0; nc < NC; ++nc) {
-      mma_tf32(acc[j][nc], alo, bh[nc]);
-      mma_tf32(acc[j][nc], ahi, bl[nc]);
-      mma_tf32(acc[j][nc], ahi, bh[nc]);
-    }
+// wgmma shared-memory descriptor of a K-major operand without swizzle: core
+// matrices of 8 rows x 16 bytes, the two K halves of a k-step 128 bytes
+// apart (leading byte offset), consecutive 8-row groups 256 bytes apart
+// (stride byte offset).
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_D16(i) WG_D4(i), WG_D4(i + 4), WG_D4(i + 8), WG_D4(i + 12)
+#define WG_D64(i) WG_D16(i), WG_D16(i + 16), WG_D16(i + 32), WG_D16(i + 48)
+
+// d[64 x 256] += a[64 x 8] * b[8 x 256], TF32, both from shared memory
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1;\n}\n"
+      : WG_D64(0), WG_D64(64)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 8] * b[8 x 128], TF32, both from shared memory
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1;\n}\n"
+      : WG_D64(0)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// wgmma descriptor of an A operand in the canonical K-major 128-byte
+// swizzled layout (what TMA writes for a box 128 bytes wide): 8-row groups
+// 1024 bytes apart; a k-step of 8 TF32 values starts 32 bytes further in
+// the same swizzle atom
+__device__ __forceinline__ uint64_t desc_a_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// acc += (a_hi + a_lo) * (b_hi + b_lo) less the a_lo * b_lo term
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2], uint32_t a_hi, uint32_t a_lo,
+                                             uint32_t b_hi, uint32_t b_lo) {
+  if constexpr (N == 256) {
+    wgmma_n256(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
+    wgmma_n256(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
+    wgmma_n256(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
+  } else {
+    wgmma_n128(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
+    wgmma_n128(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
+    wgmma_n128(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
   }
 }
+
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// generic-proxy writes to shared memory -> visible to wgmma reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// no division subroutine (a call would serialize the wgmma pipeline); a few
+// ulp, far below the 3xTF32 products' error
+__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 
 template <int MODE, int RS>
-__global__ void __launch_bounds__(kThreads, 1)
-wn_layer_kernel(const float* __restrict__ h, const float* __restrict__ cond,
-                const float* __restrict__ skip, const float4* __restrict__ frag_in,
-                const float* __restrict__ bias_a, const float4* __restrict__ frag_rs,
-                const float* __restrict__ b_rs, float* __restrict__ h_out,
-                float* __restrict__ skip_out, float* __restrict__ rs_out, int T, int CC,
-                int dil) {
-  constexpr int kNC2 = RS / (8 * kWarps);  // n-chunks per warp, second product (8 or 4)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
+                const __grid_constant__ CUtensorMap tmap_cond, const float* __restrict__ h,
+                const float* __restrict__ skip, const float* __restrict__ wpack,
+                const float* __restrict__ bias_a, const float* __restrict__ b_rs,
+                float* __restrict__ h_out, float* __restrict__ skip_out,
+                float* __restrict__ rs_out, int T, int CC, int dil) {
+  constexpr int kNW2 = RS / kConsumers;                       // second-product columns per consumer
+  constexpr int kKps2 = kBStageBytes / (kConsumers * 2 * kNW2 * 8 * 4);  // its k-steps per stage
   constexpr bool kFirstMode = MODE == kFirst || MODE == kFirstLast;
-  extern __shared__ __align__(16) float smem[];
-  float* abuf = smem;                          // kStages x [kTile][kSA]
-  float* gbuf = smem + kStages * kTile * kSA;  // [kTile][kSG]
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms want 1 KB alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t a_hi = base;                          // kAStages x [64][32] f32: raw, then hi
+  const uint32_t a_lo = base + kAStages * kAChunkBytes;  // kAStages x [64][32] f32: lo
+  const uint32_t b_ring = base + kARegion + kStashBytes;
+  const uint32_t bars = b_ring + kBStages * kBStageBytes;
+  auto full_b = [&](int i) { return bars + 8 * i; };
+  auto empty_b = [&](int i) { return bars + 8 * (kBStages + i); };
+  auto full_a = [&](int i) { return bars + 8 * (2 * kBStages + i); };
+  auto ready_a = [&](int i) { return bars + 8 * (2 * kBStages + kAStages + i); };
+  auto empty_a = [&](int i) { return bars + 8 * (2 * kBStages + 2 * kAStages + i); };
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // mma groupID
-  const int t = lane & 3;   // mma threadID_in_group
-  const int t0 = blockIdx.x * kTile;
-  const size_t row0 = (size_t)blockIdx.y * T;  // first time step of this batch row
-  const float* hb = h + row0 * kCh;
-  const float* cb = cond + row0 * CC;
   const int n_chunks = (3 * kCh + CC) / kKC;
+  const int steps1 = n_chunks * (kKC / 8);            // k-steps (and weight stages) of product 1
+  const int n_stages = steps1 + kCh / 8 / kKps2;
+  const int t0 = blockIdx.x * kTile;
+  const int batch = blockIdx.y;
+  const int wg = threadIdx.x / 128;
 
-  // A chunk c (K columns [32c, 32c + 32)) -> ring stage s
-  auto load_chunk = [&](int c, int s) {
-    const int k0 = c * kKC;
-    const float* src = cb;
-    int ld = CC, off = 0, col = k0 - 3 * kCh;
-    if (k0 < 3 * kCh) {
-      src = hb;
-      ld = kCh;
-      off = (k0 / kCh - 1) * dil;
-      col = k0 % kCh;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBStages; ++i) {
+      mbar_init(full_b(i), 1);
+      mbar_init(empty_b(i), kConsumers * kCluster);
     }
-    float* dst = abuf + s * kTile * kSA;
-    for (int idx = threadIdx.x; idx < kTile * kKC / 4; idx += kThreads) {
-      const int r = idx / (kKC / 4);
-      const int q = idx % (kKC / 4);
-      const int pos = t0 + r + off;
-      const bool inside = pos >= 0 && pos < T;
-      cp_async16(dst + r * kSA + 4 * q, src + (size_t)(inside ? pos : 0) * ld + col + 4 * q,
-                 inside ? 16 : 0);
+    for (int i = 0; i < kAStages; ++i) {
+      mbar_init(full_a(i), 1);
+      mbar_init(ready_a(i), kSplitWarps);
+      mbar_init(empty_a(i), kConsumers);
     }
-  };
-
-  // ---- first product: a = [h taps | cond] @ [W0; W1; W2; Wc] + bias_a
-  float acc[kMC][kNC1][4];
-#pragma unroll
-  for (int nc = 0; nc < kNC1; ++nc) {
-    const int col = chunk_col(warp, nc) + 2 * t;
-    const float b0 = __ldg(bias_a + col), b1 = __ldg(bias_a + col + 1);
-#pragma unroll
-    for (int j = 0; j < kMC; ++j) {
-      acc[j][nc][0] = b0; acc[j][nc][1] = b1; acc[j][nc][2] = b0; acc[j][nc][3] = b1;
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  cluster_sync();  // every barrier of the cluster exists before any copy or remote arrive
 
-  constexpr int kStep1 = kWarps * (kNC1 / 2) * 32;  // float4s of frag_in per k-step
-  const float4* bsrc = frag_in + warp * (kNC1 / 2) * 32 + lane;
-  const int n_steps = n_chunks * (kKC / 8);
-  float4 bnext[kNC1 / 2];
-#pragma unroll
-  for (int p = 0; p < kNC1 / 2; ++p) bnext[p] = __ldg(bsrc + p * 32);
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_chunks) load_chunk(s, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1's stage
-    if (c + kStages - 1 < n_chunks) load_chunk(c + kStages - 1, (c + kStages - 1) % kStages);
-    cp_async_commit();
-    const float* as = abuf + (c % kStages) * kTile * kSA;
-#pragma unroll
-    for (int kk = 0; kk < kKC / 8; ++kk) {
-      const int ks = c * (kKC / 8) + kk;
-      float4 bf[kNC1 / 2];
-#pragma unroll
-      for (int p = 0; p < kNC1 / 2; ++p) bf[p] = bnext[p];
-      if (ks + 1 < n_steps) {
-#pragma unroll
-        for (int p = 0; p < kNC1 / 2; ++p)
-          bnext[p] = __ldg(bsrc + (size_t)(ks + 1) * kStep1 + p * 32);
+  if (wg == 0) {
+    // ---- producer warpgroup: warp 0 streams the weights, warp 1 the
+    // activations, warps 2-3 split each activation chunk into TF32 planes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x == 0) {  // the weight stages, multicast over the cluster
+      const uint32_t rank = cluster_rank();
+      constexpr int kPart = kBStageBytes / kCluster;
+      const char* src = reinterpret_cast<const char*>(wpack) + rank * kPart;
+      int b_stage = 0;
+      uint32_t b_phase = 0;
+      for (int s = 0; s < n_stages; ++s) {
+        mbar_wait(empty_b(b_stage), b_phase ^ 1);
+        mbar_expect_tx(full_b(b_stage), kBStageBytes);
+        bulk_load_multicast(b_ring + b_stage * kBStageBytes + rank * kPart,
+                            src + static_cast<size_t>(s) * kBStageBytes, kPart, full_b(b_stage));
+        if (++b_stage == kBStages) { b_stage = 0; b_phase ^= 1; }
       }
-      mma_step<kNC1, kSA>(acc, as + kk * 8, bf, g, t);
+      // stay until every consumer of the cluster has released every stage:
+      // no block leaves while a peer may still multicast into it or arrive
+      // on its barriers
+      for (int i = 0; i < kBStages; ++i) {
+        mbar_wait(empty_b(b_stage), b_phase ^ 1);
+        if (++b_stage == kBStages) { b_stage = 0; b_phase ^= 1; }
+      }
+    } else if (threadIdx.x == 32) {  // the A chunks: k columns [32c, 32c + 32)
+      int a_stage = 0;
+      uint32_t a_phase = 0;
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        const int k0 = kKC * chunk;
+        mbar_wait(empty_a(a_stage), a_phase ^ 1);
+        mbar_expect_tx(full_a(a_stage), kAChunkBytes);
+        const uint32_t dst = a_hi + a_stage * kAChunkBytes;
+        if (k0 < 3 * kCh) {
+          tma_load_3d(dst, &tmap_h, full_a(a_stage), k0 % kCh, t0 + (k0 / kCh - 1) * dil, batch);
+        } else {
+          tma_load_3d(dst, &tmap_cond, full_a(a_stage), k0 - 3 * kCh, t0, batch);
+        }
+        if (++a_stage == kAStages) { a_stage = 0; a_phase ^= 1; }
+      }
+    } else if (warp >= 4 - kSplitWarps) {
+      // each chunk, in place: raw -> TF32 hi, and its lo into the lo ring
+      // at the same offset (the layout is elementwise, swizzle and all)
+      const int lane = threadIdx.x - 32 * (4 - kSplitWarps);
+      int a_stage = 0;
+      uint32_t a_phase = 0;
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        mbar_wait(full_a(a_stage), a_phase);
+        float4* hi = reinterpret_cast<float4*>(smem + a_stage * kAChunkBytes);
+        float4* lo = reinterpret_cast<float4*>(smem + kAStages * kAChunkBytes + a_stage * kAChunkBytes);
+#pragma unroll 2
+        for (int u = lane; u < kAChunkBytes / 16; u += 32 * kSplitWarps) {
+          const float4 x = hi[u];
+          const float4 xh = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+          hi[u] = xh;
+          lo[u] = make_float4(to_tf32(x.x - xh.x), to_tf32(x.y - xh.y), to_tf32(x.z - xh.z),
+                              to_tf32(x.w - xh.w));
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) mbar_arrive(ready_a(a_stage));
+        if (++a_stage == kAStages) { a_stage = 0; a_phase ^= 1; }
+      }
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    // ---- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = 16 * ((threadIdx.x / 32) % 4) + g;  // this thread's rows r0 and r0 + 8
+    const bool leader = threadIdx.x % 128 == 0;
+    int a_stage = 0, b_stage = 0;
+    uint32_t a_phase = 0, b_phase = 0;
+    auto release_b = [&](int stage) {
+      if (leader) {
+#pragma unroll
+        for (int r = 0; r < kCluster; ++r) mbar_arrive_cluster(empty_b(stage), r);
+      }
+    };
+    auto prev = [](int stage, int n) { return stage == 0 ? n - 1 : stage - 1; };
 
-  // ---- gate: the warp holds tanh column c in chunk nc and its sigmoid
-  // partner c + ch in chunk nc + 4, at the same fragment positions
+    // ---- first product: a = [h taps | cond] @ [W0; W1; W2; Wc] + bias_a.
+    // Accumulator chunk i < 16 holds tanh columns 128c + 8i + ..., chunk
+    // i + 16 their sigmoid partners, at the same fragment positions.
+    float acc[kNW1 / 2];
 #pragma unroll
-  for (int j = 0; j < kMC; ++j) {
+    for (int i = 0; i < kNW1 / 8; ++i) {
+      const int col = (i < 16 ? 0 : kCh - 128) + 128 * c + 8 * i + 2 * t;
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias_a + col));
+      acc[4 * i] = bv.x; acc[4 * i + 1] = bv.y; acc[4 * i + 2] = bv.x; acc[4 * i + 3] = bv.y;
+    }
+    fence_acc(acc);
+    // Up to two wgmma groups (3 products each) in flight per warpgroup; a
+    // weight stage is released once the group after it has been issued and
+    // it is done, an A chunk once its last group is done.
+    for (int chunk = 0; chunk < n_chunks; ++chunk) {
+      mbar_wait(ready_a(a_stage), a_phase);
 #pragma unroll
-    for (int nc = 0; nc < 4; ++nc) {
+      for (int kk = 0; kk < kKC / 8; ++kk) {
+        mbar_wait(full_b(b_stage), b_phase);
+        const uint32_t blk = b_ring + b_stage * kBStageBytes + c * 2 * (kNW1 * 32);
+        const uint32_t aoff = a_stage * kAChunkBytes + 32 * kk;
+        wgmma_fence();
+        wgmma_3xtf32<kNW1>(acc, a_hi + aoff, a_lo + aoff, blk, blk + kNW1 * 32);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (chunk > 0 || kk > 0) release_b(prev(b_stage, kBStages));
+        if (kk == 0 && chunk > 0 && leader) mbar_arrive(empty_a(prev(a_stage, kAStages)));
+        if (++b_stage == kBStages) { b_stage = 0; b_phase ^= 1; }
+      }
+      if (++a_stage == kAStages) { a_stage = 0; a_phase ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release_b(prev(b_stage, kBStages));
+    if (leader) mbar_arrive(empty_a(prev(a_stage, kAStages)));
+
+    // ---- gate, in registers: gv[4i + 2hr + e] is channel 128c + 8i + 2t + e
+    // of row r0 + 8hr
+    float gv[64];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        gv[4 * i + e] = tanhf(acc[4 * i + e]) * sigmoid(acc[4 * (i + 16) + e]);
+    }
+
+    // ---- second product: rs = g @ Wrs + b_rs, consumer c owning rs
+    // columns [c * kNW2, (c + 1) * kNW2), accumulated in the registers of
+    // the first product's accumulators.  Its A operand, the gated tile,
+    // goes through the A region (idle by now) one channel half at a time,
+    // as TF32 hi and lo planes in the A chunks' swizzled layout (4 chunks
+    // of 32 channels); consumer 1 parks its half, raw, in the stash
+    // meanwhile.
+    named_sync_consumers();  // the A region is no longer read
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int cl = 8 * i + 2 * t;  // channel within the half
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int row = 16 * j + g + 8 * hr;
-        float2 v;
-        const float s0 = acc[j][nc + 4][2 * hr], s1 = acc[j][nc + 4][2 * hr + 1];
-        v.x = tanhf(acc[j][nc][2 * hr]) * (1.0f / (1.0f + expf(-s0)));
-        v.y = tanhf(acc[j][nc][2 * hr + 1]) * (1.0f / (1.0f + expf(-s1)));
-        *reinterpret_cast<float2*>(gbuf + row * kSG + warp * 32 + nc * 8 + 2 * t) = v;
+        const int row = r0 + 8 * hr;
+        const int off = (cl / 32) * kAChunkBytes + row * 128 +
+                        ((((cl % 32) / 4) ^ (row % 8)) * 16) + (cl % 4) * 4;
+        const float x0 = gv[4 * i + 2 * hr], x1 = gv[4 * i + 2 * hr + 1];
+        if (c == 0) {
+          const float h0 = to_tf32(x0), h1 = to_tf32(x1);
+          *reinterpret_cast<float2*>(smem + off) = make_float2(h0, h1);
+          *reinterpret_cast<float2*>(smem + kAStages * kAChunkBytes + off) =
+              make_float2(to_tf32(x0 - h0), to_tf32(x1 - h1));
+        } else {
+          *reinterpret_cast<float2*>(smem + kARegion + off) = make_float2(x0, x1);
+        }
       }
     }
-  }
-  __syncthreads();
-
-  // ---- second product: rs = g @ Wrs + b_rs
-  float acc2[kMC][kNC2][4];
+    fence_proxy_async();
+    named_sync_consumers();
+    float (&acc2)[kNW2 / 2] = *reinterpret_cast<float (*)[kNW2 / 2]>(&acc[0]);
 #pragma unroll
-  for (int nc = 0; nc < kNC2; ++nc) {
-    const int col = chunk_col(warp, nc) + 2 * t;
-    const float b0 = __ldg(b_rs + col), b1 = __ldg(b_rs + col + 1);
-#pragma unroll
-    for (int j = 0; j < kMC; ++j) {
-      acc2[j][nc][0] = b0; acc2[j][nc][1] = b1; acc2[j][nc][2] = b0; acc2[j][nc][3] = b1;
+    for (int i = 0; i < kNW2 / 8; ++i) {
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(b_rs + c * kNW2 + 8 * i + 2 * t));
+      acc2[4 * i] = bv.x; acc2[4 * i + 1] = bv.y; acc2[4 * i + 2] = bv.x; acc2[4 * i + 3] = bv.y;
     }
-  }
-  constexpr int kStep2 = kWarps * (kNC2 / 2) * 32;
-  const float4* rsrc = frag_rs + warp * (kNC2 / 2) * 32 + lane;
-  float4 rnext[kNC2 / 2];
-#pragma unroll
-  for (int p = 0; p < kNC2 / 2; ++p) rnext[p] = __ldg(rsrc + p * 32);
-  for (int ks = 0; ks < kCh / 8; ++ks) {
-    float4 bf[kNC2 / 2];
-#pragma unroll
-    for (int p = 0; p < kNC2 / 2; ++p) bf[p] = rnext[p];
-    if (ks + 1 < kCh / 8) {
-#pragma unroll
-      for (int p = 0; p < kNC2 / 2; ++p)
-        rnext[p] = __ldg(rsrc + (size_t)(ks + 1) * kStep2 + p * 32);
+    fence_acc(acc2);
+    int ks = 0;
+#pragma unroll 1
+    for (int half = 0; half < kConsumers; ++half) {
+      if (half > 0) {
+        named_sync_consumers();  // both are done with the previous half
+        if (c == half) {
+          const float4* src = reinterpret_cast<const float4*>(smem + kARegion);
+          float4* hi = reinterpret_cast<float4*>(smem);
+          float4* lo = reinterpret_cast<float4*>(smem + kAStages * kAChunkBytes);
+#pragma unroll 4
+          for (int u = threadIdx.x % 128; u < kStashBytes / 16; u += 128) {
+            const float4 x = src[u];
+            const float4 xh = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+            hi[u] = xh;
+            lo[u] = make_float4(to_tf32(x.x - xh.x), to_tf32(x.y - xh.y), to_tf32(x.z - xh.z),
+                                to_tf32(x.w - xh.w));
+          }
+          fence_proxy_async();
+        }
+        named_sync_consumers();
+      }
+#pragma unroll 2
+      for (int kh = 0; kh < kCh / kConsumers / 8; ++kh, ++ks) {
+        const int j = ks % kKps2;  // k-step within the stage
+        if (j == 0) mbar_wait(full_b(b_stage), b_phase);
+        const uint32_t blk =
+            b_ring + b_stage * kBStageBytes + ((j * kConsumers + c) * 2) * (kNW2 * 32);
+        const uint32_t aoff = (kh / 4) * kAChunkBytes + 32 * (kh % 4);
+        wgmma_fence();
+        wgmma_3xtf32<kNW2>(acc2, a_hi + aoff, a_lo + aoff, blk, blk + kNW2 * 32);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (j == kKps2 - 1) {
+          release_b(b_stage);
+          if (++b_stage == kBStages) { b_stage = 0; b_phase ^= 1; }
+        }
+      }
     }
-    mma_step<kNC2, kSG>(acc2, gbuf + ks * 8, bf, g, t);
-  }
+    fence_acc(acc2);
 
-  // ---- epilogue: each thread owns (row, channel pair) elements of rs
-#pragma unroll
-  for (int j = 0; j < kMC; ++j) {
+    // ---- epilogue: each thread owns (row, column pair) elements of rs
+    const size_t row0 = static_cast<size_t>(batch) * T;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int pos = t0 + 16 * j + g + 8 * hr;
+      const int pos = t0 + r0 + 8 * hr;
       if (pos >= T) continue;
       const size_t step = row0 + pos;
 #pragma unroll
-      for (int nc = 0; nc < kNC2; ++nc) {
-        const float2 v = make_float2(acc2[j][nc][2 * hr], acc2[j][nc][2 * hr + 1]);
-        const int ch = warp * 32 + (nc & 3) * 8 + 2 * t;  // channel within its half
+      for (int i = 0; i < kNW2 / 8; ++i) {
+        const float2 v = make_float2(acc2[4 * i + 2 * hr], acc2[4 * i + 2 * hr + 1]);
+        const int col = c * kNW2 + 8 * i + 2 * t;  // rs column
         if (MODE == kRs) {
-          *reinterpret_cast<float2*>(rs_out + step * RS + (nc >> 2) * kCh + ch) = v;
-        } else if (RS == 2 * kCh && nc < 4) {  // residual half
-          const float2 hv = *reinterpret_cast<const float2*>(h + step * kCh + ch);
-          *reinterpret_cast<float2*>(h_out + step * kCh + ch) = make_float2(hv.x + v.x, hv.y + v.y);
+          *reinterpret_cast<float2*>(rs_out + step * RS + col) = v;
+        } else if (RS == 2 * kCh && c == 0) {  // residual half
+          const float2 hv = *reinterpret_cast<const float2*>(h + step * kCh + col);
+          *reinterpret_cast<float2*>(h_out + step * kCh + col) = make_float2(hv.x + v.x, hv.y + v.y);
         } else {  // skip half, or all of rs on the last layer
+          const int ch = RS == 2 * kCh ? col - kCh : col;
           float2 sv = v;
           if (!kFirstMode) {
             const float2 old = *reinterpret_cast<const float2*>(skip + step * kCh + ch);
@@ -307,18 +550,57 @@ wn_layer_kernel(const float* __restrict__ h, const float* __restrict__ cond,
   }
 }
 
+// ---- host side
+
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// [B, T, C] f32 -> a map whose box is kKC channels x kTile steps of one
+// batch row, 128-byte swizzled, zero outside the tensor
+bool encode_activations(CUtensorMap* map, const float* base, int C, int T, int B) {
+  auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 4, (cuuint64_t)C * 4 * T};
+  const cuuint32_t box[3] = {kKC, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int MODE, int RS>
-int launch(const float* h, const float* cond, const float* skip, const float* frag_in,
-           const float* bias_a, const float* frag_rs, const float* b_rs, float* h_out,
-           float* skip_out, float* rs, int B, int T, int CC, int dil, cudaStream_t stream) {
+int launch(const float* h, const float* cond, const float* skip, const float* wpack,
+           const float* bias_a, const float* b_rs, float* h_out, float* skip_out, float* rs,
+           int B, int T, int CC, int dil, cudaStream_t stream) {
+  CUtensorMap map_h, map_cond;
+  if (!encode_activations(&map_h, h, kCh, T, B) || !encode_activations(&map_cond, cond, CC, T, B))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(wn_layer_kernel<MODE, RS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kTile - 1) / kTile, B);
+  const int tiles = (T + kTile - 1) / kTile;
+  const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, B);
   wn_layer_kernel<MODE, RS><<<grid, kThreads, kSmemBytes, stream>>>(
-      h, cond, skip, reinterpret_cast<const float4*>(frag_in), bias_a,
-      reinterpret_cast<const float4*>(frag_rs), b_rs, h_out, skip_out, rs, T, CC, dil);
+      map_h, map_cond, h, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, T, CC, dil);
   return (int)cudaGetLastError();
 }
 
@@ -326,17 +608,15 @@ int launch(const float* h, const float* cond, const float* skip, const float* fr
 
 extern "C" {
 
-// h [B, T, 256], cond [B, T, CC]; frag_in: [W0; W1; W2; Wc] ([3*256 + CC,
-// 512]) and frag_rs: Wrs ([256, rs_out]) in fragment order (see
-// ops/wn_layer.py::pack_fragments); bias_a [512], b_rs [rs_out].
+// h [B, T, 256], cond [B, T, CC]; wpack: the layer's weights as TF32 hi/lo
+// stages (see ops/wn_layer.py::pack_weights); bias_a [512], b_rs [rs_out].
 // mode 0 (K4) writes rs [B, T, rs_out]; modes 1-4 (K3: middle, first,
 // last, first and last) read skip (not on a first layer) and write skip_out
 // [B, T, 256] and, unless last, h_out [B, T, 256].
 // Returns the CUDA error code of the launch (0 on success).
-int wn_layer_f32(const float* h, const float* cond, const float* skip, const float* frag_in,
-                 const float* bias_a, const float* frag_rs, const float* b_rs, float* h_out,
-                 float* skip_out, float* rs, int B, int T, int CC, int rs_out, int dil, int mode,
-                 void* stream) {
+int wn_layer_f32(const float* h, const float* cond, const float* skip, const float* wpack,
+                 const float* bias_a, const float* b_rs, float* h_out, float* skip_out, float* rs,
+                 int B, int T, int CC, int rs_out, int dil, int mode, void* stream) {
   if (B < 1 || B > 65535 || T < 1 || CC < kKC || CC % kKC != 0 || dil < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -345,30 +625,33 @@ int wn_layer_f32(const float* h, const float* cond, const float* skip, const flo
   switch (mode) {
     case kRs:
       if (!rs) return (int)cudaErrorInvalidValue;
-      return wide ? launch<kRs, 2 * kCh>(h, cond, skip, frag_in, bias_a, frag_rs, b_rs, h_out,
-                                         skip_out, rs, B, T, CC, dil, s)
-                  : launch<kRs, kCh>(h, cond, skip, frag_in, bias_a, frag_rs, b_rs, h_out,
-                                     skip_out, rs, B, T, CC, dil, s);
+      return wide ? launch<kRs, 2 * kCh>(h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs,
+                                         B, T, CC, dil, s)
+                  : launch<kRs, kCh>(h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B,
+                                     T, CC, dil, s);
     case kMid:
       if (!wide || !skip || !h_out || !skip_out) return (int)cudaErrorInvalidValue;
-      return launch<kMid, 2 * kCh>(h, cond, skip, frag_in, bias_a, frag_rs, b_rs, h_out,
-                                   skip_out, rs, B, T, CC, dil, s);
+      return launch<kMid, 2 * kCh>(h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B, T,
+                                   CC, dil, s);
     case kFirst:
       if (!wide || !h_out || !skip_out) return (int)cudaErrorInvalidValue;
-      return launch<kFirst, 2 * kCh>(h, cond, skip, frag_in, bias_a, frag_rs, b_rs, h_out,
-                                     skip_out, rs, B, T, CC, dil, s);
+      return launch<kFirst, 2 * kCh>(h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B,
+                                     T, CC, dil, s);
     case kLast:
       if (wide || !skip || !skip_out) return (int)cudaErrorInvalidValue;
-      return launch<kLast, kCh>(h, cond, skip, frag_in, bias_a, frag_rs, b_rs, h_out, skip_out,
-                                rs, B, T, CC, dil, s);
+      return launch<kLast, kCh>(h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B, T, CC,
+                                dil, s);
     case kFirstLast:
       if (wide || !skip_out) return (int)cudaErrorInvalidValue;
-      return launch<kFirstLast, kCh>(h, cond, skip, frag_in, bias_a, frag_rs, b_rs, h_out,
-                                     skip_out, rs, B, T, CC, dil, s);
+      return launch<kFirstLast, kCh>(h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B,
+                                     T, CC, dil, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// dynamic shared memory of a block, bytes
+int wn_layer_smem_bytes() { return (int)kSmemBytes; }
 
 const char* wn_layer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

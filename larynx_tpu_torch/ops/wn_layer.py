@@ -23,7 +23,8 @@ skip; on the first layer ``skip = s``.
 Weights travel packed (:func:`pack_wn_layer`, once, at load) in a
 :class:`WNLayer`: the torch-layout tensors for the plain version, the folded
 bias, and, where the kernel takes the geometry (ch = 256, cc a multiple of
-32), the kernel's tensor-core fragment order (:func:`pack_fragments`).
+32), the kernel's weight stages: exact TF32 hi and lo planes in the wgmma
+operand order that its TMA ring reads (:func:`pack_weights`).
 """
 
 import ctypes
@@ -33,8 +34,12 @@ import typing
 import torch
 import torch.nn.functional as F
 
+from larynx_tpu_torch.ops.mrf_block import _tf32_split
+
 KERNEL_CHANNELS = 256  # ch the kernel is built for (csrc/wn_layer.cu kCh)
 COND_ALIGN = 32  # cc must be a multiple of the kernel's K chunk
+STAGE_BYTES = 32768  # one weight stage of the kernel's ring (csrc/wn_layer.cu kBStageBytes)
+CONSUMERS = 2  # consumer warpgroups, each owning a half of every product's columns
 
 # kernel modes (csrc/wn_layer.cu Mode)
 MODE_RS, MODE_MID, MODE_FIRST, MODE_LAST, MODE_FIRST_LAST = range(5)
@@ -44,17 +49,16 @@ MODE_RS, MODE_MID, MODE_FIRST, MODE_LAST, MODE_FIRST_LAST = range(5)
 class WNLayer:
     """One WN layer's weights: ``w_in`` [2ch, ch, 3] (conv), ``w_cond``
     [2ch, cc], ``bias_a`` = b_in + b_cond [2ch], ``w_rs`` [rs_out, ch],
-    ``b_rs`` [rs_out]; ``frag_in`` / ``frag_rs`` the kernel's fragment
-    order of [w_in taps; w_cond] and w_rs (None where the kernel does not
-    take the geometry)."""
+    ``b_rs`` [rs_out]; ``wpack`` the kernel's weight stages of
+    [w_in taps; w_cond] and w_rs (:func:`pack_weights`; None where the
+    kernel does not take the geometry)."""
 
     w_in: torch.Tensor
     w_cond: torch.Tensor
     bias_a: torch.Tensor
     w_rs: torch.Tensor
     b_rs: torch.Tensor
-    frag_in: typing.Optional[torch.Tensor]
-    frag_rs: typing.Optional[torch.Tensor]
+    wpack: typing.Optional[torch.Tensor]
 
 
 def kernel_takes(ch: int, cc: int) -> bool:
@@ -62,25 +66,49 @@ def kernel_takes(ch: int, cc: int) -> bool:
     return ch == KERNEL_CHANNELS and cc % COND_ALIGN == 0 and cc > 0
 
 
-def pack_fragments(w: torch.Tensor) -> torch.Tensor:
-    """[K, N] (K input rows, N = 256 or 512 output columns) -> the
-    kernel's mma.m16n8k8 B-fragment order, flat f32.
+def _stages(w: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """[K, N] -> the kernel's stages of one product, flat f32.  ``cols``
+    [CONSUMERS, n] lists the columns of W that consumer c owns, in its
+    wgmma column order.
 
-    Order ``[K/8][warp 8][pair N/128][lane 32][4]``: warp w owns the
-    output columns ``256*half + 32*w + 8*q + g`` (half < N/256, q < 4),
-    its n-chunk ``nc = 4*half + q``; a pair holds n-chunks 2p and 2p+1 as
-    ``[b0(2p), b1(2p), b0(2p+1), b1(2p+1)]`` with lane = 4*g + t,
-    ``b0(nc) = W[8*ks + t][col(nc) + g]`` and ``b1 = W[8*ks + t + 4][...]``.
-    So a warp holds both halves (tanh and sigmoid) of its 32 channels.
+    Order ``[stage][j][c][plane][ngrp][kgrp][r8][k4]``: ``kps`` k-steps of 8
+    rows per stage (as many as fill STAGE_BYTES), plane 0 the TF32 hi and
+    1 the lo of W, element = plane(W[8*(stage*kps + j) + 4*kgrp + k4,
+    cols[c, 8*ngrp + r8]]).  Each (j, c, plane) block is a K-major wgmma B
+    operand without swizzle: core matrices of 8 columns x 4 k (128 bytes),
+    the two k halves adjacent, 8-column groups 256 bytes apart.
     """
-    k, n = w.shape
-    if k % 8 or n % 256:
-        raise ValueError(f"pack_fragments takes [8k, 256n], got {tuple(w.shape)}")
-    nh = n // 256
-    v = w.reshape(k // 8, 2, 4, nh, 8, 4, 8)  # (ks, kk, t, half, warp, q, g)
-    v = v.permute(0, 4, 3, 5, 6, 2, 1)  # (ks, warp, half, q, g, t, kk)
-    v = v.reshape(k // 8, 8, nh * 2, 2, 32, 2)  # (ks, warp, pair, nc % 2, lane, kk)
-    return v.permute(0, 1, 2, 4, 3, 5).contiguous().reshape(-1)
+    k = w.shape[0]
+    n = cols.shape[1]
+    kps = STAGE_BYTES // (CONSUMERS * 2 * n * 8 * 4)
+    if k % (8 * kps) or n % 8:
+        raise ValueError(f"_stages takes K a multiple of {8 * kps}, got {tuple(w.shape)}")
+    hi, lo = _tf32_split(w[:, cols.reshape(-1)].float().contiguous())
+    v = torch.stack([hi, lo]).reshape(2, k // (8 * kps), kps, 2, 4, CONSUMERS, n // 8, 8)
+    # (plane, stage, j, kgrp, k4, c, ngrp, r8) -> (stage, j, c, plane, ngrp, kgrp, r8, k4)
+    return v.permute(1, 2, 5, 0, 6, 3, 7, 4).contiguous().reshape(-1)
+
+
+def pack_weights(w_a: torch.Tensor, w_rs: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight stages, flat f32: the first product's W_a [K, 2ch]
+    (K = 3ch + cc rows, the conv taps for offsets -d, 0, +d then the cond
+    1x1) and then the second product's W_rs [ch, rs_out], each in
+    :func:`_stages` order.
+
+    First product: consumer c owns channels [c*ch/2, (c+1)*ch/2), its
+    columns those channels' tanh columns and then their sigmoid columns
+    (ch + channel), so each consumer forms its gate in registers.  Second
+    product: consumer c owns rs columns [c*rs_out/2, (c+1)*rs_out/2).
+    """
+    ch = w_rs.shape[0]
+    half = ch // CONSUMERS
+    cols_a = torch.stack([
+        torch.cat([torch.arange(c * half, (c + 1) * half),
+                   torch.arange(ch + c * half, ch + (c + 1) * half)])
+        for c in range(CONSUMERS)
+    ]).to(w_a.device)
+    cols_rs = torch.arange(w_rs.shape[1], device=w_rs.device).reshape(CONSUMERS, -1)
+    return torch.cat([_stages(w_a, cols_a), _stages(w_rs, cols_rs)])
 
 
 def pack_wn_layer(
@@ -98,14 +126,11 @@ def pack_wn_layer(
     """
     two_ch, ch, _k = in_w.shape
     cc = cond_w.shape[-1]
-    frag_in = frag_rs = None
+    wpack = None
     if kernel_takes(ch, cc) and in_w.shape[-1] == 3:
         taps = [in_w[:, :, tap].t() for tap in range(3)]  # [ch, 2ch] each
-        frag_in = pack_fragments(torch.cat(taps + [cond_w.t()], dim=0).float())
-        frag_rs = pack_fragments(rs_w.t().float())
-    return WNLayer(
-        in_w, cond_w, (in_b + cond_b).contiguous(), rs_w, rs_b, frag_in, frag_rs
-    )
+        wpack = pack_weights(torch.cat(taps + [cond_w.t()], dim=0), rs_w.t())
+    return WNLayer(in_w, cond_w, (in_b + cond_b).contiguous(), rs_w, rs_b, wpack)
 
 
 # -----------------------------------------------------------------------------
@@ -156,16 +181,16 @@ def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
             f"wn_layer kernel takes ch={KERNEL_CHANNELS} and cc a multiple of "
             f"{COND_ALIGN}, got ch={ch}, cc={cc}"
         )
-    if layer.frag_in is None or layer.frag_rs is None:
-        raise ValueError("the layer was packed without kernel fragments")
+    if layer.wpack is None:
+        raise ValueError("the layer was packed without the kernel's weights")
     if rs_out not in (ch, 2 * ch):
         raise ValueError(f"rs_out must be {ch} or {2 * ch}, got {rs_out}")
     if dilation < 1:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
-    if layer.frag_in.numel() != (3 * ch + cc) * 2 * ch or layer.frag_rs.numel() != ch * rs_out:
-        raise ValueError("kernel fragments do not match the layer's geometry")
-    tensors = [("h", h), ("cond", cond), ("frag_in", layer.frag_in),
-               ("frag_rs", layer.frag_rs), ("bias_a", layer.bias_a), ("b_rs", layer.b_rs)]
+    if layer.wpack.numel() != 2 * ((3 * ch + cc) * 2 * ch + ch * rs_out):
+        raise ValueError("the packed weights do not match the layer's geometry")
+    tensors = [("h", h), ("cond", cond), ("wpack", layer.wpack), ("bias_a", layer.bias_a),
+               ("b_rs", layer.b_rs)]
     if skip is not None:
         if skip.shape != h.shape:
             raise ValueError(f"skip must be {tuple(h.shape)}, got {tuple(skip.shape)}")
@@ -177,16 +202,18 @@ def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
             raise TypeError(f"wn_layer kernel takes float32, {name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        if t.data_ptr() % 16:  # TMA copies start on 16-byte boundaries
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _setup(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wn_layer_f32.restype = i
-    lib.wn_layer_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.wn_layer_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wn_layer_error_string.restype = ctypes.c_char_p
     lib.wn_layer_error_string.argtypes = [i]
+    lib.wn_layer_smem_bytes.restype = i
+    lib.wn_layer_smem_bytes.argtypes = []
 
 
 def _library() -> ctypes.CDLL:
@@ -205,9 +232,9 @@ def _launch(lib, mode, h, cond, skip, layer, dilation, h_out, skip_out, rs):
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         err = lib.wn_layer_f32(
-            h.data_ptr(), cond.data_ptr(), ptr(skip), layer.frag_in.data_ptr(),
-            layer.bias_a.data_ptr(), layer.frag_rs.data_ptr(), layer.b_rs.data_ptr(),
-            ptr(h_out), ptr(skip_out), ptr(rs), b, t, cond.shape[-1], layer.b_rs.numel(),
+            h.data_ptr(), cond.data_ptr(), ptr(skip), layer.wpack.data_ptr(),
+            layer.bias_a.data_ptr(), layer.b_rs.data_ptr(), ptr(h_out), ptr(skip_out), ptr(rs),
+            b, t, cond.shape[-1], layer.b_rs.numel(),
             dilation, mode, stream,
         )
     if err != 0:

@@ -12,8 +12,8 @@ the state kernel against XLA.  A layer's pre-gate sum runs over 3*ch + cc
 products (1408 at wn_256) of weights ~0.05 and O(1) inputs, summed in
 other orders: ~1e-6 observed.
 
-Also here: the kernel's weight-fragment layout (built on the CPU at load)
-and the wrappers' guards: the plain version only for CPU tensors, and no
+Also here: the kernel's weight stages (TF32 hi/lo planes in wgmma operand
+order, built on the CPU at load) and the wrappers' guards: the plain version only for CPU tensors, and no
 fallback when the CUDA library cannot be had.
 """
 
@@ -113,29 +113,78 @@ def test_wn_stack_matches_pallas(ch, cc, t):
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("n", [512, 256])
-def test_pack_fragments_layout(n):
-    """The documented fragment order, element by element, at K = 48."""
-    k = 48
-    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
-    frags = wn_layer.pack_fragments(w).reshape(k // 8, 8, n // 128, 32, 4)
-    for ks in (0, 3, 5):
-        for warp in (0, 5, 7):
-            for nc in range(n // 64):  # n-chunks per warp
-                col = (nc // 4) * 256 + warp * 32 + (nc % 4) * 8
-                for lane in (0, 9, 31):
-                    g, t = lane // 4, lane % 4
-                    pair, e = divmod(nc, 2)
-                    got = frags[ks, warp, pair, lane, 2 * e : 2 * e + 2].tolist()
-                    assert got == [w[8 * ks + t, col + g].item(), w[8 * ks + t + 4, col + g].item()]
+@pytest.mark.parametrize("rs_out", [512, 256])
+def test_pack_weights_layout(rs_out):
+    """The documented stage order (``_stages``), element by element, for a
+    first product of K = 64 and the second product at rs_out 512 and 256.
+    Integer weights below 2^22 are hi + lo exactly, so every element's
+    source position can be read back from the two planes."""
+    ch, k = 256, 64
+    w_a = torch.arange(k * 2 * ch, dtype=torch.float32).reshape(k, 2 * ch)
+    w_rs = torch.arange(ch * rs_out, dtype=torch.float32).reshape(ch, rs_out) + 0.5
+    packed = wn_layer.pack_weights(w_a, w_rs)
+    assert packed.numel() == 2 * (k * 2 * ch + ch * rs_out)
+    assert packed.numel() * 4 % wn_layer.STAGE_BYTES == 0
+
+    def check(flat, w, cols_of):
+        n = w.shape[1] // wn_layer.CONSUMERS
+        kps = wn_layer.STAGE_BYTES // (wn_layer.CONSUMERS * 2 * n * 8 * 4)
+        v = flat.reshape(-1, kps, wn_layer.CONSUMERS, 2, n // 8, 2, 8, 4)
+        for stage in (0, v.shape[0] - 1):
+            for j in range(kps):
+                for c in range(wn_layer.CONSUMERS):
+                    for ngrp in (0, 5, n // 8 - 1):
+                        for kgrp, r8, k4 in ((0, 0, 0), (1, 3, 2), (1, 7, 3)):
+                            row = 8 * (stage * kps + j) + 4 * kgrp + k4
+                            col = cols_of(c, 8 * ngrp + r8)
+                            hi, lo = v[stage, j, c, :, ngrp, kgrp, r8, k4].tolist()
+                            assert hi + lo == w[row, col].item(), (stage, j, c, ngrp, kgrp, r8, k4)
+
+    half = ch // wn_layer.CONSUMERS
+    n_a = w_a.numel() * 2
+    # first product: consumer c's tanh columns, then their sigmoid partners
+    check(packed[:n_a], w_a,
+          lambda c, i: c * half + i if i < half else ch + c * half + (i - half))
+    # second product: consumer c owns a contiguous half of rs
+    check(packed[n_a:], w_rs, lambda c, i: c * (rs_out // 2) + i)
+
+
+@pytest.mark.parametrize("scale", [1e-3, 0.05, 1.0, 300.0])
+def test_pack_weights_tf32_planes(scale):
+    """Realistic weights: hi and lo are exact TF32 values (low 13 mantissa
+    bits zero) and hi + lo gives each w to 2^-21 relative.  Packing the
+    element indices (integers < 2^22, exact as hi + lo) tells which weight
+    each packed pair holds."""
+    rng = np.random.default_rng(int(scale * 1000))
+    layer = _pack(_layer_np(rng, 256, 640, 512))
+    w_a = torch.cat([layer.w_in[:, :, tap].t() for tap in range(3)] + [layer.w_cond.t()]) * scale
+    w_rs = layer.w_rs.t() * scale
+    planes = wn_layer.pack_weights(w_a, w_rs).reshape(-1, 2, 2048)  # [block][hi, lo][8 KB]
+    assert (planes.view(torch.int32) & 0x1FFF).eq(0).all()
+
+    n_a = w_a.numel()
+    index = wn_layer.pack_weights(
+        torch.arange(n_a, dtype=torch.float32).reshape(w_a.shape),
+        torch.arange(n_a, n_a + w_rs.numel(), dtype=torch.float32).reshape(w_rs.shape),
+    ).reshape(-1, 2, 2048)
+    index = (index[:, 0] + index[:, 1]).long()
+    assert torch.equal(torch.sort(index.reshape(-1)).values, torch.arange(n_a + w_rs.numel()))
+    w = torch.cat([w_a.reshape(-1), w_rs.reshape(-1)]).double()[index]
+    got = planes[:, 0].double() + planes[:, 1].double()
+    rel = ((got - w).abs() / w.abs().clamp_min(1e-30)).max().item()
+    assert rel <= 2.0**-21
 
 
 def test_pack_wn_layer_geometry():
     rng = np.random.default_rng(0)
     wide = _pack(_layer_np(rng, 256, 640, 512))
-    assert wide.frag_in.numel() == (3 * 256 + 640) * 512 and wide.frag_rs.numel() == 256 * 512
+    # TF32 hi and lo planes of [W0; W1; W2; Wc] and of Wrs, in 32 KB stages
+    assert wide.wpack.numel() == 2 * ((3 * 256 + 640) * 512 + 256 * 512)
+    assert wide.wpack.numel() * 4 == 208 * wn_layer.STAGE_BYTES
+    last = _pack(_layer_np(rng, 256, 640, 256))
+    assert last.wpack.numel() * 4 == 192 * wn_layer.STAGE_BYTES
     narrow = _pack(_layer_np(rng, 32, 64, 64))
-    assert narrow.frag_in is None and narrow.frag_rs is None  # the kernel takes ch=256 only
+    assert narrow.wpack is None  # the kernel takes ch=256 only
     assert not wn_layer.kernel_takes(256, 100) and wn_layer.kernel_takes(256, 64)
 
 
@@ -212,7 +261,7 @@ def test_wn_wrappers_reject_what_the_kernel_does_not_take():
         wn_layer._check(torch.zeros((1, 256, 40)).transpose(1, 2), cond, None, layer, 512, 1)
     with pytest.raises(ValueError, match="skip"):
         wn_layer._check(h, cond, torch.zeros((1, 39, 256)), layer, 512, 1)
-    with pytest.raises(ValueError, match="fragments"):
+    with pytest.raises(ValueError, match="packed weights"):
         wn_layer._check(h, cond, None, layer, 256, 1)
     with pytest.raises(ValueError, match="last"):
         wn_layer.fused_wn_layer_state(h, cond, h, layer, dilation=1, last=True)
