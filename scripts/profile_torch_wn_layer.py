@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the port's WN-layer kernel (larynx_tpu_torch/csrc/wn_layer.cu) on one GPU.
 
-    python3 scripts/profile_torch_wn_layer.py [--repo DIR] [--label NAME] [--cluster N]
+    python3 scripts/profile_torch_wn_layer.py [--repo DIR] [--label NAME]
     python3 scripts/profile_torch_wn_layer.py --waveglow [--repo DIR] [--label NAME]
 
 Runs K3 at the WaveGlow main path's middle-layer shape (B=4, T=32768,
@@ -13,9 +13,9 @@ ch 256, cc 640, d=8) and prints one JSON line with:
   * tf32_tflops: 3 TF32 operations per f32 FLOP of the layer over ms;
   * l2_weight_gb, l2_weight_tb_s: the weight bytes that the kernel's blocks
     read from L2 per launch (every 64-row tile reads every packed weight
-    byte once, divided by ``--cluster``, the number of blocks that one
-    multicast load feeds: 2 for the wgmma kernel, 1 before it) and that
-    rate;
+    byte once, divided by the number of blocks that one multicast load
+    feeds: 2 for the wgmma kernel, whose layer holds ``wpack``, 1 for the
+    kernel before it) and that rate;
   * bound_ms and bound_share: the layer's bound at the card's dense TF32
     peak, as chip_smoke.py counts it;
   * ptxas: registers, spills and ptxas's performance warnings of the build;
@@ -53,7 +53,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=".")
     ap.add_argument("--label", default="this tree")
-    ap.add_argument("--cluster", type=int, default=2)
     ap.add_argument("--waveglow", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -124,7 +123,7 @@ def main() -> int:
     weight_bytes = 4 * sum(t.numel() for t in wn_layer_weight_tensors(layer))
     bytes_s = 4.0 * (io + weights + 2 * CH * (3 * CH + CC) + CH * 2 * CH) / 3.35e12
     bound_ms = 1e3 * max(ops_s, bytes_s)
-    cluster = args.cluster
+    cluster = 2 if hasattr(layer, "wpack") else 1
     tiles = B * -(-T // TILE)
     l2_gb = weight_bytes * tiles / cluster / 1e9
     sass = sass_census(build.library_path("wn_layer"))

@@ -13,8 +13,9 @@ products (1408 at wn_256) of weights ~0.05 and O(1) inputs, summed in
 other orders: ~1e-6 observed.
 
 Also here: the kernel's weight stages (TF32 hi/lo planes in wgmma operand
-order, built on the CPU at load) and the wrappers' guards: the plain version only for CPU tensors, and no
-fallback when the CUDA library cannot be had.
+order, built on the CPU at load) and the wrappers' guards: the plain
+version only for CPU tensors, and no fallback when the CUDA library cannot
+be had.
 """
 
 import jax.numpy as jnp
