@@ -9,13 +9,16 @@ Phases (any failure exits non-zero):
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, with times for the kernel, the plain version and a
      cuDNN/cuBLAS yardstick, and the card's lower bound for the same work:
-     mrf_section (HiFi-GAN) and wn_layer (WaveGlow: every mode, ragged T
-     with an odd tile count and a one-step tail, and a whole 8-layer WN
-     stack), each WN row with its share of the bound.
+     mrf_section (HiFi-GAN: whole sections, and single resblock units at
+     C=128 with a ragged T of odd tile count and a T under one stride) and
+     wn_layer (WaveGlow: every mode, ragged T with an odd tile count and a
+     one-step tail, and a whole 8-layer WN stack), each row with its share
+     of the bound.
   3. the HiFi-GAN path: ``larynx_tpu_torch.text_to_speech`` at full width
      (GlowTTS harvard dims + HiFi-GAN universal_large, random weights from
      a fixed seed) on eight pangram sentences, with and without the
-     denoiser, with the kernels' launch counts read around each run; a
+     denoiser, with the kernels' launch counts read around each run (one
+     MRF launch per resblock unit: 27 per generator call); a
      ragged batch of ten other sentences, which the vocoder splits into
      groups, is also synthesised on the CPU path and compared row by row.
   4. the WaveGlow path: the same with ``vocoder_or_quality="waveglow"``
@@ -134,9 +137,24 @@ R1 = ((3, 7, 11), ((1, 3, 5),) * 3, 2)  # universal_large: ResBlock1
 R2 = ((3, 5, 7), ((1, 2), (2, 6), (3, 12)), 1)  # vctk_small: ResBlock2
 
 
+def unit_design_bytes(stage, b, t):
+    """HBM bytes that the per-unit launches move for one section: each unit
+    reads its input and writes its output once (a chain's last unit after
+    the first chain also reads out), plus the weight stages once; the
+    residual re-read and the tiles' halos come from L2."""
+    from larynx_tpu_torch.ops.mrf_block import MODE_OUT_ADD, unit_launches
+
+    act = 4.0 * b * t * stage.b_flat.shape[-1]
+    io = sum(act * (3 if mode == MODE_OUT_ADD else 2) for *_, mode, _s in unit_launches(stage))
+    return io + 4.0 * (stage.wpack.numel() + stage.b_flat.numel())
+
+
 def check_mrf(mrf_block, main_cases):
     """Phase 2: mrf_section against mrf_section_plain, first at the shapes the
-    main path gives it, then at a 512-frame mel, ResBlock2 and a ragged T."""
+    main path gives it, then at a 512-frame mel, ResBlock2 and a ragged T;
+    then single universal_large units (one-unit stages, one launch each)
+    against mrf_unit_plain at C=128: each unit kind at the main path's
+    shape, a ragged T with an odd tile count and a T under one stride."""
     from larynx_tpu_torch.weights import tree_to
 
     cases = list(main_cases) + [  # (label, C, geometry, B, T, on the main path)
@@ -146,24 +164,37 @@ def check_mrf(mrf_block, main_cases):
         ("vctk_small stage 1, 512-frame mel", 128, R2, 8, 4096, False),
         ("ragged T", 128, R1, 2, 1000, False),
     ]
+    b_main, t_main = next((b, t) for _l, c, _g, b, t, _m in main_cases if c == 128)
+    units = [  # (label, k, d, B, T): stride 126, 122, 118
+        ("unit (3,1), main shape", 3, 1, b_main, t_main),
+        ("unit (7,3), main shape", 7, 3, b_main, t_main),
+        ("unit (11,5), main shape", 11, 5, b_main, t_main),
+        ("unit (11,5), ragged T, 13 tiles", 11, 5, 3, 118 * 13 - 50),
+        ("unit (7,3), T under one stride", 7, 3, 2, 100),
+    ]
     gen = torch.Generator().manual_seed(0)
     rows = []
-    for label, c, (ks, dils, cpu), b, t, main in cases:
+    for label, c, (ks, dils, cpu), b, t, main in cases + [
+            (label, 128, ((k,), ((d,),), 2), b, t, False) for label, k, d, b, t in units]:
         stage = mrf_block.pack_mrf_stage(
             tree_to(random_stage(gen, c, ks, dils, cpu), "cuda"), ks, dils, cpu)
         w, bias = stage.w_flat, stage.b_flat
         x = torch.randn((b, t, c), generator=gen).cuda()
         out = mrf_block.mrf_section(x, stage)
         torch.cuda.synchronize()
-        ref = mrf_block.mrf_section_plain(x, w, bias, ks, dils, cpu)
-        err = (out - ref).abs().max().item()
+        convs = list(mrf_block._unpacked_convs(w, bias, c, ks, dils, cpu))
+        if len(convs) == 1:  # a single unit: its own plain version
+            def plain():
+                return mrf_block.mrf_unit_plain(x, convs[0][2])
+        else:
+            def plain():
+                return mrf_block.mrf_section_plain(x, w, bias, ks, dils, cpu)
+        err = (out - plain()).abs().max().item()
         if not err <= MRF_TOLERANCE:
             raise AssertionError(f"mrf_section {label}: max abs err {err} > {MRF_TOLERANCE}")
-
-        convs = list(mrf_block._unpacked_convs(w, bias, c, ks, dils, cpu))
         xc = x.transpose(1, 2).contiguous()
 
-        def cudnn_chain():  # the section's convs alone, one cuDNN call each
+        def cudnn_chain():  # the convs alone, one cuDNN call each
             for _r, _u, unit in convs:
                 for cw, cb, d in unit:
                     torch.nn.functional.conv1d(xc, cw, cb, padding=(cw.shape[-1] - 1) // 2 * d,
@@ -171,20 +202,25 @@ def check_mrf(mrf_block, main_cases):
 
         taps = cpu * sum(k * len(d) for k, d in zip(ks, dils))
         ops_s = TF32_PER_F32 * 2.0 * b * t * c * c * taps / TF32_PEAK_FLOPS
-        bytes_s = 4.0 * (2 * b * t * c + stage.frags.numel() + bias.numel()) / HBM_BYTES_PER_S
+        bytes_s = 4.0 * (2 * b * t * c + stage.wpack.numel() + bias.numel()) / HBM_BYTES_PER_S
+        design = unit_design_bytes(stage, b, t)
         row = {
             "case": label, "C": c, "B": b, "T": t, "convs_per_unit": cpu, "main_path": main,
-            "max_abs_err": err,
+            "units": len(convs), "max_abs_err": err,
             "ms": time_ms(lambda: mrf_block.mrf_section(x, stage)),
-            "plain_ms": time_ms(lambda: mrf_block.mrf_section_plain(x, w, bias, ks, dils, cpu)),
+            "plain_ms": time_ms(plain),
             "library_ms": time_ms(cudnn_chain),
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
+            "unit_hbm_gb": design / 1e9, "unit_hbm_ms": 1e3 * design / HBM_BYTES_PER_S,
         }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        log(f"mrf_section {label}: C={c} B={b} T={t} max_abs_err={err:.3g} (tol {MRF_TOLERANCE}) "
-            f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-            f"cuDNN conv chain {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms")
+        log(f"mrf_section {label}: C={c} B={b} T={t} units {len(convs)} max_abs_err={err:.3g} "
+            f"(tol {MRF_TOLERANCE}) kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"cuDNN conv chain {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}), {row['bound_share']:.1%} of bound; per-unit HBM traffic "
+            f"{row['unit_hbm_gb']:.3f} GB = {row['unit_hbm_ms']:.3f} ms at 3.35 TB/s")
     return rows
 
 
@@ -450,6 +486,11 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
     for strength in (0.0, 0.005):  # warm-up: cuDNN/cuFFT plans, the denoiser bias
         list(larynx_tpu_torch.text_to_speech(text, device="cuda", denoiser_strength=strength,
                                              **kwargs))
+    # one launch per resblock unit of every stage the kernel takes (C <= 128)
+    cfg = engine.vocoder_cfg
+    kernel_stages = sum(1 for i in range(len(cfg.upsample_rates))
+                        if cfg.upsample_initial_channel // 2 ** (i + 1) <= 128)
+    per_call = kernel_stages * sum(len(d) for d in cfg.resblock_dilation_sizes)
     launches = {}
     for label, strength in (("no denoiser", 0.0), ("denoiser 0.005", 0.005)):
         mrf_block.mrf_section.launches = 0
@@ -475,8 +516,9 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
                 raise AssertionError(f"{label}: audio {audio.dtype} {audio.shape}, expected ({n},)")
             if np.abs(audio.astype(np.int32)).max() < 1000 or audio.astype(np.float64).std() < 10:
                 raise AssertionError(f"{label}: silent audio")
-        if calls < 1 or n_launch != 3 * calls:
-            raise AssertionError(f"{label}: {n_launch} mrf_section launches for {calls} generator calls")
+        if calls < 1 or n_launch != per_call * calls:
+            raise AssertionError(f"{label}: {n_launch} mrf_section launches for {calls} generator "
+                                 f"calls, expected {per_call} per call")
         audio_s = sum(r.audio.shape[0] for r in results) / 22050
         launches[label] = n_launch
         log(f"main path, {label}: wall {wall:.4f} s, audio {audio_s:.2f} s, RTF {wall / audio_s:.6f}, "
@@ -704,12 +746,23 @@ def main() -> int:
                         if "registers" in line or "spill" in line or "Performance Loss" in line})
         log(f"built {name} in {time.perf_counter() - start:.1f} s; ptxas: "
             + ("; ".join(ptxas) or "already built"))
-        if name == "wn_layer" and any(
-                "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
-                for line in lines):
+        if any("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+               for line in lines):
             raise AssertionError(f"{name}: the kernel spills registers")
+        if any("C7510" in line or "C7512" in line for line in lines):
+            raise AssertionError(f"{name}: ptxas serialized the wgmma pipeline (C75xx)")
     log(f"wn_layer: dynamic shared memory {wn_layer._library().wn_layer_smem_bytes()} bytes "
         "per block, 384 threads, clusters of 2 blocks")
+    mrf_lib = mrf_block._library()
+    for c, k, d in ((128, 3, 1), (128, 7, 3), (128, 11, 5), (128, 7, 12), (64, 11, 5), (32, 11, 5)):
+        rows = mrf_block.unit_rows(k, d)
+        got = (mrf_lib.mrf_unit_smem_bytes(c, rows), mrf_lib.mrf_unit_b_stages(c, rows))
+        if got != (mrf_block.unit_smem_bytes(c, rows), mrf_block.unit_b_stages(c, rows)):
+            raise AssertionError(f"mrf_section (C={c}, k={k}, d={d}): kernel smem and ring {got}, "
+                                 "ops/mrf_block.py mirrors another")
+        log(f"mrf_section: unit (k={k}, d={d}) at C={c}: {rows} input rows, dynamic shared memory "
+            f"{got[0]} bytes per block, {got[1]}-stage weight ring, 384 threads, stride "
+            f"{mrf_block.unit_stride(k, 2)} rows")
 
     # plain references and the main path run in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -743,6 +796,9 @@ def main() -> int:
     }]
     if any(r["bound_by"] != "operations" for r in main_rows):
         raise AssertionError("expected the MRF section to be bound by operations")
+    log(f"mrf_section, main path's {len(main_rows)} sections: kernel {kernels[0]['ms']:.3f} ms, "
+        f"bound {kernels[0]['bound_ms']:.3f} ms ({kernels[0]['bound_ms'] / kernels[0]['ms']:.1%}), "
+        f"cuDNN conv chains {kernels[0]['library_ms']:.3f} ms")
     # the WaveGlow path's vocoder calls without the denoiser: per group, 12
     # flows of one 8-layer WN stack, each stack timed whole at the group's shape
     stack_of = {(r["B"], r["T"]): r for r in wn_stacks}

@@ -1,318 +1,348 @@
-// Fused HiFi-GAN multi-receptive-field (MRF) section for Hopper (sm_90a), f32.
+// One resblock unit of a HiFi-GAN multi-receptive-field (MRF) section for
+// Hopper (sm_90a), f32: wgmma TF32 from shared memory, weights by TMA.
 //
 // Replaces both TPU kernels of larynx_tpu/ops/mrf_block.py:
 //   K1  fused_mrf, dense branch      (_make_kernel,        pallas_call at :272)
 //   K2  _fused_mrf_packed, C < 128   (_make_packed_kernel, pallas_call at :382)
 // K2's time packing only fills the TPU's 128 lanes; here one kernel,
 // templated on C in {8, 16, 32, 64, 128} and on convs_per_unit in {1, 2},
-// computes the whole averaged section of one generator stage in one launch.
+// takes every width.  The section runs as one launch per resblock unit
+// (ops/mrf_block.py::mrf_section, 9 per universal_large stage):
+//   ResBlock1 (convs_per_unit=2): h_new = h + conv_k(lrelu(conv_{k,d}(lrelu(h))))
+//   ResBlock2 (convs_per_unit=1): h_new = h + conv_{k,d}(lrelu(h))
+// for h [B, T, C] (channels-last, contiguous), lrelu slope 0.1, every conv
+// zero-padded 'same' (the first conv's output is zero outside [0, T) before
+// the second conv reads it).  h_new goes to a scratch buffer, or, on a
+// chain's last unit, into the section's output: out = h_new (first chain),
+// out = out + h_new (later chains), times 1/n_chains on the last chain.
 //
-// What it computes, for x [B, T, C] (channels-last, contiguous):
-//   for each resblock (chain) r with kernel k_r and dilations d_r[u]:
-//     h = x
-//     for each unit u:
-//       ResBlock1 (convs_per_unit=2): h += conv(lrelu(conv(lrelu(h), d)), 1)
-//       ResBlock2 (convs_per_unit=1): h += conv(lrelu(h), d)
-//     total += h
-//   out = total / n_chains
-// with lrelu slope 0.1 and every conv zero-padded 'same'.  Positions outside
-// [0, T) are re-zeroed after every conv, so a haloed tile reproduces the
-// per-conv zero padding exactly.
+// What bounds it: operations.  A unit costs 2 * C^2 * k * convs FLOPs per
+// time step against 2-3 * C * 4 bytes of activation I/O (~700 FLOP/byte at
+// C=128, k=11), and each f32 product runs as three TF32 tensor-core
+// products (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, f32 accumulate).
+// The design:
 //
-// What bounds it: operations.  A time step costs about 2 * C^2 * 126 FLOPs
-// (ResBlock1 (3,7,11)) against 2 * C * 4 bytes of activation I/O, i.e.
-// ~4000 FLOP/byte at C=128, far above the H100's ridge.  So the design
-// keeps every intermediate on chip and feeds the tensor cores:
+//   * one block per (time tile, batch row): a producer warpgroup and two
+//     consumer warpgroups.  The first conv computes M = 128 rows (64 per
+//     consumer, wgmma m64nCk8, N = C); the second conv's useful rows are
+//     M - (k - 1), so the tile stride is 126, 122 or 118 at k = 3, 7, 11
+//     (M at convs_per_unit=1): ~1.05x recompute where the fused section
+//     carried a 60-row halo on a 96-row tile (~1.5x).
+//   * A operands: the raw input tile, M + (k - 1) * d rows, arrives once by
+//     TMA from a 3-D tensor map [B, T, C], one box of 4 channels x all rows
+//     per 4-channel group, so shared memory holds it channel-group-major
+//     ([C/4][rows][4]): the hardware's zero fill is the conv's padding at
+//     both ends, never reading the neighbouring batch row.  All 384 threads
+//     then split it once, in place, into exact TF32 hi and lo planes
+//     (lrelu applied; lrelu(0) = 0, so no mask).  In that layout a row is
+//     16 bytes, so tap j's A operand, the tile shifted by j * d rows, is a
+//     wgmma descriptor 16 * j * d bytes further (K-major, no swizzle, core
+//     matrices of 8 contiguous rows, the two K halves of a k-step one
+//     channel-group plane apart): no copy and no split per tap.
+//   * B operands (weights) are packed once at load (ops/mrf_block.py::
+//     pack_stages) as exact TF32 hi and lo planes in wgmma core-matrix
+//     order, one stage per (tap, 8 input channels): 8 KB at C=128.  One
+//     producer thread streams them by bulk TMA into an mbarrier ring as
+//     deep as the shared memory left allows (5 stages at C=128, k=11, d=5).
+//   * the first conv's output goes from registers, zeroed outside [0, T),
+//     through lrelu and the TF32 split, into hi and lo planes in the same
+//     layout over the raw tile's (both consumers are done reading it by
+//     then): the second conv's A operand.  Its residual is read back from
+//     global memory (L2) in the epilogue.
+//   * one accumulator array, operands only from shared memory and no calls
+//     in the consumers, so ptxas keeps the wgmma pipeline asynchronous: one
+//     group of 3 products in flight while the next is issued.
+//   * at C <= 64 two blocks share an SM where their shared memory allows,
+//     so one block's prologue and epilogue overlap the other's products.
 //
-//   * one block per (time tile, batch row) holds the tile plus the
-//     section's halo (60 samples at (3,7,11)x(1,3,5)) in shared memory, in
-//     two buffers: h (the chain's residual stream) and t (a conv's output);
-//     the buffers are anchored at the tile origin and each conv shrinks the
-//     valid range by its own halo.  The wrapper picks the longest tile the
-//     shared memory holds (96 at C=128).  Per tile, x is read once per chain
-//     (from L2) and out written once; the halo is recomputed (~1.5x the
-//     useful work at C=128; less at narrower C).
-//   * each conv is k shifted [rows, C] x [C, C] products, run as
-//     mma.sync m16n8k8 TF32 with a 3xTF32 split (a*b ~ a_hi*b_hi + a_hi*b_lo
-//     + a_lo*b_hi, f32 accumulate), which keeps f32-level accuracy at three
-//     tensor-core products per FMA -- 495/3 TFLOP/s of TF32 peak against
-//     67 TFLOP/s on the CUDA cores.
-//   * the weights (126 taps x C^2, 8.3 MB at C=128) cannot live in shared
-//     memory as the TPU kernel keeps them in VMEM.  They are split into
-//     hi/lo TF32 and arranged in mma fragment order once, when the weights
-//     are loaded (ops/mrf_block.py::pack_mrf_stage), stay
-//     resident in the 50 MB L2, and go straight into registers, one step
-//     (tap, 8 input channels) ahead, with no barrier inside a conv: the warps
-//     that share a column group read the same addresses, so L1 serves most.
-//     (Staging them through shared memory cost the tile length and a barrier
-//     per step, and measured slower.)
-// wgmma and TMA are the next step (later work).
+// Shared memory at C=128, (k, d) = (11, 5): tile planes 2 x 184 x 512 B =
+// 184 KB, weight ring 5 x 8 KB: 226 KB of the 227 KB a block can have;
+// ResBlock2's widest unit, (7, 12), has 200 rows and a 3-stage ring.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kMaxChains = 4;
-constexpr int kMaxUnits = 4;
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kNWMax = 64;     // output columns per warp at C >= 64
+constexpr int kM = 128;               // first-conv rows per block (two wgmma M = 64)
+constexpr int kConsumers = 2;         // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kMaxBStages = 16;
+constexpr int kBars = 1 + 2 * kMaxBStages;
+constexpr int kMaxRows = 256;         // raw tile rows: the TMA box limit
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block can have
+constexpr size_t kPairSmem = 115712;  // ... two blocks of an SM can have each
 constexpr float kSlope = 0.1f;
 
-struct MrfConfig {
-  int n_chains;
-  int ksize[kMaxChains];
-  int n_units[kMaxChains];
-  int dil[kMaxChains][kMaxUnits];
-};
+enum Mode { kToScratch = 0, kOutStore = 1, kOutAdd = 2 };
+
+__host__ __device__ constexpr int pad8(int rows) { return (rows + 7) & ~7; }
+
+// one weight stage: (tap, 8 input channels) x C outputs, hi and lo planes
+template <int C>
+__host__ __device__ constexpr int b_bytes() { return 2 * 8 * C * 4; }
+
+// the tile's hi and lo planes, [C/4][pad8(rows)][4] f32 each
+template <int C>
+__host__ __device__ constexpr size_t a_bytes(int rows) { return 2 * (size_t)pad8(rows) * C * 4; }
+
+// weight ring depth: as deep as the block's shared memory allows (at
+// C <= 64 within half an SM where 4 stages still fit), at most kMaxBStages
+template <int C>
+constexpr int b_stages(int rows) {
+  const size_t fixed = 1024 + a_bytes<C>(rows) + 8 * kBars;
+  const size_t budget = C <= 64 && fixed + 4 * b_bytes<C>() <= kPairSmem ? kPairSmem : kMaxSmem;
+  if (fixed > budget) return 0;
+  const size_t n = (budget - fixed) / b_bytes<C>();
+  return n < kMaxBStages ? (int)n : kMaxBStages;
+}
 
 template <int C>
-struct Geo {
-  static constexpr int NW = C < kNWMax ? C : kNWMax;  // output columns per warp
-  static constexpr int NC = NW / 8;               // n-chunks per warp
-  static constexpr int MC = 24 / NC;              // 16-row m-chunks per warp per pass (96 accumulators)
-  static constexpr int CGW = C / NW;              // column groups of warps
-  static constexpr int RGW = kWarps / CGW;        // row groups of warps
-  static constexpr int KC = C / 8;                // k-chunks per tap
-  static constexpr int RPP = RGW * MC * 16;      // rows per pass
-  static constexpr int S = C + 4;                 // row stride: A fragment loads hit distinct banks
-  static constexpr int SLICE = 16 * C;            // floats of one (tap, k-chunk) weight step
-};
-
-enum Mode { kStoreLrelu = 0, kAdd = 1, kStore = 2 };
+constexpr size_t smem_bytes(int rows) {
+  return 1024 + a_bytes<C>(rows) + 8 * kBars + (size_t)b_stages<C>(rows) * b_bytes<C>();
+}
 
 __device__ __forceinline__ float lrelu(float a) { return fmaxf(a, kSlope * a); }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+// wgmma descriptor of a K-major operand without swizzle whose 8-row core
+// matrices are contiguous (stride byte offset 128) and whose two K halves
+// of a k-step lie `lbo` bytes apart (leading byte offset)
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
 }
 
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// acc += (a_hi + a_lo) * (b_hi + b_lo) less the a_lo * b_lo term
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2], uint32_t a_hi, uint32_t a_lo,
+                                             uint32_t lbo, uint32_t b_hi, uint32_t b_lo) {
+  wgmma_tf32<N>(d, desc_rows(a_lo, lbo), desc_kmajor(b_hi));
+  wgmma_tf32<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_lo));
+  wgmma_tf32<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_hi));
 }
 
-// One conv over output rows [lo, hi) of the tile (local rows: row i is global
-// position origin + i in every buffer).  wfrag: this conv's weights in
-// fragment order [tap][k-chunk][n-chunk][lane][b0_hi, b1_hi, b0_lo, b1_lo].
-template <int C, bool IN_LRELU, int MODE>
-__device__ void conv_rows(const float* __restrict__ src, float* dst, int lo, int hi, int k, int d,
-                          const float* __restrict__ wfrag, const float* __restrict__ bias,
-                          int origin, int T) {
-  using Gm = Geo<C>;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // mma groupID
-  const int t = lane & 3;   // mma threadID_in_group
-  const int cgw = warp % Gm::CGW;
-  const int rgw = warp / Gm::CGW;
+__device__ __forceinline__ void named_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
+
+template <int C, int CPU>
+__global__ void __launch_bounds__(kThreads, C <= 64 ? 2 : 1)
+mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const float* __restrict__ h_in,
+                const float* __restrict__ wpack, const float* __restrict__ bias,
+                float* __restrict__ dst, int T, int k, int d, int rows, int depth, int mode,
+                float scale) {
+  constexpr int B_BYTES = b_bytes<C>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t base = (raw_s + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw_s);
+  const int rp = pad8(rows);                        // row pitch of a channel-group plane
+  const uint32_t plane = rp * 16;                   // bytes of one channel-group plane
+  const uint32_t a_hi = base, a_lo = base + (C / 4) * plane;
+  const uint32_t b_ring = base + static_cast<uint32_t>(a_bytes<C>(rows));
+  const uint32_t bars = b_ring + depth * B_BYTES;
+  const uint32_t raw_full = bars;
+  auto full_b = [&](int i) { return bars + 8 * (1 + i); };
+  auto empty_b = [&](int i) { return bars + 8 * (1 + kMaxBStages + i); };
+
   const int half = (k - 1) / 2;
-  const int steps = k * Gm::KC;
+  const int stride = CPU == 2 ? kM - (k - 1) : kM;  // output rows per block
+  const int t0 = blockIdx.x * stride;
+  const int o0 = CPU == 2 ? t0 - half : t0;         // position of the first conv's row 0
+  const int batch = blockIdx.y;
+  const int steps = k * (C / 8);                    // k-steps (and weight stages) per conv
+  const int total = CPU * steps;
+  const int wg = threadIdx.x / 128;
 
-  for (int base = lo; base < hi; base += Gm::RPP) {
-    const int n_chunks = min((hi - base + 15) / 16, Gm::RGW * Gm::MC);
-    const int nj = n_chunks > rgw ? min(Gm::MC, (n_chunks - rgw + Gm::RGW - 1) / Gm::RGW) : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(raw_full, 1);
+    for (int i = 0; i < depth; ++i) {
+      mbar_init(full_b(i), 1);
+      mbar_init(empty_b(i), kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    float acc[Gm::MC][Gm::NC][4];
-#pragma unroll
-    for (int nc = 0; nc < Gm::NC; ++nc) {
-      const int col = (cgw * Gm::NC + nc) * 8 + 2 * t;
-      const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-      for (int j = 0; j < Gm::MC; ++j) {
-        acc[j][nc][0] = b0; acc[j][nc][1] = b1; acc[j][nc][2] = b0; acc[j][nc][3] = b1;
+  int bs = 0;  // thread 0: the next weight stage's slot and parity
+  uint32_t bp = 0;
+  auto load_b = [&](int s) {
+    mbar_expect_tx(full_b(bs), B_BYTES);
+    bulk_load(b_ring + bs * B_BYTES, wpack + static_cast<size_t>(s) * (B_BYTES / 4), B_BYTES,
+              full_b(bs));
+    if (++bs == depth) { bs = 0; bp ^= 1; }
+  };
+  const int first = depth < total ? depth : total;
+  if (threadIdx.x == 0) {
+    // the raw tile, input rows from o0 - half * d, one box per 4 channels
+    mbar_expect_tx(raw_full, rows * C * 4);
+    for (int q = 0; q < C / 4; ++q)
+      tma_load_3d(a_hi + q * plane, &tmap_in, raw_full, 4 * q, o0 - half * d, batch);
+    for (int s = 0; s < first; ++s) load_b(s);  // the ring is empty: no waits
+  }
+
+  // every thread: the raw tile -> lrelu -> TF32 hi (in place) and lo planes
+  mbar_wait(raw_full, 0);
+  {
+    float4* hi = reinterpret_cast<float4*>(smem);
+    float4* lo = reinterpret_cast<float4*>(smem + (a_lo - base));
+#pragma unroll 4
+    for (int u = threadIdx.x; u < (C / 4) * rp; u += kThreads) {
+      const float4 x = hi[u];
+      const float4 a = make_float4(lrelu(x.x), lrelu(x.y), lrelu(x.z), lrelu(x.w));
+      const float4 ah = make_float4(to_tf32(a.x), to_tf32(a.y), to_tf32(a.z), to_tf32(a.w));
+      hi[u] = ah;
+      lo[u] = make_float4(to_tf32(a.x - ah.x), to_tf32(a.y - ah.y), to_tf32(a.z - ah.z),
+                          to_tf32(a.w - ah.w));
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (wg == 0) {
+    if (threadIdx.x == 0) {  // the rest of the weight stages of both convs
+      for (int s = first; s < total; ++s) {
+        mbar_wait(empty_b(bs), bp ^ 1);
+        load_b(s);
       }
     }
+    return;
+  }
 
-    // B fragments: from L2 into registers, one step ahead
-    const float4* bsrc = reinterpret_cast<const float4*>(wfrag) + cgw * Gm::NC * 32 + lane;
-    float4 bnext[Gm::NC];
+  // ---- consumers: consumer c owns rows [64c, 64c + 64) of every conv
+  const int c = wg - 1;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * c + 16 * ((threadIdx.x / 32) % 4) + g;  // this thread's rows r0, r0 + 8
+  const bool leader = threadIdx.x % 128 == 0;
+  int cs = 0;  // the next weight stage's slot and parity
+  uint32_t cp = 0;
+  float acc[C / 2];  // acc[4i + 2hr + e]: row r0 + 8hr, channel 8i + 2t + e
+
+#pragma unroll 1
+  for (int conv = 0; conv < CPU; ++conv) {
+    const int dd = conv == 0 ? d : 1;
 #pragma unroll
-    for (int nc = 0; nc < Gm::NC; ++nc) bnext[nc] = __ldg(bsrc + nc * 32);
+    for (int i = 0; i < C / 8; ++i) {
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + conv * C + 8 * i + 2 * t));
+      acc[4 * i] = bv.x; acc[4 * i + 1] = bv.y; acc[4 * i + 2] = bv.x; acc[4 * i + 3] = bv.y;
+    }
+    fence_acc(acc);
+    // k-step s: tap s / (C/8), channels [8 * (s % (C/8)), +8); one group
+    // of 3 products in flight while the next is issued, a weight stage
+    // released once its group is done
+    int prev = 0;
     for (int s = 0; s < steps; ++s) {
-      float4 bf[Gm::NC];
-#pragma unroll
-      for (int nc = 0; nc < Gm::NC; ++nc) bf[nc] = bnext[nc];
-      if (s + 1 < steps) {
-#pragma unroll
-        for (int nc = 0; nc < Gm::NC; ++nc)
-          bnext[nc] = __ldg(bsrc + (size_t)(s + 1) * (Gm::SLICE / 4) + nc * 32);
-      }
-      const int tap = s / Gm::KC;
-      const int k0 = (s % Gm::KC) * 8;
-      const int off = (tap - half) * d;
-#pragma unroll
-      for (int j = 0; j < Gm::MC; ++j) {
-        if (j < nj) {
-          // output rows past hi (a partial chunk) recompute row hi - 1 and
-          // are not stored, so every read stays in the conv's input range
-          const int row = base + 16 * (j * Gm::RGW + rgw) + g;
-          const float* p0 = src + (min(row, hi - 1) + off) * Gm::S + k0 + t;
-          const float* p1 = src + (min(row + 8, hi - 1) + off) * Gm::S + k0 + t;
-          float av[4] = {p0[0], p1[0], p0[4], p1[4]};
-          uint32_t ahi[4], alo[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float a = IN_LRELU ? lrelu(av[q]) : av[q];
-            ahi[q] = to_tf32(a);
-            alo[q] = to_tf32(a - __uint_as_float(ahi[q]));
-          }
-#pragma unroll
-          for (int nc = 0; nc < Gm::NC; ++nc) {
-            const uint32_t bh0 = __float_as_uint(bf[nc].x), bh1 = __float_as_uint(bf[nc].y);
-            const uint32_t bl0 = __float_as_uint(bf[nc].z), bl1 = __float_as_uint(bf[nc].w);
-            mma_tf32(acc[j][nc], alo, bh0, bh1);
-            mma_tf32(acc[j][nc], ahi, bl0, bl1);
-            mma_tf32(acc[j][nc], ahi, bh0, bh1);
-          }
-        }
-      }
+      const int tap = s / (C / 8), ks = s % (C / 8);
+      mbar_wait(full_b(cs), cp);
+      const uint32_t a = 2 * ks * plane + (tap * dd + 64 * c) * 16;
+      const uint32_t b = b_ring + cs * B_BYTES;
+      wgmma_fence();
+      wgmma_3xtf32<C>(acc, a_hi + a, a_lo + a, plane, b, b + B_BYTES / 2);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (s > 0 && leader) mbar_arrive(empty_b(prev));
+      prev = cs;
+      if (++cs == depth) { cs = 0; cp ^= 1; }
     }
-
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (leader) mbar_arrive(empty_b(prev));
+    if (CPU == 2 && conv == 0) {
+      // the first conv's rows, zero outside [0, T), lrelu, as hi and lo
+      // planes over the tile's once both consumers are done reading it
+      named_sync_consumers();
 #pragma unroll
-    for (int j = 0; j < Gm::MC; ++j) {
-      if (j >= nj) continue;
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + 8 * hr;
+        const int pos = o0 + row;
+        const bool inside = pos >= 0 && pos < T;
 #pragma unroll
-      for (int half_row = 0; half_row < 2; ++half_row) {
-        const int row = base + 16 * (j * Gm::RGW + rgw) + g + 8 * half_row;
-        if (row >= hi) continue;
-        const int gpos = origin + row;
-        const bool inside = gpos >= 0 && gpos < T;
-#pragma unroll
-        for (int nc = 0; nc < Gm::NC; ++nc) {
-          float* o = dst + row * Gm::S + (cgw * Gm::NC + nc) * 8 + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = inside ? acc[j][nc][2 * half_row + e] : 0.0f;
-            if (MODE == kStoreLrelu) o[e] = lrelu(v);
-            else if (MODE == kAdd) o[e] += v;
-            else o[e] = v;
-          }
+        for (int i = 0; i < C / 8; ++i) {
+          const int ch = 8 * i + 2 * t;
+          const uint32_t off = (ch / 4) * plane + row * 16 + (ch % 4) * 4;
+          const float x0 = inside ? lrelu(acc[4 * i + 2 * hr]) : 0.0f;
+          const float x1 = inside ? lrelu(acc[4 * i + 2 * hr + 1]) : 0.0f;
+          const float h0 = to_tf32(x0), h1 = to_tf32(x1);
+          *reinterpret_cast<float2*>(smem + off) = make_float2(h0, h1);
+          *reinterpret_cast<float2*>(smem + (a_lo - base) + off) =
+              make_float2(to_tf32(x0 - h0), to_tf32(x1 - h1));
         }
       }
+      fence_proxy_async();
+      named_sync_consumers();
+    }
+  }
+
+  // ---- epilogue: h_new = h + conv output on rows [0, stride) of the tile
+  const size_t row0 = static_cast<size_t>(batch) * T;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    const int pos = t0 + row;
+    if (row >= stride || pos >= T) continue;
+    const size_t e0 = (row0 + pos) * C;
+#pragma unroll
+    for (int i = 0; i < C / 8; ++i) {
+      const size_t e = e0 + 8 * i + 2 * t;
+      const float2 hv = __ldg(reinterpret_cast<const float2*>(h_in + e));
+      float2 v = make_float2(hv.x + acc[4 * i + 2 * hr], hv.y + acc[4 * i + 2 * hr + 1]);
+      float2* o = reinterpret_cast<float2*>(dst + e);
+      if (mode == kOutAdd) {
+        const float2 old = *o;
+        v = make_float2((old.x + v.x) * scale, (old.y + v.y) * scale);
+      } else if (mode == kOutStore) {
+        v = make_float2(v.x * scale, v.y * scale);
+      }
+      *o = v;
     }
   }
 }
 
-template <int C>
-constexpr size_t smem_bytes(int halo, int tile) {
-  return sizeof(float) * 2u * (size_t)(tile + 2 * halo) * Geo<C>::S;
+// ---- host side
+
+// [B, T, C] f32 -> a map whose box is 4 channels x `rows` steps of one batch
+// row (rows x 16 bytes in shared memory), zero outside the tensor
+bool encode_input(CUtensorMap* map, const float* base, int C, int T, int B, int rows) {
+  auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 4, (cuuint64_t)C * 4 * T};
+  const cuuint32_t box[3] = {4, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int C, int CPU>
-__global__ void __launch_bounds__(kThreads)
-mrf_section_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ out, int T, int halo,
-                   int tile, MrfConfig cfg) {
-  using Gm = Geo<C>;
-  extern __shared__ __align__(16) float smem[];
-  const int rows = tile + 2 * halo;
-  float* hbuf = smem;
-  float* tbuf = smem + rows * Gm::S;
-
-  const int t0 = blockIdx.x * tile;
-  const int origin = t0 - halo;  // global position of local row 0
-  const float* xb = x + (size_t)blockIdx.y * T * C;
-  float* ob = out + (size_t)blockIdx.y * T * C;
-  const int n_out = min(tile, T - t0);
-  const float n_chains = (float)cfg.n_chains;
-
-  const float* wc = w;  // weights and biases walk in execution order
-  const float* bc = b;
-  for (int r = 0; r < cfg.n_chains; ++r) {
-    const int k = cfg.ksize[r];
-    const int half = (k - 1) / 2;
-    const size_t conv_floats = (size_t)2 * k * C * C;  // hi + lo
-    int chain_halo = 0;
-    for (int u = 0; u < cfg.n_units[r]; ++u)
-      chain_halo += half * cfg.dil[r][u] + (CPU == 2 ? half : 0);
-    int lo = halo - chain_halo;
-    int hi = halo + tile + chain_halo;
-
-    for (int idx = threadIdx.x; idx < (hi - lo) * C; idx += kThreads) {
-      const int row = lo + idx / C;
-      const int c = idx % C;
-      const int gpos = origin + row;
-      hbuf[row * Gm::S + c] = (gpos >= 0 && gpos < T) ? xb[(size_t)gpos * C + c] : 0.0f;
-    }
-    __syncthreads();
-
-    for (int u = 0; u < cfg.n_units[r]; ++u) {
-      const int d = cfg.dil[r][u];
-      const int e1 = half * d;
-      if (CPU == 2) {
-        // t = lrelu(conv_d(lrelu(h))); h += conv_1(t)
-        conv_rows<C, true, kStoreLrelu>(hbuf, tbuf, lo + e1, hi - e1, k, d, wc, bc, origin, T);
-        wc += conv_floats;
-        bc += C;
-        __syncthreads();
-        conv_rows<C, false, kAdd>(tbuf, hbuf, lo + e1 + half, hi - e1 - half, k, 1, wc, bc,
-                                  origin, T);
-        wc += conv_floats;
-        bc += C;
-        __syncthreads();
-        lo += e1 + half;
-        hi -= e1 + half;
-      } else {
-        // t = conv_d(lrelu(h)); h += t
-        conv_rows<C, true, kStore>(hbuf, tbuf, lo + e1, hi - e1, k, d, wc, bc, origin, T);
-        wc += conv_floats;
-        bc += C;
-        __syncthreads();
-        lo += e1;
-        hi -= e1;
-        for (int idx = threadIdx.x; idx < (hi - lo) * C; idx += kThreads) {
-          const int row = lo + idx / C;
-          const int c = idx % C;
-          hbuf[row * Gm::S + c] += tbuf[row * Gm::S + c];
-        }
-        __syncthreads();
-      }
-    }
-
-    // h now holds this chain's output on rows [halo, halo + tile); every
-    // output element is read and written by the same thread in each chain
-    const bool first = r == 0;
-    const bool last = r == cfg.n_chains - 1;
-    for (int idx = threadIdx.x; idx < n_out * C; idx += kThreads) {
-      const int q = idx / C;
-      const int c = idx % C;
-      const float v = hbuf[(halo + q) * Gm::S + c];
-      const size_t gi = (size_t)(t0 + q) * C + c;
-      const float sum = first ? v : ob[gi] + v;
-      ob[gi] = last ? sum / n_chains : sum;
-    }
-    __syncthreads();
-  }
-}
-
-template <int C, int CPU>
-int launch(const float* x, const float* w, const float* b, float* out, int B, int T, int halo,
-           int tile, const MrfConfig& cfg, cudaStream_t stream) {
-  const size_t smem = smem_bytes<C>(halo, tile);
-  cudaError_t err = cudaFuncSetAttribute(mrf_section_kernel<C, CPU>,
+int launch(const float* h_in, const float* wpack, const float* bias, float* dst, int B, int T,
+           int k, int d, int mode, float scale, cudaStream_t stream) {
+  const int rows = kM + (k - 1) * d;
+  const int depth = b_stages<C>(rows);
+  const size_t smem = smem_bytes<C>(rows);
+  if (rows > kMaxRows || depth < 2 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!encode_input(&map, h_in, C, T, B, rows)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(mrf_unit_kernel<C, CPU>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + tile - 1) / tile, B);
-  mrf_section_kernel<C, CPU><<<grid, kThreads, smem, stream>>>(x, w, b, out, T, halo, tile, cfg);
+  const int stride = CPU == 2 ? kM - (k - 1) : kM;
+  const dim3 grid((T + stride - 1) / stride, B);
+  mrf_unit_kernel<C, CPU><<<grid, kThreads, smem, stream>>>(map, h_in, wpack, bias, dst, T, k, d,
+                                                            rows, depth, mode, scale);
   return (int)cudaGetLastError();
 }
 
 template <int CPU>
-int dispatch_c(int C, const float* x, const float* w, const float* b, float* out, int B, int T,
-               int halo, int tile, const MrfConfig& cfg, cudaStream_t stream) {
+int dispatch_c(int C, const float* h_in, const float* wpack, const float* bias, float* dst, int B,
+               int T, int k, int d, int mode, float scale, cudaStream_t s) {
   switch (C) {
-    case 8: return launch<8, CPU>(x, w, b, out, B, T, halo, tile, cfg, stream);
-    case 16: return launch<16, CPU>(x, w, b, out, B, T, halo, tile, cfg, stream);
-    case 32: return launch<32, CPU>(x, w, b, out, B, T, halo, tile, cfg, stream);
-    case 64: return launch<64, CPU>(x, w, b, out, B, T, halo, tile, cfg, stream);
-    case 128: return launch<128, CPU>(x, w, b, out, B, T, halo, tile, cfg, stream);
+    case 8: return launch<8, CPU>(h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
+    case 16: return launch<16, CPU>(h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
+    case 32: return launch<32, CPU>(h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
+    case 64: return launch<64, CPU>(h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
+    case 128: return launch<128, CPU>(h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -321,36 +351,48 @@ int dispatch_c(int C, const float* x, const float* w, const float* b, float* out
 
 extern "C" {
 
-// Shared memory one block needs; 0 for an unsupported C.
-long long mrf_section_smem_bytes(int C, int halo, int tile) {
+// Dynamic shared memory of a block whose raw tile holds `rows` steps, and
+// its weight ring's depth; 0 for an unsupported C.
+long long mrf_unit_smem_bytes(int C, int rows) {
   switch (C) {
-    case 8: return (long long)smem_bytes<8>(halo, tile);
-    case 16: return (long long)smem_bytes<16>(halo, tile);
-    case 32: return (long long)smem_bytes<32>(halo, tile);
-    case 64: return (long long)smem_bytes<64>(halo, tile);
-    case 128: return (long long)smem_bytes<128>(halo, tile);
+    case 8: return (long long)smem_bytes<8>(rows);
+    case 16: return (long long)smem_bytes<16>(rows);
+    case 32: return (long long)smem_bytes<32>(rows);
+    case 64: return (long long)smem_bytes<64>(rows);
+    case 128: return (long long)smem_bytes<128>(rows);
     default: return 0;
   }
 }
 
-// x, out [B, T, C]; w: per conv in execution order, weights in mma fragment
-// order (see conv_rows); b [n_convs, C]; dil is n_chains rows of kMaxUnits.
-// Returns the CUDA error code of the launch (0 on success).
-int mrf_section_f32(const float* x, const float* w, const float* b, float* out, int B, int T,
-                    int C, int convs_per_unit, int n_chains, const int* ksize, const int* n_units,
-                    const int* dil, int halo, int tile, void* stream) {
-  if (n_chains < 1 || n_chains > kMaxChains) return (int)cudaErrorInvalidValue;
-  MrfConfig cfg{};
-  cfg.n_chains = n_chains;
-  for (int r = 0; r < n_chains; ++r) {
-    if (n_units[r] < 1 || n_units[r] > kMaxUnits) return (int)cudaErrorInvalidValue;
-    cfg.ksize[r] = ksize[r];
-    cfg.n_units[r] = n_units[r];
-    for (int u = 0; u < n_units[r]; ++u) cfg.dil[r][u] = dil[r * kMaxUnits + u];
+int mrf_unit_b_stages(int C, int rows) {
+  switch (C) {
+    case 8: return b_stages<8>(rows);
+    case 16: return b_stages<16>(rows);
+    case 32: return b_stages<32>(rows);
+    case 64: return b_stages<64>(rows);
+    case 128: return b_stages<128>(rows);
+    default: return 0;
   }
+}
+
+// One resblock unit: h_in, dst [B, T, C]; wpack: the unit's convs as TF32
+// hi/lo weight stages (ops/mrf_block.py::pack_stages); bias [convs, C].
+// mode 0 writes h_new to dst; mode 1 writes h_new * scale; mode 2 writes
+// (dst + h_new) * scale.  dst must not alias h_in.
+// Returns the CUDA error code of the launch (0 on success).
+int mrf_unit_f32(const float* h_in, const float* wpack, const float* bias, float* dst, int B,
+                 int T, int C, int convs_per_unit, int k, int d, int mode, float scale,
+                 void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || k < 1 || k % 2 == 0 || d < 1 || mode < kToScratch ||
+      mode > kOutAdd)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (convs_per_unit == 2) return dispatch_c<2>(C, x, w, b, out, B, T, halo, tile, cfg, s);
-  if (convs_per_unit == 1) return dispatch_c<1>(C, x, w, b, out, B, T, halo, tile, cfg, s);
+  if (convs_per_unit == 2) {
+    if (k - 1 >= kM) return (int)cudaErrorInvalidValue;
+    return dispatch_c<2>(C, h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
+  }
+  if (convs_per_unit == 1)
+    return dispatch_c<1>(C, h_in, wpack, bias, dst, B, T, k, d, mode, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -63,10 +63,7 @@
 //     pipeline asynchronous: two groups of 3 products in flight per
 //     warpgroup, the stages released as they drain.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cudaTypedefs.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -92,67 +89,7 @@ static_assert(kBStageBytes == kConsumers * 2 * kNW1 * 8 * 4, "a first-product st
 
 enum Mode { kRs = 0, kMid = 1, kFirst = 2, kLast = 3, kFirstLast = 4 };
 
-// ---- PTX wrappers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// arrive on the barrier at the same offset in block `rank` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// TMA: box {kKC, kTile, 1} of a 3-D tensor map at (c0, c1, c2) -> dst
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
+// ---- wrappers only this kernel uses (the rest: sm90.cuh)
 
 // bulk TMA copy of `bytes` contiguous bytes -> dst in every block of the
 // cluster, completing on the barrier at the same offset in each
@@ -170,67 +107,6 @@ __device__ __forceinline__ void named_sync_consumers() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator accesses across wgmma fences
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor of a K-major operand without swizzle: core
-// matrices of 8 rows x 16 bytes, the two K halves of a k-step 128 bytes
-// apart (leading byte offset), consecutive 8-row groups 256 bytes apart
-// (stride byte offset).
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(256 >> 4) << 32);
-}
-
-#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define WG_D16(i) WG_D4(i), WG_D4(i + 4), WG_D4(i + 8), WG_D4(i + 12)
-#define WG_D64(i) WG_D16(i), WG_D16(i + 16), WG_D16(i + 32), WG_D16(i + 48)
-
-// d[64 x 256] += a[64 x 8] * b[8 x 256], TF32, both from shared memory
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1;\n}\n"
-      : WG_D64(0), WG_D64(64)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// d[64 x 128] += a[64 x 8] * b[8 x 128], TF32, both from shared memory
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1;\n}\n"
-      : WG_D64(0)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
 // wgmma descriptor of an A operand in the canonical K-major 128-byte
 // swizzled layout (what TMA writes for a box 128 bytes wide): 8-row groups
 // 1024 bytes apart; a k-step of 8 TF32 values starts 32 bytes further in
@@ -244,26 +120,9 @@ __device__ __forceinline__ uint64_t desc_a_sw128(uint32_t addr) {
 template <int N>
 __device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2], uint32_t a_hi, uint32_t a_lo,
                                              uint32_t b_hi, uint32_t b_lo) {
-  if constexpr (N == 256) {
-    wgmma_n256(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
-    wgmma_n256(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
-    wgmma_n256(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
-  } else {
-    wgmma_n128(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
-    wgmma_n128(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
-    wgmma_n128(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
-  }
-}
-
-__device__ __forceinline__ float to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// generic-proxy writes to shared memory -> visible to wgmma reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wgmma_tf32<N>(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
+  wgmma_tf32<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
+  wgmma_tf32<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
 }
 
 // no division subroutine (a call would serialize the wgmma pipeline); a few
@@ -312,7 +171,7 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
       mbar_init(ready_a(i), kSplitWarps);
       mbar_init(empty_a(i), kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   cluster_sync();  // every barrier of the cluster exists before any copy or remote arrive
 
@@ -551,25 +410,6 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
 }
 
 // ---- host side
-
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#endif
-    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
 
 // [B, T, C] f32 -> a map whose box is kKC channels x kTile steps of one
 // batch row, 128-byte swizzled, zero outside the tensor

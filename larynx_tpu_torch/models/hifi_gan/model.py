@@ -5,8 +5,9 @@ conv_pre -> per stage [leaky_relu -> transposed-conv upsample -> averaged
 multi-receptive-field resblocks] -> leaky_relu(0.01) -> conv_post -> tanh.
 
 Stages with C <= 128 run the whole section through
-``ops.mrf_block.mrf_section``, one kernel launch per stage on CUDA, as the
-JAX package runs them through its Pallas kernels; :func:`pack_params` packs
+``ops.mrf_block.mrf_section``, one kernel launch per resblock unit on CUDA
+(9 per universal_large stage), as the JAX package runs them through its
+Pallas kernels; :func:`pack_params` packs
 their weights once, at load.  Wider stages use plain
 torch convs, as the JAX package uses XLA there.  The upsample is a plain
 transposed conv: the JAX package's packed upsample only fills TPU lanes.

@@ -2,13 +2,15 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use; the
-hash is of the source, so an edited kernel is rebuilt.  Nothing is built or
+hash is of the source and the local headers it includes (``csrc/sm90.cuh``),
+so an edited kernel or header is rebuilt.  Nothing is built or
 loaded when a module is imported.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,8 +44,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def sources(name: str) -> typing.List[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes (``#include "x"``)."""
+    main = CSRC_DIR / f"{name}.cu"
+    headers = re.findall(r'^\s*#include\s+"([^"]+)"', main.read_text(), flags=re.MULTILINE)
+    return [main] + [CSRC_DIR / h for h in headers]
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """The library's path, keyed by a hash of its source and its local
+    headers, so an edit to either is rebuilt."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources(name))).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -2,17 +2,23 @@
 
 Counterpart of ``larynx_tpu/ops/mrf_block.py::fused_mrf`` (both its dense
 and its time-packed Pallas kernels).  ``mrf_section`` launches the CUDA
-kernel ``csrc/mrf_section.cu`` for a CUDA tensor and runs
-``mrf_section_plain``, the same function in plain torch, for a CPU tensor.
-There is no other route: a CUDA tensor the kernel cannot take raises.
+kernel ``csrc/mrf_section.cu`` once per resblock unit for a CUDA tensor and
+runs ``mrf_section_plain``, the same function in plain torch, for a CPU
+tensor.  There is no other route: a CUDA tensor the kernel cannot take
+raises.
 
 Weights travel packed (:func:`pack_mrf_weights`): every conv of the section
 in execution order (chain r, unit u, dilated conv then, for ResBlock1, the
 plain conv), taps ``[k][C_in][C_out]``, flattened into one f32 buffer, with
-the biases as ``[n_convs, C]``.  The kernel reads the weights split into
-TF32 hi/lo halves in tensor-core fragment order (:func:`pack_fragments`).
-:func:`pack_mrf_stage` builds both layouts once, when the weights are
-loaded, into the :class:`MRFStage` that ``mrf_section`` takes.
+the biases as ``[n_convs, C]``.  The kernel reads the weights as TF32 hi/lo
+stages in wgmma operand order (:func:`pack_stages`).  :func:`pack_mrf_stage`
+builds both layouts once, when the weights are loaded, into the
+:class:`MRFStage` that ``mrf_section`` takes.
+
+The kernel's geometry, mirrored here so the CPU tests reach it: a block's
+first conv computes ``TILE_ROWS`` rows, so a ResBlock1 unit's block yields
+``TILE_ROWS - (k - 1)`` output rows (:func:`unit_stride`) from a raw input
+tile of ``TILE_ROWS + (k - 1) * d`` rows (:func:`unit_rows`).
 """
 
 import ctypes
@@ -24,16 +30,48 @@ import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
 KERNEL_CHANNELS = (8, 16, 32, 64, 128)
-MAX_CHAINS = 4
-MAX_UNITS = 4  # kMaxUnits in csrc/mrf_section.cu
+# csrc/mrf_section.cu geometry
+TILE_ROWS = 128  # kM: first-conv rows per block (two wgmma M = 64 tiles)
+MAX_B_STAGES = 16  # weight ring depth at most (kMaxBStages)
+MAX_ROWS = 256  # raw tile rows: the TMA box limit
+MAX_SMEM = 232448  # dynamic shared memory a block can have
+PAIR_SMEM = 115712  # ... that each of two blocks on one SM can have
+# kernel modes (csrc/mrf_section.cu Mode)
+MODE_TO_SCRATCH, MODE_OUT_STORE, MODE_OUT_ADD = range(3)
 
 
-def chain_halo(kernel_size: int, dilations: typing.Sequence[int], convs_per_unit: int = 2) -> int:
-    """One chain's receptive-field halo: per unit, (k-1)/2 * d for the
-    dilated conv plus (k-1)/2 for the trailing plain conv (ResBlock1)."""
-    half = (kernel_size - 1) // 2
-    plain = half if convs_per_unit == 2 else 0
-    return sum(half * d + plain for d in dilations)
+def unit_stride(kernel_size: int, convs_per_unit: int = 2) -> int:
+    """Output rows per block of a unit launch: the second conv of a
+    ResBlock1 unit loses (k-1) of the first conv's TILE_ROWS rows."""
+    return TILE_ROWS - (kernel_size - 1) if convs_per_unit == 2 else TILE_ROWS
+
+
+def unit_rows(kernel_size: int, dilation: int) -> int:
+    """Input rows a block loads: the first conv's TILE_ROWS rows and its
+    (k-1)/2 * d halo on each side."""
+    return TILE_ROWS + (kernel_size - 1) * dilation
+
+
+def _unit_fixed_bytes(channels: int, rows: int) -> int:
+    """1 KB of alignment slack, the tile's TF32 hi and lo planes
+    ([C/4][rows padded to 8][4] f32 each) and the mbarriers."""
+    return 1024 + 2 * ((rows + 7) // 8 * 8) * channels * 4 + 8 * (1 + 2 * MAX_B_STAGES)
+
+
+def unit_b_stages(channels: int, rows: int) -> int:
+    """The weight ring's depth (csrc ``b_stages``): as many (tap, 8-channel)
+    stages of 64*C bytes as the shared memory left holds, within half an SM
+    at C <= 64 where 4 stages still fit (two blocks per SM), at most
+    MAX_B_STAGES."""
+    fixed = _unit_fixed_bytes(channels, rows)
+    stage = 64 * channels
+    budget = PAIR_SMEM if channels <= 64 and fixed + 4 * stage <= PAIR_SMEM else MAX_SMEM
+    return 0 if fixed > budget else min(MAX_B_STAGES, (budget - fixed) // stage)
+
+
+def unit_smem_bytes(channels: int, rows: int) -> int:
+    """Dynamic shared memory of a unit block (csrc ``smem_bytes``)."""
+    return _unit_fixed_bytes(channels, rows) + unit_b_stages(channels, rows) * 64 * channels
 
 
 def pack_mrf_weights(resblocks: typing.Sequence[dict]) -> typing.Tuple[torch.Tensor, torch.Tensor]:
@@ -79,43 +117,47 @@ def _tf32_split(w: torch.Tensor) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def pack_fragments(
+def pack_stages(
     w_flat: torch.Tensor,
     channels: int,
     kernel_sizes: typing.Sequence[int],
     dilations_per_block: typing.Sequence[typing.Sequence[int]],
     convs_per_unit: int,
 ) -> torch.Tensor:
-    """Kernel-order weights -> the kernel's mma.m16n8k8 B-fragment order.
+    """Kernel-order weights -> the kernel's weight stages, flat f32.
 
-    Per conv: ``[tap][k-chunk][n-chunk][lane][b0_hi, b1_hi, b0_lo, b1_lo]``
-    with lane = 4*g + t, ``b0 = W[tap][8*kc + t][8*nc + g]`` and
-    ``b1 = W[tap][8*kc + t + 4][8*nc + g]`` (W is [k][C_in][C_out]).
+    Per conv, in execution order, one stage per k-step, i.e. per (tap, 8
+    input channels): ``[tap][kstep][plane][ngrp][khalf][r8][k4]`` with plane
+    0 the TF32 hi and 1 the lo of ``W[tap][c_in][c_out]`` at ``c_in = 8*kstep
+    + 4*khalf + k4``, ``c_out = 8*ngrp + r8``.  Each plane is a K-major
+    wgmma B operand without swizzle: core matrices of 8 output channels x 4
+    inputs (128 bytes), the two input halves adjacent, 8-channel groups 256
+    bytes apart.  Twice the f32 bytes, as the hi and lo planes.
     """
     c = channels
     parts = []
     off = 0
     for k, dils in zip(kernel_sizes, dilations_per_block):
         n = len(dils) * convs_per_unit
-        w = w_flat[off : off + n * k * c * c].view(n, k, c // 8, 8, c // 8, 8)
+        w = w_flat[off : off + n * k * c * c].view(n, k, c // 8, 2, 4, c // 8, 8)
         off += n * k * c * c
-        # (conv, tap, kc, t, nc, g, pair) -> (conv, tap, kc, nc, g, t, pair)
-        b = torch.stack([w[:, :, :, 0:4], w[:, :, :, 4:8]], dim=-1)
-        hi, lo = _tf32_split(b.permute(0, 1, 2, 4, 5, 3, 6).contiguous())
-        parts.append(torch.cat([hi, lo], dim=-1).reshape(-1))
+        hi, lo = _tf32_split(w.contiguous())
+        # (plane, conv, tap, ks, kh, k4, ngrp, r8) -> (conv, tap, ks, plane, ngrp, kh, r8, k4)
+        v = torch.stack([hi, lo]).permute(1, 2, 3, 0, 6, 4, 7, 5)
+        parts.append(v.contiguous().reshape(-1))
     return torch.cat(parts)
 
 
 @dataclasses.dataclass(frozen=True)
 class MRFStage:
     """One stage's MRF section, packed for :func:`mrf_section`: the kernel
-    order (``w_flat``, ``b_flat``) for the plain version, the fragment order
-    (``frags``; None where the kernel does not take C) for the kernel, and
-    the resblock geometry."""
+    order (``w_flat``, ``b_flat``) for the plain version, the weight stages
+    (``wpack``, :func:`pack_stages`; None where the kernel does not take C)
+    for the kernel, and the resblock geometry."""
 
     w_flat: torch.Tensor
     b_flat: torch.Tensor
-    frags: typing.Optional[torch.Tensor]
+    wpack: typing.Optional[torch.Tensor]
     kernel_sizes: typing.Tuple[int, ...]
     dilations_per_block: typing.Tuple[typing.Tuple[int, ...], ...]
     convs_per_unit: int
@@ -132,10 +174,26 @@ def pack_mrf_stage(
     kernel_sizes = tuple(kernel_sizes)
     dilations_per_block = tuple(tuple(d) for d in dilations_per_block)
     c = b_flat.shape[-1]
-    frags = None
+    wpack = None
     if c in KERNEL_CHANNELS:
-        frags = pack_fragments(w_flat, c, kernel_sizes, dilations_per_block, convs_per_unit)
-    return MRFStage(w_flat, b_flat, frags, kernel_sizes, dilations_per_block, convs_per_unit)
+        wpack = pack_stages(w_flat, c, kernel_sizes, dilations_per_block, convs_per_unit)
+    return MRFStage(w_flat, b_flat, wpack, kernel_sizes, dilations_per_block, convs_per_unit)
+
+
+# -----------------------------------------------------------------------------
+# Plain versions
+
+
+def mrf_unit_plain(h: torch.Tensor, convs) -> torch.Tensor:
+    """One resblock unit, h [B, T, C] -> h + (lrelu -> conv)* (h), with
+    ``convs`` the unit's [(w [C_out, C_in, k], b, dilation), ...] (two for
+    ResBlock1, one for ResBlock2)."""
+    xt = h.transpose(1, 2)
+    for w, b, d in convs:
+        k = w.shape[-1]
+        xt = F.leaky_relu(xt, LRELU_SLOPE)
+        xt = F.conv1d(xt, w, b, padding=(k - 1) // 2 * d, dilation=d)
+    return h + xt.transpose(1, 2)
 
 
 def mrf_section_plain(
@@ -170,50 +228,61 @@ def mrf_section_plain(
 def _check(x: torch.Tensor, stage: MRFStage) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, C], got shape {tuple(x.shape)}")
-    c = x.shape[-1]
+    b, t, c = x.shape
     if c not in KERNEL_CHANNELS:
         raise NotImplementedError(f"mrf_section kernel takes C in {KERNEL_CHANNELS}, got {c}")
+    if not 1 <= b <= 65535 or t < 1:
+        raise ValueError(f"mrf_section kernel takes 1 <= B <= 65535 and T >= 1, got {b}, {t}")
     kernel_sizes, dilations_per_block = stage.kernel_sizes, stage.dilations_per_block
     convs_per_unit = stage.convs_per_unit
     if convs_per_unit not in (1, 2):
         raise ValueError(f"convs_per_unit must be 1 or 2, got {convs_per_unit}")
-    if not 1 <= len(kernel_sizes) <= MAX_CHAINS or len(kernel_sizes) != len(dilations_per_block):
-        raise ValueError("need 1..4 resblocks, each with a kernel size and dilations")
-    if any(not 1 <= len(d) <= MAX_UNITS for d in dilations_per_block):
-        raise ValueError("each resblock needs 1..4 dilations")
-    if any(k % 2 == 0 for k in kernel_sizes):
-        raise ValueError(f"kernel sizes must be odd, got {kernel_sizes}")
-    if stage.frags is None:
-        raise ValueError(f"the stage was packed without kernel fragments, x has C={c}")
+    if not kernel_sizes or len(kernel_sizes) != len(dilations_per_block):
+        raise ValueError("need resblocks, each with a kernel size and dilations")
+    if any(not dils for dils in dilations_per_block):
+        raise ValueError("each resblock needs at least one dilation")
+    if any(k % 2 == 0 or k >= TILE_ROWS for k in kernel_sizes):
+        raise ValueError(f"kernel sizes must be odd and below {TILE_ROWS}, got {kernel_sizes}")
+    for k, dils in zip(kernel_sizes, dilations_per_block):
+        for d in dils:
+            rows = unit_rows(k, d)
+            if d < 1 or rows > MAX_ROWS or unit_b_stages(c, rows) < 2:
+                raise NotImplementedError(
+                    f"mrf_section kernel: unit (k={k}, d={d}) at C={c} needs {rows} input rows, "
+                    f"{unit_smem_bytes(c, rows)} bytes of shared memory"
+                )
+    if stage.wpack is None:
+        raise ValueError(f"the stage was packed without the kernel's weights, x has C={c}")
     n_convs = convs_per_unit * sum(len(d) for d in dilations_per_block)
-    n_w =convs_per_unit * c * c * sum(k * len(d) for k, d in zip(kernel_sizes, dilations_per_block))
-    for name, t in (("x", x), ("frags", stage.frags), ("b_flat", stage.b_flat)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"mrf_section kernel takes float32, {name} is {t.dtype}")
-        if not t.is_contiguous():
+    taps = sum(k * len(d) for k, d in zip(kernel_sizes, dilations_per_block))
+    n_w = convs_per_unit * c * c * taps
+    for name, v in (("x", x), ("wpack", stage.wpack), ("b_flat", stage.b_flat)):
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if v.dtype != torch.float32:
+            raise TypeError(f"mrf_section kernel takes float32, {name} is {v.dtype}")
+        if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if stage.frags.dim() != 1 or stage.frags.numel() != 2 * n_w:
+        if v.data_ptr() % 16:  # TMA copies start on 16-byte boundaries
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if stage.wpack.dim() != 1 or stage.wpack.numel() != 2 * n_w:
         raise ValueError(
-            f"frags must hold {2 * n_w} values, has shape {tuple(stage.frags.shape)}"
+            f"wpack must hold {2 * n_w} values, has shape {tuple(stage.wpack.shape)}"
         )
     if tuple(stage.b_flat.shape) != (n_convs, c):
         raise ValueError(f"b_flat must be ({n_convs}, {c}), got {tuple(stage.b_flat.shape)}")
 
 
 def _setup(lib: ctypes.CDLL) -> None:
-    lib.mrf_section_f32.restype = ctypes.c_int
-    lib.mrf_section_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.mrf_section_smem_bytes.restype = ctypes.c_longlong
-    lib.mrf_section_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mrf_unit_f32.restype = i
+    lib.mrf_unit_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.mrf_unit_smem_bytes.restype = ctypes.c_longlong
+    lib.mrf_unit_smem_bytes.argtypes = [i, i]
+    lib.mrf_unit_b_stages.restype = i
+    lib.mrf_unit_b_stages.argtypes = [i, i]
     lib.mrf_section_error_string.restype = ctypes.c_char_p
-    lib.mrf_section_error_string.argtypes = [ctypes.c_int]
+    lib.mrf_section_error_string.argtypes = [i]
 
 
 def _library() -> ctypes.CDLL:
@@ -226,60 +295,70 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _tile(lib: ctypes.CDLL, channels: int, halo: int, props) -> int:
-    """The longest time tile (a multiple of 32) whose two haloed buffers fit
-    in one block's shared memory: less halo recomputed per output."""
-    rows = props.shared_memory_per_block_optin // lib.mrf_section_smem_bytes(channels, 0, 1)
-    tile = (rows - 2 * halo) // 32 * 32
-    if tile < 32:
-        raise ValueError(f"halo {halo} at C={channels} leaves no room for a tile")
-    return tile
+def unit_launches(stage: MRFStage):
+    """The section's unit launches in order: (chain, unit, k, d, weight
+    offset, bias row, source, destination, mode, scale).  Source and
+    destination name a buffer: "x", "out", or scratch 0 / 1; unit u of a
+    chain reads x (u = 0) or scratch (u-1) % 2 and writes scratch u % 2,
+    except the chain's last unit, which writes out: stored by the first
+    chain, added by later ones, scaled by 1/n_chains on the last."""
+    c = stage.b_flat.shape[-1]
+    cpu = stage.convs_per_unit
+    n_chains = len(stage.kernel_sizes)
+    w_off = b_row = 0
+    plan = []
+    for r, (k, dils) in enumerate(zip(stage.kernel_sizes, stage.dilations_per_block)):
+        for u, d in enumerate(dils):
+            src = "x" if u == 0 else (u - 1) % 2
+            if u == len(dils) - 1:
+                dst, mode = "out", (MODE_OUT_STORE if r == 0 else MODE_OUT_ADD)
+                scale = 1.0 / n_chains if r == n_chains - 1 else 1.0
+            else:
+                dst, mode, scale = u % 2, MODE_TO_SCRATCH, 1.0
+            plan.append((r, u, k, d, w_off, b_row, src, dst, mode, scale))
+            w_off += 2 * cpu * k * c * c
+            b_row += cpu
+    return plan
 
 
 def mrf_section(x: torch.Tensor, stage: MRFStage) -> torch.Tensor:
     """x [B, T, C] -> averaged MRF section output [B, T, C].
 
     A CPU tensor runs :func:`mrf_section_plain`; a CUDA tensor launches the
-    kernel (one launch for the whole section) or raises.
+    kernel once per resblock unit (:func:`unit_launches`), on the current
+    stream, or raises.  Two scratch buffers of x's size carry a chain's
+    state between its units.
     """
-    kernel_sizes, dilations_per_block = stage.kernel_sizes, stage.dilations_per_block
-    convs_per_unit = stage.convs_per_unit
     if x.device.type == "cpu":
         return mrf_section_plain(
-            x, stage.w_flat, stage.b_flat, kernel_sizes, dilations_per_block, convs_per_unit
+            x, stage.w_flat, stage.b_flat, stage.kernel_sizes, stage.dilations_per_block,
+            stage.convs_per_unit,
         )
     if x.device.type != "cuda":
         raise ValueError(f"mrf_section runs on cpu or cuda tensors, got {x.device}")
     _check(x, stage)
-
     lib = _library()
     b, t, c = x.shape
-    halo = max(
-        chain_halo(k, d, convs_per_unit) for k, d in zip(kernel_sizes, dilations_per_block)
-    )
-    tile = _tile(lib, c, halo, torch.cuda.get_device_properties(x.device))
-
-    n_chains = len(kernel_sizes)
-    ksize = (ctypes.c_int * n_chains)(*kernel_sizes)
-    n_units = (ctypes.c_int * n_chains)(*(len(d) for d in dilations_per_block))
-    dil = (ctypes.c_int * (n_chains * MAX_UNITS))()
-    for r, dils in enumerate(dilations_per_block):
-        for u, d in enumerate(dils):
-            dil[r * MAX_UNITS + u] = d
-
-    out = torch.empty_like(x)
+    plan = unit_launches(stage)
+    n_scratch = min(2, max(len(d) for d in stage.dilations_per_block) - 1)
+    buffers = {"x": x, "out": torch.empty_like(x)}
+    for i in range(n_scratch):
+        buffers[i] = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    w_base, b_base = stage.wpack.data_ptr(), stage.b_flat.data_ptr()
     with torch.cuda.device(x.device):
-        err = lib.mrf_section_f32(
-            x.data_ptr(), stage.frags.data_ptr(), stage.b_flat.data_ptr(), out.data_ptr(),
-            b, t, c, convs_per_unit, n_chains, ksize, n_units, dil, halo, tile, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"mrf_section launch failed: {lib.mrf_section_error_string(err).decode()}"
-        )
-    mrf_section.launches += 1
-    return out
+        for _r, _u, k, d, w_off, b_row, src, dst, mode, scale in plan:
+            err = lib.mrf_unit_f32(
+                buffers[src].data_ptr(), w_base + 4 * w_off, b_base + 4 * b_row * c,
+                buffers[dst].data_ptr(), b, t, c, stage.convs_per_unit, k, d, mode, scale,
+                stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"mrf_section launch failed: {lib.mrf_section_error_string(err).decode()}"
+                )
+            mrf_section.launches += 1
+    return buffers["out"]
 
 
-mrf_section.launches = 0  # kernel launches made by mrf_section
+mrf_section.launches = 0  # kernel launches made by mrf_section (one per resblock unit)

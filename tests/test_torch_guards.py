@@ -113,7 +113,14 @@ def test_mrf_wrapper_rejects_what_the_kernel_does_not_take():
         mrf_block._check(x.double(), stage)
     with pytest.raises(NotImplementedError):
         mrf_block._check(torch.zeros((1, 50, 24)), stage)
-    with pytest.raises(ValueError, match="frags"):
-        mrf_block._check(x, dataclasses.replace(stage, frags=stage.frags[:-1]))
+    with pytest.raises(ValueError, match="wpack"):
+        mrf_block._check(x, dataclasses.replace(stage, wpack=stage.wpack[:-1]))
+    with pytest.raises(ValueError, match="without the kernel's weights"):
+        mrf_block._check(x, dataclasses.replace(stage, wpack=None))
+    # a unit whose raw tile would pass the TMA box limit (128 + 10 * 13 rows)
+    wide = mrf_block.pack_mrf_stage(
+        [{"convs": [{"w": torch.zeros((8, 8, 11)), "b": torch.zeros(8)}]}], (11,), ((13,),), 1)
+    with pytest.raises(NotImplementedError, match="258 input rows"):
+        mrf_block._check(x, wide)
     with pytest.raises(ValueError, match="contiguous"):
         mrf_block._check(torch.zeros((1, 8, 50)).transpose(1, 2), stage)

@@ -104,38 +104,6 @@ def test_mrf_packing_layout():
     np.testing.assert_array_equal(b_flat[5].numpy(), stage[1]["convs2"][0]["b"])
 
 
-@pytest.mark.parametrize("channels,geometry", [(8, RESBLOCK1), (32, RESBLOCK2)])
-def test_kernel_weight_fragments(channels, geometry):
-    """The kernel's B fragments decode back to the weights: lane 4*g + t of
-    n-chunk nc, k-chunk kc holds W[tap][8kc+t][8nc+g] and W[tap][8kc+t+4][8nc+g]
-    as exact TF32 hi/lo pairs."""
-    rng = np.random.default_rng(channels)
-    ks, dils, cpu = geometry["kernel_sizes"], geometry["dilations"], geometry["convs_per_unit"]
-    stage = _random_stage(rng, channels, ks, dils, cpu)
-    packed = mrf_block.pack_mrf_stage(_torch_stage(stage), ks, dils, cpu)
-    w_flat, frags = packed.w_flat, packed.frags.numpy()
-    assert frags.size == 2 * w_flat.numel()
-    assert np.all(frags.view(np.int32) & 0x1FFF == 0)  # every value is a TF32 number
-    kc_n = channels // 8
-    w_off = f_off = 0
-    for k, d in zip(ks, dils):
-        for _ in range(len(d) * cpu):
-            w = w_flat[w_off : w_off + k * channels**2].numpy().reshape(k, channels, channels)
-            f = frags[f_off : f_off + 2 * w.size].reshape(k, kc_n, kc_n, 8, 4, 4)
-            decoded = np.zeros_like(w)
-            for g in range(8):
-                for t in range(4):
-                    pair = f[:, :, :, g, t]  # [tap, kc, nc, 4]
-                    b0 = pair[..., 0] + pair[..., 2]
-                    b1 = pair[..., 1] + pair[..., 3]
-                    for kc in range(kc_n):
-                        decoded[:, 8 * kc + t, g::8] = b0[:, kc, :]
-                        decoded[:, 8 * kc + t + 4, g::8] = b1[:, kc, :]
-            np.testing.assert_allclose(decoded, w, rtol=2**-20, atol=0)
-            w_off += w.size
-            f_off += 2 * w.size
-
-
 @pytest.mark.parametrize(
     "geometry",
     [dict(upsample_initial_channel=64), VCTK_SMALL],

@@ -73,8 +73,25 @@ def test_wn_layer_state_matches_pallas(dilation, position):
         torch.from_numpy(h), torch.from_numpy(cond), None if first else torch.from_numpy(skip),
         _pack(layer), dilation=dilation, first=first, last=last,
     )
-    np.testing.assert_allclose(out_h.numpy(), np.asarray(ref_h), atol=ATOL, rtol=0)
-    np.testing.assert_allclose(out_s.numpy(), np.asarray(ref_s), atol=ATOL, rtol=0)
+    # on a mismatch, say which side left the float64 result
+    h64, s64 = _wn_layer_state_f64(layer, h, cond, skip, dilation, first, last)
+    err = lambda a, b: f"{np.abs(np.asarray(a) - b).max():.3g}"  # noqa: E731
+    side = (f"max abs error against float64: port h {err(out_h, h64)}, skip {err(out_s, s64)}; "
+            f"Pallas h {err(ref_h, h64)}, skip {err(ref_s, s64)}")
+    np.testing.assert_allclose(out_h.numpy(), np.asarray(ref_h), atol=ATOL, rtol=0, err_msg=side)
+    np.testing.assert_allclose(out_s.numpy(), np.asarray(ref_s), atol=ATOL, rtol=0, err_msg=side)
+
+
+def _wn_layer_state_f64(layer_np, h, cond, skip, dilation, first, last):
+    """The layer and its state update in float64 numpy, from the JAX-layout params."""
+    f = {k: v.astype(np.float64) for k, v in layer_np.items()}
+    t, ch = h.shape[1], h.shape[2]
+    hp = np.pad(h.astype(np.float64), ((0, 0), (dilation, dilation), (0, 0)))
+    a = sum(hp[:, j * dilation : j * dilation + t] @ f["w_in"][j] for j in range(3))
+    a = a + cond.astype(np.float64) @ f["w_cond"] + f["b_in"] + f["b_cond"]
+    rs = np.tanh(a[..., :ch]) / (1 + np.exp(-a[..., ch:])) @ f["w_rs"] + f["b_rs"]
+    h_new, s = (h, rs) if last else (h + rs[..., :ch], rs[..., ch:])
+    return h_new, (s if first else skip + s)
 
 
 @pytest.mark.parametrize("rs_out", [512, 256])
