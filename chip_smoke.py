@@ -24,10 +24,26 @@ Phases (any failure exits non-zero):
   4. the WaveGlow path: the same with ``vocoder_or_quality="waveglow"``
      (WaveGlow wn_256 at full width, random weights with perturbed coupling
      end convs), and the ragged batch on CUDA and CPU with a zero prior.
+  5. streaming: ``stream_text_to_speech`` on the pangram, with and without
+     the denoiser: time to first audio, time and MRF launches per chunk,
+     and the chunks against a one-window run, the CPU path's stream and the
+     batch path.
+  6. the batch scheduler: 24 threads each send one sentence at length
+     scale 6 through ``text_to_speech(..., scheduler=...)`` with its own
+     seed; several batches, fewer than sentences, each row against the
+     same request alone, eight rows at noise 0 against the CPU path's
+     scheduler, and the per-row noise's prefix invariance on the card.
+  7. the CLI: WAV on stdout and ``--stream`` PCM, in process (launches
+     counted) and as ``python -m larynx_tpu_torch`` in a subprocess,
+     against the float32 library calls.
+  8. the MRF kernel against its plain version at every shape that the
+     scheduler's batches and the CLI gave it and phase 2 did not check.
+The MRF rows of phase 2 include the stream path's chunk windows (B=1).
 The last two lines are the kernels JSON and the device JSON.  Needs one
 CUDA device and nvcc; imports nothing of JAX.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -76,6 +92,17 @@ RAGGED = (
     "It's easy to tell the depth of a well.",
     "Thieves who rob friends deserve jail.",
 )
+# more Harvard sentences, shorter, for the scheduler's pool
+SHORT_SENTENCES = (
+    "Smoky fires lack flame and heat.",
+    "The boy was there when the sun rose.",
+    "Help the woman get back to her feet.",
+    "The soft cushion broke the man's fall.",
+    "Kick the ball straight and follow through.",
+    "The small pup gnawed a hole in the sock.",
+    "Glue the sheet to the dark blue background.",
+    "The salt breeze came across from the sea.",
+)
 
 # MRF kernel against its plain version: max-abs tolerance.  The kernel forms
 # each f32 product as three TF32 tensor-core products (~2^-21 relative) and
@@ -100,6 +127,15 @@ WG_END_SCALE = 0.001
 # CUDA path against the port's CPU path, int16 audio: sums in other orders
 # move the float audio by ~1e-6, i.e. under one step of 32767.
 AUDIO_TOLERANCE_LSB = 2
+# Chunked stream against its one-window run (the JAX package's bound): the
+# halo makes each chunk's samples the one-window run's, up to the summation
+# order of a shorter conv, so a few samples may round to the next step.
+STREAM_WINDOW_LSB = 1
+STREAM_WINDOW_SHARE = 1e-3
+STREAM_SEED = 5
+CHUNK_FRAMES = 64
+# concurrent requests in the scheduler phase: three batches of max_batch 8
+SCHEDULER_REQUESTS = 24
 
 
 def log(*args):
@@ -116,6 +152,17 @@ def time_ms(fn, iters=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn):
+    """(the last result, host-clocked ms per call) of fn run 3 times
+    between synchronisations."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - start) / 3
 
 
 def random_stage(gen, c, kernel_sizes, dilations, convs_per_unit):
@@ -149,15 +196,34 @@ def unit_design_bytes(stage, b, t):
     return io + 4.0 * (stage.wpack.numel() + stage.b_flat.numel())
 
 
-def check_mrf(mrf_block, main_cases):
-    """Phase 2: mrf_section against mrf_section_plain, first at the shapes the
-    main path gives it, then at a 512-frame mel, ResBlock2 and a ragged T;
-    then single universal_large units (one-unit stages, one launch each)
-    against mrf_unit_plain at C=128: each unit kind at the main path's
-    shape, a ragged T with an odd tile count and a T under one stride."""
-    from larynx_tpu_torch.weights import tree_to
+def stream_cases(engine):
+    """The (label, C, geometry, B, T, False) each stream chunk gives
+    mrf_section: one row, a window of CHUNK_FRAMES + 2 * halo frames (the
+    denoiser widens the halo by fft // hop + 1), at stages 2-4."""
+    from larynx_tpu_torch.runtime.engine import stream_halo_frames
 
-    cases = list(main_cases) + [  # (label, C, geometry, B, T, on the main path)
+    cfg, settings = engine.vocoder_cfg, engine.audio_settings
+    halo = stream_halo_frames(cfg)
+    stft_frames = settings.filter_length // settings.hop_length + 1
+    cases = []
+    for label, h in (("stream chunk", halo), ("stream chunk, denoiser", halo + stft_frames)):
+        window = CHUNK_FRAMES + 2 * h
+        t = window
+        for i, rate in enumerate(cfg.upsample_rates):
+            t *= rate
+            c = cfg.upsample_initial_channel // 2 ** (i + 1)
+            if c <= 128:
+                cases.append((f"{label} ({window} frames), stage {i + 1}", c, R1, 1, t, False))
+    return cases
+
+
+def phase2_mrf_cases(main_cases, stream):
+    """Phase 2's mrf_section cases: the main path's shapes and the stream
+    path's chunk windows, then a 512-frame mel, ResBlock2 and a ragged T;
+    and single universal_large units at C=128: each unit kind at the main
+    path's shape, a ragged T with an odd tile count and a T under one
+    stride."""
+    cases = list(main_cases) + list(stream) + [  # (label, C, geometry, B, T, on the main path)
         ("universal_large stage 2, 512-frame mel", 128, R1, 8, 32768, False),
         ("universal_large stage 3, 512-frame mel", 64, R1, 8, 65536, False),
         ("universal_large stage 4, 512-frame mel", 32, R1, 8, 131072, False),
@@ -172,6 +238,15 @@ def check_mrf(mrf_block, main_cases):
         ("unit (11,5), ragged T, 13 tiles", 11, 5, 3, 118 * 13 - 50),
         ("unit (7,3), T under one stride", 7, 3, 2, 100),
     ]
+    return cases, units
+
+
+def check_mrf(mrf_block, cases, units=()):
+    """mrf_section against mrf_section_plain at each case's (C, geometry, B,
+    T), and single units (one-unit stages, one launch each) against
+    mrf_unit_plain at C=128; a row of times and bound for each."""
+    from larynx_tpu_torch.weights import tree_to
+
     gen = torch.Generator().manual_seed(0)
     rows = []
     for label, c, (ks, dils, cpu), b, t, main in cases + [
@@ -206,7 +281,7 @@ def check_mrf(mrf_block, main_cases):
         design = unit_design_bytes(stage, b, t)
         row = {
             "case": label, "C": c, "B": b, "T": t, "convs_per_unit": cpu, "main_path": main,
-            "units": len(convs), "max_abs_err": err,
+            "stream_path": label.startswith("stream"), "units": len(convs), "max_abs_err": err,
             "ms": time_ms(lambda: mrf_block.mrf_section(x, stage)),
             "plain_ms": time_ms(plain),
             "library_ms": time_ms(cudnn_chain),
@@ -473,6 +548,49 @@ def check_wn(wn_layer, main_shapes):
     return rows, stacks
 
 
+def mrf_launches_per_call(cfg) -> int:
+    """One launch per resblock unit of every stage the kernel takes (C <= 128)."""
+    kernel_stages = sum(1 for i in range(len(cfg.upsample_rates))
+                        if cfg.upsample_initial_channel // 2 ** (i + 1) <= 128)
+    return kernel_stages * sum(len(d) for d in cfg.resblock_dilation_sizes)
+
+
+@contextlib.contextmanager
+def recording_mrf_shapes(shapes: set):
+    """While open, add the (C, B, T) of every mrf_section call that the
+    HiFi-GAN generator makes, from any thread, to ``shapes``; the wrapper
+    and its launch count are left as they are."""
+    from larynx_tpu_torch.models.hifi_gan import model as hifi_gan_model
+
+    section = hifi_gan_model.mrf_section
+
+    def recorded(x, stage):
+        shapes.add((x.shape[2], x.shape[0], x.shape[1]))
+        return section(x, stage)
+
+    hifi_gan_model.mrf_section = recorded
+    try:
+        yield shapes
+    finally:
+        hifi_gan_model.mrf_section = section
+
+
+def path_mrf_cases(checked, path_shapes):
+    """Phase 8's mrf_section cases: each (C, B, T) that a path in
+    ``path_shapes`` gave the kernel (universal_large, ResBlock1) and no
+    earlier case checked."""
+    seen = {(c, b, t): label for label, c, geometry, b, t, _m in checked if geometry is R1}
+    cases = []
+    for path, shapes in path_shapes.items():
+        for c, b, t in sorted(shapes, reverse=True):
+            if (c, b, t) in seen:
+                log(f"mrf_section {path}, C={c} B={b} T={t}: checked as '{seen[(c, b, t)]}'")
+            else:
+                seen[(c, b, t)] = f"{path}, C={c} B={b} T={t}"
+                cases.append((seen[(c, b, t)], c, R1, b, t, False))
+    return cases
+
+
 def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
     """Phase 3: text_to_speech at full width on the card."""
     import larynx_tpu_torch
@@ -486,11 +604,7 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
     for strength in (0.0, 0.005):  # warm-up: cuDNN/cuFFT plans, the denoiser bias
         list(larynx_tpu_torch.text_to_speech(text, device="cuda", denoiser_strength=strength,
                                              **kwargs))
-    # one launch per resblock unit of every stage the kernel takes (C <= 128)
-    cfg = engine.vocoder_cfg
-    kernel_stages = sum(1 for i in range(len(cfg.upsample_rates))
-                        if cfg.upsample_initial_channel // 2 ** (i + 1) <= 128)
-    per_call = kernel_stages * sum(len(d) for d in cfg.resblock_dilation_sizes)
+    per_call = mrf_launches_per_call(engine.vocoder_cfg)
     launches = {}
     for label, strength in (("no denoiser", 0.0), ("denoiser 0.005", 0.005)):
         mrf_block.mrf_section.launches = 0
@@ -530,14 +644,8 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
     ids = [j["ids"] for j in jobs]
     n = len(ids)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(3):
-            out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - start) / 3
-
+    _, t_front = timed(lambda: larynx_tpu_torch._build_jobs(
+        text, VOICE, "high", custom_voices_dir=root, no_download=True))
     (enc, _g), t_enc = timed(lambda: engine.encode_launch(ids, LENGTH_SCALE))
     y_host, t_sync = timed(lambda: enc[4].cpu().numpy())
     (mel, z_mask), t_dec = timed(lambda: engine.decode_launch(enc, y_host, None, n, batch_index=0))
@@ -547,7 +655,8 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
         engine.vocode_launch(mel, z_mask, n, 0.005, y_lengths=y_host), mel.shape[0]))
     mel_pp = postprocess(mel, z_mask, engine.audio_settings).transpose(1, 2)
     _, t_gen = timed(lambda: engine._generate(mel_pp))
-    log(f"stage times (ms, B={n}, mel bucket {mel.shape[1]}): encode {t_enc:.3f}, "
+    log(f"stage times (ms, B={n}, mel bucket {mel.shape[1]}): frontend (text to ids, host) "
+        f"{t_front:.3f}, encode {t_enc:.3f}, "
         f"y_lengths to host {t_sync:.3f}, flow decode {t_dec:.3f}, "
         f"vocode+int16+copy {t_voc:.3f} (of which generator {t_gen:.3f}), "
         f"vocode with denoiser {t_voc_dn:.3f}")
@@ -673,14 +782,6 @@ def waveglow_path(root: Path, wn_layer, mrf_block, jobs, engine, y_lengths, plan
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, vocoder calls {calls}, "
             f"wn_layer launches {n_k3}")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(3):
-            out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - start) / 3
-
     (enc, _g), t_enc = timed(lambda: engine.encode_launch(ids, LENGTH_SCALE))
     (mel, z_mask), t_dec = timed(lambda: engine.decode_launch(enc, y_host, None, n, batch_index=0))
     _, t_voc = timed(lambda: engine.vocode_collect(
@@ -723,6 +824,314 @@ def waveglow_path(root: Path, wn_layer, mrf_block, jobs, engine, y_lengths, plan
         f"y_lengths {r_lengths.tolist()}, mel bucket {r_m}, vocoder groups {r_plan}, "
         f"max diff {worst} LSB (tol {AUDIO_TOLERANCE_LSB}), CPU side {t_cpu:.1f} s")
     return launches["no denoiser"]
+
+
+def lsb(a, b) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def stream_path(root: Path, mrf_block, engine, n_frames: int):
+    """Phase 5: stream_text_to_speech on the pangram at full width, without
+    and with the denoiser: time to first audio after a warm run, time and
+    MRF launches per chunk, and the chunks against the one-window run, the
+    CPU path's stream and the batch path.  Returns the MRF launches of one
+    stream without the denoiser."""
+    import larynx_tpu_torch
+
+    kwargs = dict(voice_or_lang=VOICE, vocoder_or_quality="high", custom_voices_dir=root,
+                  no_download=True, seed=STREAM_SEED)
+    per_call = mrf_launches_per_call(engine.vocoder_cfg)
+    n_chunks = -(-n_frames // CHUNK_FRAMES)
+
+    def stream(device="cuda", noise_scale=0.667, **extra):
+        # the CUDA and CPU generators draw other numbers from one seed: the
+        # two devices are compared at noise_scale 0
+        settings = {"length_scale": LENGTH_SCALE, "noise_scale": noise_scale}
+        return larynx_tpu_torch.stream_text_to_speech(PANGRAM, device=device, tts_settings=settings,
+                                                      **kwargs, **extra)
+
+    launches = {}
+    for label, strength in (("no denoiser", 0.0), ("denoiser 0.005", 0.005)):
+        list(stream(denoiser_strength=strength))  # warm: cuDNN/cuFFT plans, the bias
+        mrf_block.mrf_section.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        it = stream(denoiser_strength=strength)
+        chunks = [next(it)]
+        ttfa = time.perf_counter() - start
+        chunks += list(it)
+        total = time.perf_counter() - start
+        n_launch = mrf_block.mrf_section.launches
+        if len(chunks) != n_chunks or n_launch != per_call * n_chunks:
+            raise AssertionError(f"stream, {label}: {len(chunks)} chunks and {n_launch} MRF "
+                                 f"launches, expected {n_chunks} and {per_call * n_chunks}")
+        streamed = np.concatenate(chunks)
+        if streamed.dtype != np.int16 or streamed.shape != (n_frames * 256,):
+            raise AssertionError(f"stream, {label}: {streamed.dtype} {streamed.shape}")
+        if np.abs(streamed.astype(np.int32)).max() < 1000:
+            raise AssertionError(f"stream, {label}: silent audio")
+        launches[label] = n_launch
+
+        whole = np.concatenate(list(stream(denoiser_strength=strength, chunk_frames=10**6)))
+        diff = np.abs(streamed.astype(np.int32) - whole.astype(np.int32))
+        share = float(np.mean(diff != 0))
+        if whole.shape != streamed.shape or diff.max() > STREAM_WINDOW_LSB or \
+                not share < STREAM_WINDOW_SHARE:
+            raise AssertionError(f"stream, {label}: chunked vs one window {diff.max()} LSB, "
+                                 f"{share:.2e} of samples differ")
+        quiet = np.concatenate(list(stream(noise_scale=0.0, denoiser_strength=strength)))
+        cpu = np.concatenate(list(stream("cpu", noise_scale=0.0, denoiser_strength=strength)))
+        if cpu.shape != quiet.shape or lsb(cpu, quiet) > AUDIO_TOLERANCE_LSB:
+            raise AssertionError(f"stream, {label}: CUDA vs CPU {lsb(cpu, quiet)} LSB")
+
+        start = time.perf_counter()
+        batch = next(iter(larynx_tpu_torch.text_to_speech(
+            PANGRAM, device="cuda", denoiser_strength=strength,
+            tts_settings={"length_scale": LENGTH_SCALE}, **kwargs))).audio
+        first_sentence = time.perf_counter() - start
+        a, b = streamed.astype(np.float64), batch.astype(np.float64)
+        corr = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-9))
+        if batch.shape != streamed.shape or not corr > 0.9999:
+            raise AssertionError(f"stream, {label}: batch path {batch.shape}, correlation {corr}")
+        log(f"stream, {label}: {n_frames} frames in {len(chunks)} chunks of {CHUNK_FRAMES}, "
+            f"time to first audio {1e3 * ttfa:.3f} ms (batch path's first sentence "
+            f"{1e3 * first_sentence:.3f} ms), whole stream {1e3 * total:.3f} ms, "
+            f"{1e3 * (total - ttfa) / (len(chunks) - 1):.3f} ms per later chunk, "
+            f"{1e3 * total / len(chunks):.3f} ms per chunk overall, MRF launches {n_launch} "
+            f"({n_launch // len(chunks)} per chunk); chunked vs one window {diff.max()} LSB "
+            f"({share:.2e} of samples differ, tol {STREAM_WINDOW_LSB} / {STREAM_WINDOW_SHARE}), "
+            f"CUDA vs CPU stream at noise 0 {lsb(cpu, quiet)} LSB (tol {AUDIO_TOLERANCE_LSB}), "
+            f"batch path correlation {corr:.6f}")
+    # where the time to first audio goes: each step of the stream's first
+    # chunk alone, host clock around synchronised work, mean of 3
+    from larynx_tpu_torch.runtime.engine import stream_halo_frames
+
+    _, t_front = timed(lambda: larynx_tpu_torch._build_jobs(
+        PANGRAM, VOICE, "high", custom_voices_dir=root, no_download=True))
+    ids = larynx_tpu_torch._build_jobs(PANGRAM, VOICE, "high", custom_voices_dir=root,
+                                       no_download=True)[0]["ids"]
+    (enc, _g), t_enc = timed(lambda: engine.encode_launch([ids], LENGTH_SCALE))
+    y_host = enc[4].cpu().numpy()
+    (mel, z_mask), t_dec = timed(lambda: engine.decode_launch(enc, y_host, None, 1,
+                                                              seed=STREAM_SEED))
+    window = CHUNK_FRAMES + 2 * stream_halo_frames(engine.vocoder_cfg)
+    with torch.inference_mode():
+        _, t_chunk = timed(lambda: engine._vocode_stream(mel, z_mask, 0, window, None, None,
+                                                         False).cpu())
+    log(f"stream, time to first audio by step (ms, host clock, mean of 3): frontend "
+        f"{t_front:.3f}, encode {t_enc:.3f}, flow decode (B=1, mel bucket {mel.shape[1]}) "
+        f"{t_dec:.3f}, one {window}-frame chunk + copy {t_chunk:.3f}")
+    return launches["no denoiser"]
+
+
+def scheduler_path(root: Path, mrf_block, engine, shapes: set):
+    """Phase 6: one BatchScheduler(max_batch=8), SCHEDULER_REQUESTS threads
+    each sending one sentence at LENGTH_SCALE through text_to_speech with
+    its own seed, enough for several batches; each row against the same
+    request alone, then the first eight requests at noise 0 through a CUDA
+    and a CPU scheduler against each other, then the per-row noise's
+    invariance on the card.  Adds the (C, B, T) that the batches give
+    mrf_section to ``shapes``; returns the MRF launches."""
+    import threading
+
+    import larynx_tpu_torch
+    from larynx_tpu_torch.runtime.engine import stream_halo_frames
+    from larynx_tpu_torch.runtime.scheduler import BatchScheduler
+
+    kwargs = dict(voice_or_lang=VOICE, vocoder_or_quality="high", custom_voices_dir=root,
+                  no_download=True)
+    # Alone, a row is vocoded at its own mel bucket; in a batch, in a group as
+    # wide as its longest row's bucket.  Past its end the vocoder sees
+    # silence frames up to that width, then the conv's zero padding, so a
+    # row less than one receptive field (stream_halo_frames) short of its
+    # bucket ends differently alone and in a batch, by design (the JAX
+    # engine's too).  The phase takes eight sentences clear of that.
+    pool = RAGGED + SHORT_SENTENCES
+    jobs = larynx_tpu_torch._build_jobs(" ".join(pool), VOICE, "high", custom_voices_dir=root,
+                                        no_download=True)
+    y = engine.encode_launch([j["ids"] for j in jobs], LENGTH_SCALE)[0][4].cpu().numpy()
+    y = y[: len(jobs)]
+    halo = stream_halo_frames(engine.vocoder_cfg)
+    clear = [i for i, n in enumerate(y) if engine.policy.mel_bucket(int(n)) - n >= halo][:8]
+    if len(jobs) != len(pool) or len(clear) < 8:
+        raise AssertionError(f"scheduler: mel lengths {y.tolist()} leave {len(clear)} "
+                             f"sentences {halo} frames short of their bucket")
+    requests = [clear[i % len(clear)] for i in range(SCHEDULER_REQUESTS)]  # indices into pool
+
+    def run(scheduler, indices, device="cuda", noise_scale=0.667):
+        barrier = threading.Barrier(len(indices))
+        settings = {"length_scale": LENGTH_SCALE, "noise_scale": noise_scale}
+        out = {}
+
+        def request(i):
+            barrier.wait()
+            out[i] = next(iter(larynx_tpu_torch.text_to_speech(
+                pool[requests[i]], scheduler=scheduler, seed=100 + i, device=device,
+                tts_settings=settings, **kwargs))).audio
+
+        threads = [threading.Thread(target=request, args=(i,)) for i in indices]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    n = SCHEDULER_REQUESTS
+    warm = BatchScheduler(max_batch=8, max_wait_ms=50.0)
+    run(warm, range(n))
+    warm.shutdown()
+    scheduler = BatchScheduler(max_batch=8, max_wait_ms=50.0)
+    per_call = mrf_launches_per_call(engine.vocoder_cfg)
+    mrf_block.mrf_section.launches = 0
+    calls_before = engine.generator_calls
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with recording_mrf_shapes(shapes):
+        together = run(scheduler, range(n))
+    wall = time.perf_counter() - start
+    n_launch = mrf_block.mrf_section.launches
+    calls = engine.generator_calls - calls_before
+    scheduler.shutdown()
+    if len(together) != n or scheduler.jobs_run != n or \
+            not -(-n // 8) <= scheduler.batches_run < n:
+        raise AssertionError(f"scheduler: {len(together)} results, {scheduler.batches_run} "
+                             f"batches for {scheduler.jobs_run} jobs")
+    if calls < scheduler.batches_run or n_launch != per_call * calls:
+        raise AssertionError(f"scheduler: {n_launch} MRF launches for {calls} generator calls")
+    worst = 0
+    for i in range(n):
+        alone = BatchScheduler(max_batch=8)
+        solo = run(alone, [i])[i]
+        alone.shutdown()
+        if solo.shape != together[i].shape or np.abs(solo.astype(np.int32)).max() < 1000:
+            raise AssertionError(f"scheduler row {i}: {together[i].shape} vs alone {solo.shape}")
+        worst = max(worst, lsb(solo, together[i]))
+    if worst > AUDIO_TOLERANCE_LSB:
+        raise AssertionError(f"scheduler: a seeded row is {worst} LSB from its solo run")
+
+    # batched rows against the port's CPU path: the eight sentences at noise 0
+    # (the two devices' generators draw other numbers from one seed)
+    quiet, t_quiet = {}, {}
+    for device in ("cuda", "cpu"):
+        s = BatchScheduler(max_batch=8, max_wait_ms=50.0)
+        start = time.perf_counter()
+        quiet[device] = run(s, range(8), device=device, noise_scale=0.0)
+        t_quiet[device] = time.perf_counter() - start
+        s.shutdown()
+        if len(quiet[device]) != 8 or s.batches_run >= 8:
+            raise AssertionError(f"scheduler at noise 0 on {device}: {len(quiet[device])} "
+                                 f"results in {s.batches_run} batches")
+    cpu_worst = 0
+    for i in range(8):
+        a, b = quiet["cuda"][i], quiet["cpu"][i]
+        if a.shape != b.shape or np.abs(a.astype(np.int32)).max() < 1000:
+            raise AssertionError(f"scheduler at noise 0, row {i}: CUDA {a.shape}, CPU {b.shape}")
+        cpu_worst = max(cpu_worst, lsb(a, b))
+    if cpu_worst > AUDIO_TOLERANCE_LSB:
+        raise AssertionError(f"scheduler at noise 0: CUDA vs CPU {cpu_worst} LSB")
+
+    # the same rows as engine calls of eight, without the threads, the
+    # frontend or the scheduler's queue
+    rows = [jobs[k]["ids"] for k in requests]
+
+    def engine_only():
+        for k in range(0, n, 8):
+            engine.synthesize_batch(rows[k : k + 8], length_scale=LENGTH_SCALE, seed=1)
+
+    _, t_engine = timed(engine_only)
+
+    c = engine.glow_cfg.mel_channels
+    a = engine.row_noise([9], 1, 256, c, batch_index=0)[0]
+    wide = engine.row_noise([9], 1, 1024, c, batch_index=3)[0]
+    row5 = engine.row_noise([None, 1, 2, None, 4, 9, None, 7], 8, 512, c, batch_index=11)[5]
+    if a.device.type != "cuda" or not (torch.equal(a, wide[:256]) and torch.equal(a, row5[:256])):
+        raise AssertionError("scheduler: a seeded row's noise changed with its bucket or row")
+    audio_s = sum(r.shape[0] for r in together.values()) / 22050
+    log(f"scheduler: {n} requests of {len(clear)} sentences (y_lengths "
+        f"{[int(y[k]) for k in clear]}, length_scale {LENGTH_SCALE}) from {n} threads in "
+        f"{scheduler.batches_run} batches, {calls} generator calls, wall {wall:.4f} s, "
+        f"{n / wall:.2f} sentences/s, {audio_s:.2f} s of audio (RTF {wall / audio_s:.6f}), "
+        f"MRF launches {n_launch}, mrf_section shapes (C, B, T) {sorted(shapes)}; the same rows "
+        f"as {-(-n // 8)} synthesize_batch calls {t_engine:.3f} ms; each seeded row vs alone "
+        f"max {worst} LSB (tol {AUDIO_TOLERANCE_LSB}); 8 rows at noise 0, CUDA vs CPU "
+        f"scheduler {cpu_worst} LSB (tol {AUDIO_TOLERANCE_LSB}; CUDA {t_quiet['cuda']:.3f} s, "
+        f"CPU {t_quiet['cpu']:.1f} s); a seeded row's noise over 256 frames bit for bit at "
+        f"buckets 256/1024 and at row 0 of 1 / row 5 of 8")
+    return n_launch
+
+
+def cli_path(root: Path, mrf_block, engine, n_frames: int, shapes: set):
+    """Phase 7: the CLI, WAV on stdout and --stream PCM, each first in
+    process (``__main__.main`` with stdout captured, its MRF launches read
+    around it and the (C, B, T) it gives mrf_section added to ``shapes``),
+    then as ``python -m larynx_tpu_torch`` in a subprocess from the checkout
+    root; every output against the library call with the same arguments,
+    float32 on both sides (the CLI turns TF32 off, as this script does).
+    Returns each mode's launches."""
+    import io
+
+    import larynx_tpu_torch
+    from larynx_tpu_torch import __main__ as cli
+    from larynx_tpu_torch.io import wavfile
+
+    argv = [PANGRAM, "--voice", VOICE, "--voices-dir", str(root), "--quality", "high", "--seed",
+            "7", "--length-scale", str(LENGTH_SCALE), "--denoiser-strength", "0.005",
+            "--no-download"]
+    kwargs = dict(voice_or_lang=VOICE, vocoder_or_quality="high", custom_voices_dir=root,
+                  no_download=True, seed=7, denoiser_strength=0.005, device="cuda",
+                  tts_settings={"length_scale": LENGTH_SCALE, "noise_scale": 0.667})
+    wav_ref = next(iter(larynx_tpu_torch.text_to_speech(PANGRAM, **kwargs))).audio
+    pcm_ref = np.concatenate(list(larynx_tpu_torch.stream_text_to_speech(PANGRAM, **kwargs)))
+    per_call = mrf_launches_per_call(engine.vocoder_cfg)
+    here = Path(__file__).resolve().parent
+
+    def decode(mode, data):
+        if mode == "--stream":
+            return 22050, np.frombuffer(data, dtype=np.int16)
+        if data[:4] != b"RIFF":
+            raise AssertionError(f"cli {mode}: no RIFF header")
+        return wavfile.read(io.BytesIO(data))
+
+    launches = {}
+    for mode, extra, ref, calls in (
+            ("WAV on stdout", [], wav_ref, 1),
+            ("--stream", ["--stream"], pcm_ref, -(-n_frames // CHUNK_FRAMES))):
+        stdout = sys.stdout
+        sys.stdout = io.TextIOWrapper(io.BytesIO())
+        mrf_block.mrf_section.launches = 0
+        try:
+            with recording_mrf_shapes(shapes):
+                cli.main(argv + extra)
+            sys.stdout.flush()
+            in_process = sys.stdout.buffer.getvalue()
+        finally:
+            sys.stdout = stdout
+        n_launch = mrf_block.mrf_section.launches
+        if n_launch != per_call * calls:
+            raise AssertionError(f"cli {mode}: {n_launch} MRF launches, expected {per_call * calls}")
+        launches[mode] = n_launch
+
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "larynx_tpu_torch"] + argv + extra, cwd=here,
+                              capture_output=True, timeout=300)
+        wall = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {mode}: exit {proc.returncode}\n"
+                                 f"{proc.stderr.decode()[-2000:]}")
+        diffs = {}
+        for where, data in (("in process", in_process), ("subprocess", proc.stdout)):
+            rate, audio = decode(mode, data)
+            if rate != 22050 or audio.shape != ref.shape or lsb(audio, ref) > AUDIO_TOLERANCE_LSB:
+                raise AssertionError(
+                    f"cli {mode}, {where}: rate {rate}, shape {audio.shape} vs {ref.shape}, "
+                    f"{lsb(audio, ref) if audio.shape == ref.shape else '-'} LSB")
+            diffs[where] = lsb(audio, ref)
+        log(f"cli {mode}: {len(proc.stdout)} bytes, 22050 Hz, {ref.shape[0]} samples, from the "
+            f"float32 library call {diffs['in process']} LSB in process and "
+            f"{diffs['subprocess']} LSB as a subprocess (tol {AUDIO_TOLERANCE_LSB}), MRF launches "
+            f"in process {n_launch}, subprocess wall {wall:.2f} s")
+    log(f"cli: mrf_section shapes (C, B, T) {sorted(shapes)}")
+    return launches
 
 
 def main() -> int:
@@ -772,11 +1181,20 @@ def main() -> int:
         stage_voices(Path(tmp))
         jobs, engine, y_lengths, main_cases = plan_main_path(Path(tmp))
         wg_jobs, wg_engine, wg_y, wg_plan, wg_shapes = plan_waveglow_path(Path(tmp))
-        rows = check_mrf(mrf_block, main_cases)
+        mrf_cases, mrf_units = phase2_mrf_cases(main_cases, stream_cases(engine))
+        rows = check_mrf(mrf_block, mrf_cases, mrf_units)
         wn_rows, wn_stacks = check_wn(wn_layer, wg_shapes)
         launches = main_path(Path(tmp), mrf_block, jobs, engine, y_lengths)
         wn_launches = waveglow_path(Path(tmp), wn_layer, mrf_block, wg_jobs, wg_engine, wg_y,
                                     wg_plan)
+        stream_launches = stream_path(Path(tmp), mrf_block, engine, int(y_lengths[0]))
+        path_shapes = {"scheduler batch": set(), "cli": set()}
+        scheduler_launches = scheduler_path(Path(tmp), mrf_block, engine,
+                                            path_shapes["scheduler batch"])
+        cli_launches = cli_path(Path(tmp), mrf_block, engine, int(y_lengths[0]),
+                                path_shapes["cli"])
+        # phase 8: the kernel at the shapes phases 6 and 7 gave it
+        rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases, path_shapes))
 
     main_rows = [r for r in rows if r["main_path"]]
     kernels = [{
@@ -785,6 +1203,12 @@ def main() -> int:
         "source": "larynx_tpu_torch/csrc/mrf_section.cu",
         "replaces": "larynx_tpu/ops/mrf_block.py:272; larynx_tpu/ops/mrf_block.py:382",
         "launches": launches,
+        # each path's launches, counted from 0 around its own run
+        "launches_by_path": {"text_to_speech, pangram x8": launches,
+                             "stream_text_to_speech, pangram": stream_launches,
+                             f"scheduler, {SCHEDULER_REQUESTS} requests": scheduler_launches,
+                             "cli, pangram WAV": cli_launches["WAV on stdout"],
+                             "cli --stream, pangram": cli_launches["--stream"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),

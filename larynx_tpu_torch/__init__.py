@@ -9,12 +9,15 @@ argument: entry points run on ``cuda`` unless the caller names another
 device, and raise when no GPU is present and none is named.
 
 Ported so far: GlowTTS voices, HiFi-GAN and WaveGlow vocoders from
-``.npz`` voice dirs, float32, consecutive same-voice batching.  Griffin-Lim,
-other model families, the scheduler, interleaved batching and bf16 raise
-``NotImplementedError``.
+``.npz`` voice dirs, float32, consecutive same-voice batching, the
+cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
+(``stream_text_to_speech``, HiFi-GAN) and the CLI (``python -m
+larynx_tpu_torch``).  Griffin-Lim, other model families, interleaved
+batching and bf16 raise ``NotImplementedError``.
 """
 
 import logging
+import threading
 import time
 import typing
 from pathlib import Path
@@ -82,8 +85,6 @@ def text_to_speech(
     device = resolve_device(device)
     if half:
         raise NotImplementedError("bf16 (half=True) is not ported yet")
-    if scheduler is not None:
-        raise NotImplementedError("the batch scheduler is not ported yet")
     if interleaved_batching:
         raise NotImplementedError("interleaved batching is not ported yet")
 
@@ -101,9 +102,73 @@ def text_to_speech(
             max_batch=max_batch,
             seed=seed,
             device=device,
+            scheduler=scheduler,
         )
 
     return results()
+
+
+def stream_text_to_speech(
+    text: str,
+    voice_or_lang: str = "en-us",
+    vocoder_or_quality: typing.Union[str, VocoderQuality] = VocoderQuality.HIGH,
+    ssml: bool = False,
+    backend: typing.Optional[InferenceBackend] = None,
+    tts_settings: typing.Optional[typing.Dict[str, typing.Any]] = None,
+    denoiser_strength: float = 0.0,
+    half: bool = False,
+    custom_voices_dir: typing.Optional[typing.Union[str, Path]] = None,
+    url_format: str = DEFAULT_VOICE_URL_FORMAT,
+    seed: typing.Optional[int] = None,
+    chunk_frames: int = 64,
+    no_download: bool = False,
+    device=None,
+) -> typing.Iterator[np.ndarray]:
+    """Low-latency streaming synthesis: yields int16 audio chunks.
+
+    Same arguments as ``larynx_tpu.stream_text_to_speech`` plus
+    ``no_download`` and ``device``.  Audio arrives in ``chunk_frames``-mel
+    chunks as the vocoder produces them, at fixed gain (no per-utterance
+    peak normalisation); SSML pauses become silence chunks and sentence i
+    takes ``seed + i``.  HiFi-GAN only: another vocoder raises
+    ``NotImplementedError``.
+    """
+    device = resolve_device(device)
+    if half:
+        raise NotImplementedError("bf16 (half=True) is not ported yet")
+    noise_scale = 0.667
+    length_scale = 1.0
+    if tts_settings:
+        noise_scale = float(tts_settings.get("noise_scale", noise_scale))
+        length_scale = float(tts_settings.get("length_scale", length_scale))
+
+    def chunks():
+        jobs = _build_jobs(
+            text, voice_or_lang, vocoder_or_quality, ssml=ssml, backend=backend,
+            custom_voices_dir=custom_voices_dir, url_format=url_format, no_download=no_download,
+        )
+        for index, job in enumerate(jobs):
+            engine = _get_engine(job["tts_model"], job["vocoder_model"], device)
+            if engine.vocoder_kind != "hifi_gan":
+                raise NotImplementedError(
+                    "streaming a non-HiFi-GAN vocoder (one chunk per sentence through the "
+                    "model's mels_to_audio) is not ported yet"
+                )
+            before, after = _pause_samples(job)
+            if before:
+                yield np.zeros(before, dtype=np.int16)
+            yield from engine.synthesize_stream(
+                job["ids"],
+                noise_scale=noise_scale,
+                length_scale=length_scale,
+                seed=None if seed is None else seed + index,
+                denoiser_strength=denoiser_strength,
+                chunk_frames=chunk_frames,
+            )
+            if after:
+                yield np.zeros(after, dtype=np.int16)
+
+    return chunks()
 
 
 def _build_jobs(
@@ -204,8 +269,27 @@ def _build_jobs(
     return jobs
 
 
-def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch, seed, device):
-    """Batch consecutive same-(voice, vocoder) jobs; yield in document order."""
+def _pause_samples(job) -> typing.Tuple[int, int]:
+    """Samples of silence for the sentence's SSML pauses (before, after)."""
+    rate = job["audio_settings"].sample_rate
+    return (max(0, (job["pause_before_ms"] * rate) // 1000),
+            max(0, (job["pause_after_ms"] * rate) // 1000))
+
+
+def _pad_pauses(job, audio):
+    """The sentence's audio with its SSML pauses as silence around it."""
+    before, after = _pause_samples(job)
+    if before > 0 or after > 0:
+        audio = np.pad(audio, pad_width=(before, after), constant_values=0)
+    return audio
+
+
+def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch, seed, device,
+              scheduler=None):
+    """Batch consecutive same-(voice, vocoder) jobs; yield in document order.
+
+    With a ``scheduler`` every sentence is submitted to it instead, so
+    sentences of concurrent requests share its batches."""
     noise_scale = 0.667
     length_scale = 1.0
     if tts_settings:
@@ -213,6 +297,23 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
         length_scale = float(tts_settings.get("length_scale", length_scale))
     if vocoder_settings:
         denoiser_strength = float(vocoder_settings.get("denoiser_strength", denoiser_strength))
+
+    if scheduler is not None:
+        futures = [
+            scheduler.submit(
+                _get_engine(job["tts_model"], job["vocoder_model"], device),
+                job["ids"],
+                noise_scale=noise_scale,
+                length_scale=length_scale,
+                denoiser_strength=denoiser_strength,
+                seed=seed,
+            )
+            for job in jobs
+        ]
+        for job, future in zip(jobs, futures):
+            job["result"].audio = _pad_pauses(job, future.result())
+            yield job["result"]
+        return
 
     groups: typing.List[typing.List[int]] = []
     for i, job in enumerate(jobs):
@@ -255,11 +356,7 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
                 elapsed / n,
                 audio.shape[-1] / settings.sample_rate,
             )
-            before = max(0, (job["pause_before_ms"] * settings.sample_rate) // 1000)
-            after = max(0, (job["pause_after_ms"] * settings.sample_rate) // 1000)
-            if before > 0 or after > 0:
-                audio = np.pad(audio, pad_width=(before, after), constant_values=0)
-            job["result"].audio = audio
+            job["result"].audio = _pad_pauses(job, audio)
             done[i] = True
 
         while next_to_yield < len(jobs) and done[next_to_yield]:
@@ -271,6 +368,9 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
 # Engine and model caches
 
 _ENGINE_CACHE: typing.Dict[typing.Tuple[int, int, str], typing.Any] = {}
+# concurrent requests (threads sharing a scheduler) load each model and
+# build each engine once
+_CACHE_LOCK = threading.RLock()
 
 
 def _get_engine(tts_model, vocoder_model, device):
@@ -280,27 +380,30 @@ def _get_engine(tts_model, vocoder_model, device):
     from larynx_tpu_torch.runtime.engine import SynthesisEngine
     from larynx_tpu_torch.waveglow import WaveGlowVocoder
 
-    key = (id(tts_model), id(vocoder_model), str(device))
-    engine = _ENGINE_CACHE.get(key)
-    if engine is None:
-        if not isinstance(tts_model, GlowTextToSpeech):
-            raise NotImplementedError("only GlowTTS voices are ported yet")
-        if isinstance(vocoder_model, HiFiGanVocoder):
-            extra = {"vocoder_kind": "hifi_gan"}
-        elif isinstance(vocoder_model, WaveGlowVocoder):
-            extra = {"vocoder_kind": "waveglow", "waveglow_sigma": vocoder_model.sigma}
-        else:
-            raise NotImplementedError(f"vocoder {type(vocoder_model).__name__} is not ported yet")
-        engine = _ENGINE_CACHE[key] = SynthesisEngine(
-            tts_model.params,
-            tts_model.model_config,
-            tts_model.audio_settings or _DEFAULT_AUDIO_SETTINGS,
-            vocoder_params=vocoder_model.params,
-            vocoder_cfg=vocoder_model.model_config,
-            device=device,
-            **extra,
-        )
-    return engine
+    with _CACHE_LOCK:
+        key = (id(tts_model), id(vocoder_model), str(device))
+        engine = _ENGINE_CACHE.get(key)
+        if engine is None:
+            if not isinstance(tts_model, GlowTextToSpeech):
+                raise NotImplementedError("only GlowTTS voices are ported yet")
+            if isinstance(vocoder_model, HiFiGanVocoder):
+                extra = {"vocoder_kind": "hifi_gan"}
+            elif isinstance(vocoder_model, WaveGlowVocoder):
+                extra = {"vocoder_kind": "waveglow", "waveglow_sigma": vocoder_model.sigma}
+            else:
+                raise NotImplementedError(
+                    f"vocoder {type(vocoder_model).__name__} is not ported yet"
+                )
+            engine = _ENGINE_CACHE[key] = SynthesisEngine(
+                tts_model.params,
+                tts_model.model_config,
+                tts_model.audio_settings or _DEFAULT_AUDIO_SETTINGS,
+                vocoder_params=vocoder_model.params,
+                vocoder_cfg=vocoder_model.model_config,
+                device=device,
+                **extra,
+            )
+        return engine
 
 
 _TTS_MODEL_CACHE: typing.Dict[str, typing.Any] = {}
@@ -316,60 +419,61 @@ def get_tts_model(
     audio_settings_overrides: typing.Optional[typing.Dict[str, typing.Any]] = None,
 ):
     """Find (or download), load and cache a voice; None if not found."""
-    resolved_name = resolve_voice_name(name or resolve_lang(lang))
-    if not audio_settings_overrides:  # overridden models are not cached
-        maybe_model = _TTS_MODEL_CACHE.get(resolved_name)
-        if maybe_model is not None:
-            return maybe_model
+    with _CACHE_LOCK:
+        resolved_name = resolve_voice_name(name or resolve_lang(lang))
+        if not audio_settings_overrides:  # overridden models are not cached
+            maybe_model = _TTS_MODEL_CACHE.get(resolved_name)
+            if maybe_model is not None:
+                return maybe_model
 
-    try:
-        voice_lang, voice_name, voice_model_type = split_voice_name(resolved_name)
-    except ValueError:
-        return None
-    voice_dir_name = f"{voice_name}-{voice_model_type}"
-
-    model_dir: typing.Optional[Path] = None
-    voices_dirs = get_voices_dirs(custom_voices_dir)
-    for voices_dir in voices_dirs:
-        maybe_dir = voices_dir / voice_lang / voice_dir_name
-        if valid_voice_dir(maybe_dir):
-            model_dir = maybe_dir
-            break
-    if model_dir is None:
-        for voices_dir in voices_dirs:
-            if not voices_dir.is_dir():
-                continue
-            for maybe_dir in voices_dir.rglob(voice_dir_name):
-                if valid_voice_dir(maybe_dir):
-                    model_dir = maybe_dir
-                    break
-            if model_dir is not None:
-                break
-    if model_dir is None and not no_download:
-        url = url_format.format(voice=get_voice_download_name(resolved_name))
         try:
-            model_dir = download_voice(resolved_name, voices_dirs[0], url)
-        except Exception:
-            _LOGGER.exception("download failed for %s", resolved_name)
+            voice_lang, voice_name, voice_model_type = split_voice_name(resolved_name)
+        except ValueError:
             return None
-    if model_dir is None:
-        return None
+        voice_dir_name = f"{voice_name}-{voice_model_type}"
 
-    import json
+        model_dir: typing.Optional[Path] = None
+        voices_dirs = get_voices_dirs(custom_voices_dir)
+        for voices_dir in voices_dirs:
+            maybe_dir = voices_dir / voice_lang / voice_dir_name
+            if valid_voice_dir(maybe_dir):
+                model_dir = maybe_dir
+                break
+        if model_dir is None:
+            for voices_dir in voices_dirs:
+                if not voices_dir.is_dir():
+                    continue
+                for maybe_dir in voices_dir.rglob(voice_dir_name):
+                    if valid_voice_dir(maybe_dir):
+                        model_dir = maybe_dir
+                        break
+                if model_dir is not None:
+                    break
+        if model_dir is None and not no_download:
+            url = url_format.format(voice=get_voice_download_name(resolved_name))
+            try:
+                model_dir = download_voice(resolved_name, voices_dirs[0], url)
+            except Exception:
+                _LOGGER.exception("download failed for %s", resolved_name)
+                return None
+        if model_dir is None:
+            return None
 
-    with open(model_dir / "phonemes.txt", "r", encoding="utf-8") as f:
-        phoneme_to_id = load_phoneme_ids(f)
-    with open(model_dir / "config.json", "r", encoding="utf-8") as f:
-        audio_config = dict(json.load(f)["audio"])
-    if audio_settings_overrides:
-        audio_config.update(audio_settings_overrides)
+        import json
 
-    model = load_tts_model(voice_model_type, model_dir, backend=backend)
-    model.phoneme_to_id = phoneme_to_id
-    model.audio_settings = AudioSettings(**audio_config)
-    if not audio_settings_overrides:
-        _TTS_MODEL_CACHE[resolved_name] = model
-    return model
+        with open(model_dir / "phonemes.txt", "r", encoding="utf-8") as f:
+            phoneme_to_id = load_phoneme_ids(f)
+        with open(model_dir / "config.json", "r", encoding="utf-8") as f:
+            audio_config = dict(json.load(f)["audio"])
+        if audio_settings_overrides:
+            audio_config.update(audio_settings_overrides)
+
+        model = load_tts_model(voice_model_type, model_dir, backend=backend)
+        model.phoneme_to_id = phoneme_to_id
+        model.audio_settings = AudioSettings(**audio_config)
+        if not audio_settings_overrides:
+            _TTS_MODEL_CACHE[resolved_name] = model
+        return model
 
 
 def load_tts_model(
@@ -398,48 +502,51 @@ def get_vocoder_model(
     no_download: bool = False,
 ):
     """Find (or download), load and cache a vocoder; None if not found."""
-    quality_key = (
-        name_or_quality.value if isinstance(name_or_quality, VocoderQuality) else name_or_quality
-    )
-    maybe_model = _VOCODER_MODEL_CACHE.get(quality_key)
-    if maybe_model is not None:
-        return maybe_model
-    if quality_key == VocoderType.GRIFFIN_LIM.value:
-        raise NotImplementedError("Griffin-Lim is not ported yet")
-
-    resolved = VOCODER_QUALITY.get(quality_key)
-    if resolved is None:
-        alias = VOCODER_ALIASES.get(quality_key, quality_key)
-        resolved = alias if "/" in alias else alias.replace("-", "/", 1)
-    if "/" not in resolved:
-        raise ValueError(
-            f"Unknown vocoder {name_or_quality!r} (expected high/medium/low or "
-            "<model_type>/<model_name>)"
+    with _CACHE_LOCK:
+        quality_key = (
+            name_or_quality.value
+            if isinstance(name_or_quality, VocoderQuality)
+            else name_or_quality
         )
-    model_type, model_name = resolved.split("/", maxsplit=1)
-    if model_type not in (VocoderType.HIFI_GAN.value, VocoderType.WAVEGLOW.value):
-        raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
+        maybe_model = _VOCODER_MODEL_CACHE.get(quality_key)
+        if maybe_model is not None:
+            return maybe_model
+        if quality_key == VocoderType.GRIFFIN_LIM.value:
+            raise NotImplementedError("Griffin-Lim is not ported yet")
 
-    model_dir: typing.Optional[Path] = None
-    voices_dirs = get_voices_dirs(custom_voices_dir)
-    for voices_dir in voices_dirs:
-        maybe_dir = voices_dir / model_type / model_name
-        if valid_voice_dir(maybe_dir):
-            model_dir = maybe_dir
-            break
-    if model_dir is None and not no_download:
-        url = url_format.format(voice=f"{model_type}_{model_name}")
-        try:
-            model_dir = download_voice(model_name, voices_dirs[0], url)
-        except Exception:
-            _LOGGER.exception("download failed for vocoder %s", model_name)
+        resolved = VOCODER_QUALITY.get(quality_key)
+        if resolved is None:
+            alias = VOCODER_ALIASES.get(quality_key, quality_key)
+            resolved = alias if "/" in alias else alias.replace("-", "/", 1)
+        if "/" not in resolved:
+            raise ValueError(
+                f"Unknown vocoder {name_or_quality!r} (expected high/medium/low or "
+                "<model_type>/<model_name>)"
+            )
+        model_type, model_name = resolved.split("/", maxsplit=1)
+        if model_type not in (VocoderType.HIFI_GAN.value, VocoderType.WAVEGLOW.value):
+            raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
+
+        model_dir: typing.Optional[Path] = None
+        voices_dirs = get_voices_dirs(custom_voices_dir)
+        for voices_dir in voices_dirs:
+            maybe_dir = voices_dir / model_type / model_name
+            if valid_voice_dir(maybe_dir):
+                model_dir = maybe_dir
+                break
+        if model_dir is None and not no_download:
+            url = url_format.format(voice=f"{model_type}_{model_name}")
+            try:
+                model_dir = download_voice(model_name, voices_dirs[0], url)
+            except Exception:
+                _LOGGER.exception("download failed for vocoder %s", model_name)
+                return None
+        if model_dir is None:
             return None
-    if model_dir is None:
-        return None
 
-    model = load_vocoder_model(VocoderType(model_type), model_dir, backend=backend)
-    _VOCODER_MODEL_CACHE[quality_key] = model
-    return model
+        model = load_vocoder_model(VocoderType(model_type), model_dir, backend=backend)
+        _VOCODER_MODEL_CACHE[quality_key] = model
+        return model
 
 
 def load_vocoder_model(

@@ -40,6 +40,20 @@ PAIR_SMEM = 115712  # ... that each of two blocks on one SM can have
 MODE_TO_SCRATCH, MODE_OUT_STORE, MODE_OUT_ADD = range(3)
 
 
+# Copied from larynx_tpu/ops/mrf_block.py::chain_halo.
+def chain_halo(
+    kernel_size: int,
+    dilations: typing.Sequence[int],
+    convs_per_unit: int = 2,
+) -> int:
+    """One chain's receptive-field halo: per unit, (k-1)/2 * d for the
+    dilated conv plus (k-1)/2 for the trailing plain conv (ResBlock1
+    only; ResBlock2 units have a single dilated conv)."""
+    half = (kernel_size - 1) // 2
+    plain = half if convs_per_unit == 2 else 0
+    return sum(half * d + plain for d in dilations)
+
+
 def unit_stride(kernel_size: int, convs_per_unit: int = 2) -> int:
     """Output rows per block of a unit launch: the second conv of a
     ResBlock1 unit loses (k-1) of the first conv's TILE_ROWS rows."""

@@ -13,6 +13,11 @@ own bucketed width, with the same group plan as the JAX engine, then the
 optional bias denoiser and int16 peak normalisation on the device.
 WaveGlow's prior is drawn once for the whole batch, zeroed past each row's
 valid blocks and sliced per group, as there.
+
+``synthesize_stream`` vocodes one utterance in haloed mel windows at fixed
+gain (HiFi-GAN only); ``decode_launch(row_seeds=...)`` draws each seeded
+row's latent noise from its own seed, which lets the batch scheduler
+(``runtime/scheduler.py``) put seeded requests in one batch.
 """
 
 import logging
@@ -32,6 +37,7 @@ from larynx_tpu_torch.models.hifi_gan import model as hifi_model
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
 from larynx_tpu_torch.models.waveglow import model as wg_model
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
+from larynx_tpu_torch.ops.mrf_block import chain_halo
 from larynx_tpu_torch.runtime.buckets import BucketPolicy
 from larynx_tpu_torch.weights import tree_to
 
@@ -45,6 +51,36 @@ SILENCE_LOG_MEL = float(np.log(1e-5))
 # Kept equal so every row is vocoded at the same width as there.
 MAX_VOCODE_AREA = 16384
 RAMP_MIN_BYTES = 8_000_000
+
+# Mel frames per independently seeded block of per-row noise (row_noise).
+NOISE_BLOCK_FRAMES = 256
+
+
+# Copied from larynx_tpu/runtime/engine.py::stream_halo_frames.
+def stream_halo_frames(voc_cfg: HiFiGanConfig) -> int:
+    """Mel-frame halo outside which a vocoded sample cannot depend on a
+    chunk boundary: walk the receptive field backward through conv_post,
+    each stage's MRF section and transposed conv, and conv_pre.  Chunked
+    vocoding with this halo is bit-identical to the full run."""
+    h = 3  # conv_post 'same' halo, samples at the last stage's rate
+    for i in reversed(range(len(voc_cfg.upsample_rates))):
+        u = voc_cfg.upsample_rates[i]
+        k = voc_cfg.upsample_kernel_sizes[i]
+        h += max(
+            chain_halo(kk, dd, 2 if voc_cfg.resblock == "1" else 1)
+            for kk, dd in zip(voc_cfg.resblock_kernel_sizes, voc_cfg.resblock_dilation_sizes)
+        )
+        pad = (k - u) // 2
+        h = -(-(h + (k - 1 - pad)) // u)  # transposed-conv back-map
+    return h + 3  # conv_pre halo (k=7, 'same') in mel frames
+
+
+def ola_gain(fft: int, hop: int) -> float:
+    """The denoiser's un-normalised Hann^2 overlap-add multiplies the
+    waveform by sum(w^2) / hop (~1.4985 at 1024/256); the batch path absorbs
+    it in its per-row peak normalisation, the fixed-gain stream divides it
+    out."""
+    return float(np.sum(dsp.hann_window(fft) ** 2) / hop)
 
 
 def waveglow_area() -> int:
@@ -134,15 +170,41 @@ class SynthesisEngine:
         arr = self._row_values(value, b_bucket).reshape((b_bucket,) + (1,) * (ndim - 1))
         return torch.from_numpy(arr).to(self.device)
 
-    def _noise_generator(self, seed: typing.Optional[int], batch_index: int, stream: int = 0):
-        """A generator seeded from (seed or the engine's seed, batch index);
-        stream 0 is the decode noise, stream 1 the WaveGlow prior."""
-        base = self.seed if seed is None else seed
-        entropy = [base & 0xFFFFFFFF, batch_index] + ([stream] if stream else [])
+    def _generator(self, entropy: typing.List[int]) -> torch.Generator:
+        """A generator on the engine's device seeded by ``SeedSequence(entropy)``."""
         state = np.random.SeedSequence(entropy).generate_state(1)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(state[0]))
         return gen
+
+    def _noise_generator(self, seed: typing.Optional[int], batch_index: int, stream: int = 0):
+        """A generator seeded from (seed or the engine's seed, batch index);
+        stream 0 is the decode noise, stream 1 the WaveGlow prior."""
+        base = self.seed if seed is None else seed
+        return self._generator([base & 0xFFFFFFFF, batch_index] + ([stream] if stream else []))
+
+    def row_noise(self, row_seeds, b: int, m: int, c: int, batch_index: int) -> torch.Tensor:
+        """Per-row standard-normal latent noise [b, m, c]: a seeded row's
+        comes only from its seed, an unseeded row's (padding rows included)
+        from (engine seed, batch index, row).  Each row is drawn in blocks
+        of NOISE_BLOCK_FRAMES frames, block j from its own generator on
+        (row entropy, j): every block has one shape, so frame f's values
+        depend only on (row entropy, f) and a wider mel bucket extends a
+        row's noise without changing its prefix."""
+        rows = []
+        for r in range(b):
+            s = row_seeds[r] if r < len(row_seeds) else None
+            if s is None:
+                entropy = [self.seed & 0xFFFFFFFF, batch_index, r, 1]
+            else:
+                entropy = [int(s) & 0xFFFFFFFF, 0]
+            blocks = [
+                torch.randn((NOISE_BLOCK_FRAMES, c), generator=self._generator(entropy + [j]),
+                            device=self.device)
+                for j in range(-(-m // NOISE_BLOCK_FRAMES))
+            ]
+            rows.append(torch.cat(blocks)[:m])
+        return torch.stack(rows)
 
     def _generate(self, mel: torch.Tensor, z: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
         """mel [B, M, C] -> float audio [B, M * upsample]; ``z`` is
@@ -194,15 +256,27 @@ class SynthesisEngine:
         noise_scale=0.667,
         seed: typing.Optional[int] = None,
         batch_index: int = 0,
+        row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
     ):
-        """Flow decode at ``policy.mel_bucket(max y_length)`` -> (mel, z_mask)."""
+        """Flow decode at ``policy.mel_bucket(max y_length)`` -> (mel, z_mask).
+
+        ``row_seeds`` (one entry per sentence, None = unseeded) switches to
+        per-row noise (:meth:`row_noise`), so seeded rows reproduce whatever
+        their batchmates; it replaces the scalar ``seed``."""
         x_m, x_logs, _logw, w_ceil, y_dev, _mask = enc_out
+        b, _t, c = x_m.shape
         mel_bucket = self.policy.mel_bucket(int(y_lengths[:n].max()))
+        noise = generator = None
+        if row_seeds is not None:
+            noise = self.row_noise(row_seeds, b, mel_bucket, c, batch_index)
+        else:
+            generator = self._noise_generator(seed, batch_index)
         return glow_model.expand_and_decode(
             self.glow_params, self.glow_cfg, x_m, x_logs, w_ceil, y_dev,
             mel_max_length=mel_bucket,
-            noise_scale=self._row_param(noise_scale, x_m.shape[0], 3),
-            generator=self._noise_generator(seed, batch_index),
+            noise_scale=self._row_param(noise_scale, b, 3),
+            noise=noise,
+            generator=generator,
         )
 
     @torch.inference_mode()
@@ -387,6 +461,31 @@ class SynthesisEngine:
             out.append(np.ascontiguousarray(audio_rows[i][:n_samples]))
         return out
 
+    @torch.inference_mode()
+    def synthesize_launch(
+        self,
+        enc_out,
+        y_lengths: np.ndarray,
+        g,
+        n: int,
+        noise_scale=0.667,
+        seed: typing.Optional[int] = None,
+        batch_index: int = 0,
+        denoiser_strength=0.0,
+        row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
+    ) -> typing.Tuple[typing.List[typing.Any], int]:
+        """Decode + vocode of an encoded batch -> (parts, batch rows); the
+        parts are still on the device (:meth:`vocode_collect` copies them)."""
+        mel, z_mask = self.decode_launch(
+            enc_out, y_lengths, g, n, noise_scale=noise_scale, seed=seed,
+            batch_index=batch_index, row_seeds=row_seeds,
+        )
+        parts = self.vocode_launch(
+            mel, z_mask, n, denoiser_strength, y_lengths=y_lengths,
+            seed=seed, batch_index=batch_index,
+        )
+        return parts, mel.shape[0]
+
     def synthesize_batch(
         self,
         id_seqs: typing.Sequence[np.ndarray],
@@ -400,16 +499,79 @@ class SynthesisEngine:
         n = len(id_seqs)
         enc_out, g = self.encode_launch(id_seqs, length_scale)
         y_lengths = enc_out[4].cpu().numpy()
-        mel, z_mask = self.decode_launch(
-            enc_out, y_lengths, g, n,
-            noise_scale=noise_scale, seed=seed, batch_index=batch_index,
+        parts, b_rows = self.synthesize_launch(
+            enc_out, y_lengths, g, n, noise_scale=noise_scale, seed=seed,
+            batch_index=batch_index, denoiser_strength=denoiser_strength,
         )
-        parts = self.vocode_launch(
-            mel, z_mask, n, denoiser_strength, y_lengths=y_lengths,
-            seed=seed, batch_index=batch_index,
-        )
-        audio_rows = self.vocode_collect(parts, mel.shape[0])
+        audio_rows = self.vocode_collect(parts, b_rows)
         return self.crop_rows(audio_rows, y_lengths, n, denoiser_strength)
+
+    # ------------------------------------------------------------------
+    # streaming
+
+    def _vocode_stream(self, mel, z_mask, start: int, window: int, bias_spec, strength,
+                       denoise: bool) -> torch.Tensor:
+        """One haloed window [start, start + window) of the mel at fixed gain
+        -> int16 [1, window * upsample (+ STFT tail)]: no per-utterance peak
+        normalisation (the generator's tanh already bounds the waveform)."""
+        mel_c, mask_c = mel[:, start : start + window], z_mask[:, start : start + window]
+        audio = self._generate(postprocess(mel_c, mask_c, self.audio_settings).transpose(1, 2))
+        if denoise:
+            fft, hop = self.audio_settings.filter_length, self.audio_settings.hop_length
+            audio = hifi_denoiser.denoise(audio, bias_spec, strength, fft, hop) / ola_gain(fft, hop)
+        return torch.clamp(audio * 32767.0, -32767.0, 32767.0).to(torch.int16)
+
+    @torch.inference_mode()
+    def synthesize_stream(
+        self,
+        ids: np.ndarray,
+        noise_scale: float = 0.667,
+        length_scale: float = 1.0,
+        seed: typing.Optional[int] = None,
+        denoiser_strength: float = 0.0,
+        chunk_frames: int = 64,
+    ) -> typing.Iterator[np.ndarray]:
+        """Chunked synthesis of ONE utterance: yields int16 audio chunks of
+        ``chunk_frames`` mel frames each (the last one shorter).
+
+        Each chunk is vocoded over a window of ``chunk_frames + 2 * halo``
+        frames (:func:`stream_halo_frames`, plus the STFT frames that
+        straddle a boundary with the denoiser), slid inward at the mel
+        bucket's edges, so its samples are those of the one-window run.
+        Chunk i + 1 is launched before chunk i is copied to the host."""
+        if self.vocoder_kind != "hifi_gan":
+            raise ValueError(
+                "streaming synthesis requires a HiFi-GAN vocoder "
+                f"(engine has vocoder_kind={self.vocoder_kind!r})"
+            )
+        enc_out, g = self.encode_launch([ids], length_scale)
+        y_lengths = enc_out[4].cpu().numpy()
+        n_frames = int(y_lengths[0])
+        mel, z_mask = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale,
+                                         seed=seed)
+        m_bucket = mel.shape[1]
+
+        denoise = bool(np.any(np.asarray(denoiser_strength) > 0))
+        halo = stream_halo_frames(self.vocoder_cfg)
+        if denoise:
+            halo += self.audio_settings.filter_length // self.audio_settings.hop_length + 1
+        bias = self._get_bias_spec() if denoise else None
+        strength = self._row_param(denoiser_strength, 1, 3)
+
+        window = min(chunk_frames + 2 * halo, m_bucket)
+        prev = None
+        for start in range(0, n_frames, chunk_frames):
+            emit = min(chunk_frames, n_frames - start)
+            # slide the window inward at the edges: its boundaries then
+            # coincide with the true array edges, keeping exactness
+            w_start = min(max(start - halo, 0), m_bucket - window)
+            audio_c = self._vocode_stream(mel, z_mask, w_start, window, bias, strength, denoise)
+            if prev is not None:
+                yield prev.cpu().numpy()
+            off = (start - w_start) * self.upsample
+            prev = audio_c[0, off : off + emit * self.upsample]
+        if prev is not None:
+            yield prev.cpu().numpy()
 
     def warmup(self, text_lengths=(16, 64), batch_sizes=(1,)):
         """Run each (batch, text length) shape once."""

@@ -2,12 +2,14 @@
 
 import ast
 import dataclasses
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
 import larynx_tpu_torch
+import larynx_tpu_torch.__main__ as cli
 from larynx_tpu_torch.device import resolve_device
 from larynx_tpu_torch.ops import mrf_block
 
@@ -48,12 +50,34 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_raise():
-    for kwargs in ({"half": True}, {"scheduler": object()}, {"interleaved_batching": True}):
-        with pytest.raises(NotImplementedError):
-            larynx_tpu_torch.text_to_speech("Hello.", device="cpu", **kwargs)
+def _stream_waveglow(monkeypatch):
+    """stream_text_to_speech on a sentence whose engine has a WaveGlow vocoder."""
+    job = {"tts_model": None, "vocoder_model": None, "ids": None}
+    monkeypatch.setattr(larynx_tpu_torch, "_build_jobs", lambda *args, **kwargs: [job])
+    monkeypatch.setattr(larynx_tpu_torch, "_get_engine",
+                        lambda *args: types.SimpleNamespace(vocoder_kind="waveglow"))
+    list(larynx_tpu_torch.stream_text_to_speech("Hello.", device="cpu"))
+
+
+@pytest.mark.parametrize("call", [
+    lambda mp: larynx_tpu_torch.text_to_speech("Hello.", device="cpu", half=True),
+    lambda mp: larynx_tpu_torch.text_to_speech("Hello.", device="cpu", interleaved_batching=True),
+    lambda mp: larynx_tpu_torch.stream_text_to_speech("Hello.", device="cpu", half=True),
+    lambda mp: larynx_tpu_torch.get_vocoder_model("griffin_lim"),
+    _stream_waveglow,
+], ids=["half", "interleaved", "stream-half", "griffin_lim", "stream-waveglow"])
+def test_unported_options_raise(monkeypatch, call):
     with pytest.raises(NotImplementedError):
-        larynx_tpu_torch.get_vocoder_model("griffin_lim")
+        call(monkeypatch)
+
+
+@pytest.mark.parametrize("flag", ["--daemon", "--stop-daemon"])
+def test_cli_daemon_exits_non_zero(flag, caplog):
+    """The daemon needs the HTTP server, which is not ported."""
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main([flag, "--device", "cpu", "Hello."])
+    assert exit_info.value.code not in (0, None)
+    assert "the HTTP server is not ported yet" in caplog.text
 
 
 def _stage(c=8):
