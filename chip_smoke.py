@@ -38,6 +38,18 @@ Phases (any failure exits non-zero):
      against the float32 library calls.
   8. the MRF kernel against its plain version at every shape that the
      scheduler's batches and the CLI gave it and phase 2 did not check.
+  9. the bfloat16 paths: ``text_to_speech`` at the CUDA default (bf16
+     vocoder) with HiFi-GAN and with WaveGlow, ``half=True``,
+     ``stream_text_to_speech`` at the default and with ``half=True``, and the
+     CLI with ``--half`` in process; each with its launch counts and
+     against its float32 run of the same rows at noise 0 (correlation >
+     0.999, RMS level within 1% of full scale), and a small batch on CUDA
+     in bf16 against the CPU path in bf16 by the same bar.
+ 10. the bf16 MRF kernel at every shape phase 9 gave it that phase 2's bf16
+     rows did not check.
+Phases 2-8 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the CUDA
+default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
+against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
 The MRF rows of phase 2 include the stream path's chunk windows (B=1).
 The last two lines are the kernels JSON and the device JSON.  Needs one
 CUDA device and nvcc; imports nothing of JAX.
@@ -45,6 +57,7 @@ CUDA device and nvcc; imports nothing of JAX.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -59,7 +72,9 @@ import torch
 # bound counts three TF32 operations per f32 FLOP of the section.
 TF32_PEAK_FLOPS = 495e12
 TF32_PER_F32 = 3
+BF16_PEAK_FLOPS = 989e12  # dense bf16 tensor cores: one operation per bf16 FLOP
 HBM_BYTES_PER_S = 3.35e12
+PRECISION_ENV = "LARYNX_TPU_VOCODER_PRECISION"
 
 # the 46-symbol en-us inventory of the harvard voice's phonemes.txt
 PHONEMES = (
@@ -119,6 +134,25 @@ MRF_TOLERANCE = 1e-4
 # 8-layer stack.  1e-4 leaves room for that and catches any indexing,
 # halo or mode fault, which is O(0.1) or more.
 WN_TOLERANCE = 1e-4
+# bf16 kernels against their plain bf16 versions (which round at the same
+# points, on float32 copies): both sum exact bf16 products in f32 in other
+# orders, so a value at a rounding boundary lands one bf16 ULP apart and
+# carries into the chained convs of a section; at most 2 ULPs of the
+# output's scale, 2^(floor(log2 max|ref|) - 7), per launch.  The 8-layer WN
+# stack carries such flips through h and skip for 8 layers: 4 ULPs.
+BF16_ULPS = 2
+BF16_STACK_ULPS = 4
+# bf16 paths against their float32 runs, and CUDA bf16 against CPU bf16: an
+# LSB bound does not hold in bf16, so the JAX package's bar for its bf16
+# vocoder (tests/test_mixed_precision.py): correlation and RMS level.
+BF16_CORRELATION = 0.999
+BF16_LEVEL = 0.01 * 32767
+# half=True against float32 at the float32 durations: bf16 GlowTTS moves the
+# mel itself.  The JAX package's own half run sits at 0.9988 against its f32
+# run on the small test voice (tests/test_torch_mixed_precision.py), under
+# the vocoder's 0.999, and full depth (6 encoder layers, 12 flow blocks)
+# drifts further; a wrong rounding point or dtype decorrelates far more.
+BF16_HALF_CORRELATION = 0.99
 # Coupling end-conv scale of the staged WaveGlow: the init's end_w = 0
 # makes every coupling the identity, so the audio would not depend on the
 # WN stacks.  At 0.001 the skip sums (O(1.6) per channel over 256 channels)
@@ -165,6 +199,13 @@ def timed(fn):
     return out, 1e3 * (time.perf_counter() - start) / 3
 
 
+def ulps_of_scale(out, ref) -> float:
+    """max |out - ref| in bf16 ULPs of ref's scale, 2^(floor(log2 max|ref|) - 7)."""
+    ref = ref.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
+    return (out.float() - ref).abs().max().item() / ulp
+
+
 def random_stage(gen, c, kernel_sizes, dilations, convs_per_unit):
     """A stage's resblocks in the port's layout, with the init's scale."""
     def conv(k):
@@ -187,13 +228,24 @@ R2 = ((3, 5, 7), ((1, 2), (2, 6), (3, 12)), 1)  # vctk_small: ResBlock2
 def unit_design_bytes(stage, b, t):
     """HBM bytes that the per-unit launches move for one section: each unit
     reads its input and writes its output once (a chain's last unit after
-    the first chain also reads out), plus the weight stages once; the
-    residual re-read and the tiles' halos come from L2."""
-    from larynx_tpu_torch.ops.mrf_block import MODE_OUT_ADD, unit_launches
+    the first chain also reads out; in bf16 the chains' sum is f32 and the
+    last chain writes bf16), plus the weight stages once; the residual
+    re-read and the tiles' halos come from L2."""
+    from larynx_tpu_torch.ops.mrf_block import MODE_OUT_ADD, MODE_TO_SCRATCH, unit_launches
 
-    act = 4.0 * b * t * stage.b_flat.shape[-1]
-    io = sum(act * (3 if mode == MODE_OUT_ADD else 2) for *_, mode, _s in unit_launches(stage))
-    return io + 4.0 * (stage.wpack.numel() + stage.b_flat.numel())
+    e = stage.w_flat.element_size()
+    a = float(b * t * stage.b_flat.shape[-1])
+    n_chains = len(stage.kernel_sizes)
+    io = 0.0
+    for r, *_, mode, _s in unit_launches(stage):
+        io += e * a  # the unit's input
+        if mode == MODE_TO_SCRATCH:
+            io += e * a
+        elif e == 4:
+            io += 4 * a + (4 * a if mode == MODE_OUT_ADD else 0)
+        else:
+            io += (4 * a if mode == MODE_OUT_ADD else 0) + (e * a if r == n_chains - 1 else 4 * a)
+    return io + e * (stage.wpack.numel() + stage.b_flat.numel())
 
 
 def stream_cases(engine):
@@ -241,20 +293,24 @@ def phase2_mrf_cases(main_cases, stream):
     return cases, units
 
 
-def check_mrf(mrf_block, cases, units=()):
+def check_mrf(mrf_block, cases, units=(), dtype=torch.float32):
     """mrf_section against mrf_section_plain at each case's (C, geometry, B,
     T), and single units (one-unit stages, one launch each) against
-    mrf_unit_plain at C=128; a row of times and bound for each."""
-    from larynx_tpu_torch.weights import tree_to
+    mrf_unit_plain at C=128; a row of times and bound for each.  In bf16
+    the weights and x are bf16, the plain version rounds where the kernel
+    does, the yardstick is a chain of cuDNN bf16 convs and the bound counts
+    one operation per FLOP at the bf16 peak and 2-byte elements."""
+    from larynx_tpu_torch.weights import cast, tree_to
 
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator().manual_seed(0)
     rows = []
     for label, c, (ks, dils, cpu), b, t, main in cases + [
             (label, 128, ((k,), ((d,),), 2), b, t, False) for label, k, d, b, t in units]:
         stage = mrf_block.pack_mrf_stage(
-            tree_to(random_stage(gen, c, ks, dils, cpu), "cuda"), ks, dils, cpu)
+            cast(tree_to(random_stage(gen, c, ks, dils, cpu), "cuda"), dtype), ks, dils, cpu)
         w, bias = stage.w_flat, stage.b_flat
-        x = torch.randn((b, t, c), generator=gen).cuda()
+        x = torch.randn((b, t, c), generator=gen).cuda().to(dtype)
         out = mrf_block.mrf_section(x, stage)
         torch.cuda.synchronize()
         convs = list(mrf_block._unpacked_convs(w, bias, c, ks, dils, cpu))
@@ -264,9 +320,12 @@ def check_mrf(mrf_block, cases, units=()):
         else:
             def plain():
                 return mrf_block.mrf_section_plain(x, w, bias, ks, dils, cpu)
-        err = (out - plain()).abs().max().item()
-        if not err <= MRF_TOLERANCE:
-            raise AssertionError(f"mrf_section {label}: max abs err {err} > {MRF_TOLERANCE}")
+        ref = plain()
+        err = (out.float() - ref.float()).abs().max().item()
+        ulps = ulps_of_scale(out, ref) if bf16 else None
+        if (bf16 and not ulps <= BF16_ULPS) or (not bf16 and not err <= MRF_TOLERANCE):
+            raise AssertionError(f"mrf_section {dtype} {label}: max abs err {err}, "
+                                 f"{ulps} bf16 ULPs of scale")
         xc = x.transpose(1, 2).contiguous()
 
         def cudnn_chain():  # the convs alone, one cuDNN call each
@@ -276,23 +335,28 @@ def check_mrf(mrf_block, cases, units=()):
                                                dilation=d)
 
         taps = cpu * sum(k * len(d) for k, d in zip(ks, dils))
-        ops_s = TF32_PER_F32 * 2.0 * b * t * c * c * taps / TF32_PEAK_FLOPS
-        bytes_s = 4.0 * (2 * b * t * c + stage.wpack.numel() + bias.numel()) / HBM_BYTES_PER_S
+        flops = 2.0 * b * t * c * c * taps
+        ops_s = flops / BF16_PEAK_FLOPS if bf16 else TF32_PER_F32 * flops / TF32_PEAK_FLOPS
+        e = x.element_size()
+        bytes_s = e * (2 * b * t * c + stage.wpack.numel() + bias.numel()) / HBM_BYTES_PER_S
         design = unit_design_bytes(stage, b, t)
         row = {
-            "case": label, "C": c, "B": b, "T": t, "convs_per_unit": cpu, "main_path": main,
-            "stream_path": label.startswith("stream"), "units": len(convs), "max_abs_err": err,
+            "case": label, "dtype": str(dtype).replace("torch.", ""), "C": c, "B": b, "T": t,
+            "convs_per_unit": cpu, "main_path": main, "stream_path": label.startswith("stream"),
+            "units": len(convs), "max_abs_err": err, "bf16_ulps_of_scale": ulps,
             "ms": time_ms(lambda: mrf_block.mrf_section(x, stage)),
             "plain_ms": time_ms(plain),
             "library_ms": time_ms(cudnn_chain),
+            "ops_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s,
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
             "unit_hbm_gb": design / 1e9, "unit_hbm_ms": 1e3 * design / HBM_BYTES_PER_S,
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        log(f"mrf_section {label}: C={c} B={b} T={t} units {len(convs)} max_abs_err={err:.3g} "
-            f"(tol {MRF_TOLERANCE}) kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+        tol = f"{ulps:.3g} bf16 ULPs of scale (tol {BF16_ULPS})" if bf16 else f"(tol {MRF_TOLERANCE})"
+        log(f"mrf_section {row['dtype']} {label}: C={c} B={b} T={t} units {len(convs)} "
+            f"max_abs_err={err:.3g} {tol} kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"cuDNN conv chain {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']}), {row['bound_share']:.1%} of bound; per-unit HBM traffic "
             f"{row['unit_hbm_gb']:.3f} GB = {row['unit_hbm_ms']:.3f} ms at 3.35 TB/s")
@@ -408,10 +472,10 @@ def plan_waveglow_path(root: Path):
     return jobs, engine, y_lengths, plan, shapes
 
 
-def random_wn_layer(wn_layer, gen, rs_out, ch=256, cc=640):
+def random_wn_layer(wn_layer, gen, rs_out, ch=256, cc=640, dtype=torch.float32):
     """One WN layer packed on the card, with the init's scales."""
     def n(*shape, scale=0.05):
-        return (torch.randn(shape, generator=gen) * scale).cuda()
+        return (torch.randn(shape, generator=gen) * scale).cuda().to(dtype)
 
     return wn_layer.pack_wn_layer(n(2 * ch, ch, 3), n(2 * ch, scale=0.01), n(2 * ch, cc),
                                   n(2 * ch, scale=0.01), n(rs_out, ch), n(rs_out, scale=0.01))
@@ -419,9 +483,10 @@ def random_wn_layer(wn_layer, gen, rs_out, ch=256, cc=640):
 
 def wn_cost(b, t, layer, first, last, rs_mode=False, ch=256, cc=640):
     """(ops seconds, bytes seconds) of one WN layer at the card's peaks: the
-    products the kernel runs (3 TF32 operations per f32 FLOP) and the bytes
-    it must move (each input read once, each output written once; the f32
-    weights once, not the kernel's TF32 hi/lo copy of them)."""
+    products the kernel runs (f32: 3 TF32 operations per FLOP; bf16: one
+    operation per FLOP at the bf16 peak) and the bytes it must move (each
+    input read once, each output written once; the weights once in their
+    dtype, not the kernel's TF32 hi/lo copy of them)."""
     rs_out = layer.b_rs.numel()
     flops = 2.0 * b * t * (2 * ch * (3 * ch + cc) + ch * rs_out)
     act = b * t * ch
@@ -431,15 +496,21 @@ def wn_cost(b, t, layer, first, last, rs_mode=False, ch=256, cc=640):
         io = act + b * t * cc + act + (0 if first else act) + (0 if last else act)
     weights = (layer.w_in.numel() + layer.w_cond.numel() + layer.w_rs.numel()
                + layer.bias_a.numel() + rs_out)
-    return TF32_PER_F32 * flops / TF32_PEAK_FLOPS, 4.0 * (io + weights) / HBM_BYTES_PER_S
+    e = layer.w_in.element_size()
+    ops = flops / BF16_PEAK_FLOPS if e == 2 else TF32_PER_F32 * flops / TF32_PEAK_FLOPS
+    return ops, e * (io + weights) / HBM_BYTES_PER_S
 
 
-def check_wn(wn_layer, main_shapes):
+def check_wn(wn_layer, main_shapes, dtype=torch.float32):
     """Phase 2b: the WN layer kernel (K3 in every mode, K4) against its plain
     version: single layers at the main path's (B, T) and at a ragged T, and
-    a whole 8-layer stack (dilations 1..128) at the main path's shape."""
+    a whole 8-layer stack (dilations 1..128) at the main path's shape.  In
+    bf16 the main path's three layers and the stack, each held to bf16 ULPs
+    of its output's scale."""
     import torch.nn.functional as F
 
+    bf16 = dtype == torch.bfloat16
+    name = str(dtype).replace("torch.", "")
     gen = torch.Generator().manual_seed(3)
     b0, t0 = main_shapes[0]
     cases = [  # (label, B, T, dilation, first, last, K4 rs_out or None, on the main path)
@@ -454,10 +525,10 @@ def check_wn(wn_layer, main_shapes):
     ]
     rows = []
     for label, b, t, d, first, last, k4, main in cases:
-        layer = random_wn_layer(wn_layer, gen, k4 or (256 if last else 512))
-        h = torch.randn((b, t, 256), generator=gen).cuda()
-        cond = torch.randn((b, t, 640), generator=gen).cuda()
-        skip = None if first else torch.randn((b, t, 256), generator=gen).cuda()
+        layer = random_wn_layer(wn_layer, gen, k4 or (256 if last else 512), dtype=dtype)
+        h = torch.randn((b, t, 256), generator=gen).cuda().to(dtype)
+        cond = torch.randn((b, t, 640), generator=gen).cuda().to(dtype)
+        skip = None if first else torch.randn((b, t, 256), generator=gen).cuda().to(dtype)
         plain_args = (layer.w_in, layer.w_cond, layer.bias_a, layer.w_rs, layer.b_rs, d)
 
         def kernel():  # K4 returns rs, K3 (h_new, skip_new)
@@ -470,11 +541,13 @@ def check_wn(wn_layer, main_shapes):
                 return (wn_layer.wn_layer_plain(h, cond, *plain_args),)
             return wn_layer.wn_layer_state_plain(h, cond, skip, *plain_args, first, last)
 
-        err = max((k - p).abs().max().item() for k, p in zip(kernel(), plain()))
+        pairs = list(zip(kernel(), plain()))
         torch.cuda.synchronize()
-        if not err <= WN_TOLERANCE:
-            raise AssertionError(f"wn_layer {label}: max abs err {err} > {WN_TOLERANCE}")
-        acts = torch.rand((b, t, 256), generator=gen).cuda()
+        err = max((k.float() - p.float()).abs().max().item() for k, p in pairs)
+        ulps = max(ulps_of_scale(k, p) for k, p in pairs) if bf16 else None
+        if (bf16 and not ulps <= BF16_ULPS) or (not bf16 and not err <= WN_TOLERANCE):
+            raise AssertionError(f"wn_layer {name} {label}: max abs err {err}, {ulps} bf16 ULPs")
+        acts = torch.rand((b, t, 256), generator=gen).cuda().to(dtype)
         hc = h.transpose(1, 2).contiguous()
 
         def library():  # the layer's products alone: cuDNN conv + two cuBLAS GEMMs
@@ -484,15 +557,18 @@ def check_wn(wn_layer, main_shapes):
 
         ops_s, bytes_s = wn_cost(b, t, layer, first, last, rs_mode=bool(k4))
         row = {
-            "case": label, "B": b, "T": t, "dilation": d, "first": first, "last": last,
-            "rs_out": layer.b_rs.numel(), "mode": "K4" if k4 else "K3", "main_path": main,
-            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library), "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "case": label, "dtype": name, "B": b, "T": t, "dilation": d, "first": first,
+            "last": last, "rs_out": layer.b_rs.numel(), "mode": "K4" if k4 else "K3",
+            "main_path": main, "max_abs_err": err, "bf16_ulps_of_scale": ulps,
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            "ops_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s,
+            "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        log(f"wn_layer {label}: B={b} T={t} d={d} max_abs_err={err:.3g} (tol {WN_TOLERANCE}) "
+        tol = f"{ulps:.3g} bf16 ULPs of scale (tol {BF16_ULPS})" if bf16 else f"(tol {WN_TOLERANCE})"
+        log(f"wn_layer {name} {label}: B={b} T={t} d={d} max_abs_err={err:.3g} {tol} "
             f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, cuDNN+cuBLAS products "
             f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
             f"{row['bound_share']:.1%} of bound")
@@ -500,10 +576,11 @@ def check_wn(wn_layer, main_shapes):
     # a whole WN stack at each main-path shape: h and skip after 8 layers
     stacks = []
     for b, t in main_shapes:
-        layers = [random_wn_layer(wn_layer, gen, 256 if i == 7 else 512) for i in range(8)]
-        h0 = (torch.randn((b, t, 256), generator=gen) * 0.1).cuda()
-        cond = torch.randn((b, t, 640), generator=gen).cuda()
-        acts = torch.rand((b, t, 256), generator=gen).cuda()
+        layers = [random_wn_layer(wn_layer, gen, 256 if i == 7 else 512, dtype=dtype)
+                  for i in range(8)]
+        h0 = (torch.randn((b, t, 256), generator=gen) * 0.1).cuda().to(dtype)
+        cond = torch.randn((b, t, 640), generator=gen).cuda().to(dtype)
+        acts = torch.rand((b, t, 256), generator=gen).cuda().to(dtype)
 
         def stack(fn):
             h, skip = h0, None
@@ -527,22 +604,29 @@ def check_wn(wn_layer, main_shapes):
                 F.linear(acts, layer.w_rs)
 
         (hk, sk), (hp, sp) = stack(kernel_layer), stack(plain_layer)
-        err = max((hk - hp).abs().max().item(), (sk - sp).abs().max().item())
-        if not err <= WN_TOLERANCE:
-            raise AssertionError(f"wn_layer 8-layer stack B={b} T={t}: max abs err {err}")
+        err = max((hk.float() - hp.float()).abs().max().item(),
+                  (sk.float() - sp.float()).abs().max().item())
+        ulps = max(ulps_of_scale(hk, hp), ulps_of_scale(sk, sp)) if bf16 else None
+        if (bf16 and not ulps <= BF16_STACK_ULPS) or (not bf16 and not err <= WN_TOLERANCE):
+            raise AssertionError(f"wn_layer {name} 8-layer stack B={b} T={t}: max abs err {err}, "
+                                 f"{ulps} bf16 ULPs")
         costs = [wn_cost(b, t, layer, i == 0, i == 7) for i, layer in enumerate(layers)]
         ops_s, bytes_s = sum(c[0] for c in costs), sum(c[1] for c in costs)
         row = {
-            "case": "main path, 8-layer WN stack", "B": b, "T": t, "launches": 8,
-            "max_abs_err": err, "ms": time_ms(lambda: stack(kernel_layer)),
+            "case": "main path, 8-layer WN stack", "dtype": name, "B": b, "T": t, "launches": 8,
+            "max_abs_err": err, "bf16_ulps_of_scale": ulps,
+            "ms": time_ms(lambda: stack(kernel_layer)),
             "plain_ms": time_ms(lambda: stack(plain_layer)), "library_ms": time_ms(library),
+            "ops_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s,
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         stacks.append(row)
-        log(f"wn_layer 8-layer stack B={b} T={t} (dilations 1..128): max_abs_err={err:.3g} "
-            f"(tol {WN_TOLERANCE}) kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+        tol = (f"{ulps:.3g} bf16 ULPs of scale (tol {BF16_STACK_ULPS})" if bf16
+               else f"(tol {WN_TOLERANCE})")
+        log(f"wn_layer {name} 8-layer stack B={b} T={t} (dilations 1..128): max_abs_err={err:.3g} "
+            f"{tol} kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"cuDNN+cuBLAS products {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, "
             f"{row['bound_share']:.1%} of bound")
     return rows, stacks
@@ -611,6 +695,7 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
         calls_before = engine.generator_calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         start = time.perf_counter()
         results = list(larynx_tpu_torch.text_to_speech(text, device="cuda",
                                                        denoiser_strength=strength, **kwargs))
@@ -636,8 +721,10 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
         audio_s = sum(r.audio.shape[0] for r in results) / 22050
         launches[label] = n_launch
         log(f"main path, {label}: wall {wall:.4f} s, audio {audio_s:.2f} s, RTF {wall / audio_s:.6f}, "
-            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"generator calls {calls}, mrf_section launches {n_launch}")
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above what the "
+            f"cached engines held before the run), generator calls {calls}, mrf_section launches "
+            f"{n_launch}")
 
     # where the time goes: the engine's stages on the same batch, host clock
     # around synchronised work, mean of 3
@@ -750,6 +837,7 @@ def waveglow_path(root: Path, wn_layer, mrf_block, jobs, engine, y_lengths, plan
         calls_before = engine.generator_calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         start = time.perf_counter()
         results = list(larynx_tpu_torch.text_to_speech(text, device="cuda",
                                                        denoiser_strength=strength, **kwargs))
@@ -779,8 +867,9 @@ def waveglow_path(root: Path, wn_layer, mrf_block, jobs, engine, y_lengths, plan
         launches[label] = n_k3
         log(f"waveglow path, {label}: wall {wall:.4f} s, audio {audio_s:.2f} s, "
             f"RTF {wall / audio_s:.6f}, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, vocoder calls {calls}, "
-            f"wn_layer launches {n_k3}")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above what the "
+            f"cached engines held before the run), vocoder calls {calls}, wn_layer launches {n_k3}")
 
     (enc, _g), t_enc = timed(lambda: engine.encode_launch(ids, LENGTH_SCALE))
     (mel, z_mask), t_dec = timed(lambda: engine.decode_launch(enc, y_host, None, n, batch_index=0))
@@ -1134,6 +1223,270 @@ def cli_path(root: Path, mrf_block, engine, n_frames: int, shapes: set):
     return launches
 
 
+def pin_precision(value):
+    """Set (or, for None, clear) the vocoder precision override."""
+    if value is None:
+        os.environ.pop(PRECISION_ENV, None)
+    else:
+        os.environ[PRECISION_ENV] = value
+
+
+def audibly_identical(x, y, where: str, shift_free: bool = False, n_sqz: int = 2,
+                      correlation: float = BF16_CORRELATION):
+    """The JAX package's bar for bf16 audio (correlation > 0.999, RMS level
+    within 1% of full scale) -> the correlation (None if not compared).
+    ``shift_free``: a ``half`` run, whose ceil'd bf16 durations may each
+    move by a frame: lengths within 1% (at least 2 * n_sqz frames) and the
+    level; the correlation bar where the lengths agree."""
+    rms = lambda a: float(np.sqrt(np.mean(a.astype(np.float64) ** 2)))  # noqa: E731
+    limit = max(2 * n_sqz * 256, y.shape[0] // 100)
+    if x.shape != y.shape and not (shift_free and abs(x.shape[0] - y.shape[0]) <= limit):
+        raise AssertionError(f"{where}: shapes {x.shape} vs {y.shape}")
+    if abs(rms(x) - rms(y)) >= BF16_LEVEL:
+        raise AssertionError(f"{where}: RMS {rms(x):.1f} vs {rms(y):.1f}")
+    if x.shape != y.shape:
+        return None
+    corr = float(np.corrcoef(x.astype(np.float64), y.astype(np.float64))[0, 1])
+    if not corr > correlation:
+        raise AssertionError(f"{where}: correlation {corr} (tol > {correlation})")
+    return corr
+
+
+def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
+    """Phase 9: the bf16 paths at full width.  Each path's kernel launches
+    are counted from 0 around its own run; each path's audio is held
+    against its float32 run of the same rows at noise 0.  Adds the (C, B,
+    T) that the stream and the CLI give mrf_section to ``shapes``.  Returns
+    the launches and the measurements."""
+    import io
+
+    import larynx_tpu_torch
+    from larynx_tpu_torch import __main__ as cli
+    from larynx_tpu_torch.io import wavfile
+
+    text = " ".join([PANGRAM] * 8)
+    base = dict(custom_voices_dir=root, no_download=True, voice_or_lang=VOICE)
+    out = {"launches": {}}
+
+    def tts(voc, device="cuda", noise_scale=0.667, precision=None, **kwargs):
+        pin_precision(precision)
+        try:
+            settings = {"length_scale": LENGTH_SCALE, "noise_scale": noise_scale}
+            return [r.audio for r in larynx_tpu_torch.text_to_speech(
+                kwargs.pop("text", text), vocoder_or_quality=voc, device=device,
+                tts_settings=settings, **base, **kwargs)]
+        finally:
+            pin_precision(None)
+
+    def engine(voc, half=False):
+        jobs = larynx_tpu_torch._build_jobs(PANGRAM, VOICE, voc, custom_voices_dir=root,
+                                            no_download=True)
+        return larynx_tpu_torch._get_engine(jobs[0]["tts_model"], jobs[0]["vocoder_model"],
+                                            torch.device("cuda"), half=half)
+
+    # JAX's bf16 leaky-ReLU (F.leaky_relu with the bf16 slope) on the card
+    # as on the CPU, bit for bit
+    from larynx_tpu_torch.models.nn import leaky_relu
+
+    x = (torch.randn(1 << 20, generator=torch.Generator().manual_seed(4)) * 3).to(torch.bfloat16)
+    if not torch.equal(leaky_relu(x.cuda()).cpu(), leaky_relu(x)):
+        raise AssertionError("bf16 leaky_relu: CUDA and CPU round differently")
+
+    per_call = mrf_launches_per_call(engine("high").vocoder_cfg)
+    for label, voc, half in (("HiFi-GAN, CUDA default (bf16 vocoder)", "high", False),
+                             ("WaveGlow, CUDA default (bf16 vocoder)", "waveglow", False),
+                             ("HiFi-GAN, half=True", "high", True)):
+        eng = engine(voc, half)
+        if eng.voc_dtype != torch.bfloat16 or eng.dtype != (torch.bfloat16 if half else
+                                                            torch.float32):
+            raise AssertionError(f"bf16 {label}: engine dtypes {eng.dtype}, {eng.voc_dtype}")
+        tts(voc, half=half, seed=1)  # warm: cuDNN plans, bf16 params on the card
+        tts(voc, half=half, seed=1, denoiser_strength=0.005)  # the bias, in bf16
+        mrf_block.mrf_section.launches = 0
+        wn_layer.fused_wn_layer_state.launches = 0
+        calls_before = eng.generator_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        audios = tts(voc, half=half, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        n_mrf, n_wn = mrf_block.mrf_section.launches, wn_layer.fused_wn_layer_state.launches
+        calls = eng.generator_calls - calls_before
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        run_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        for a, y in zip(audios, y_lengths):
+            if a.dtype != np.int16 or np.abs(a.astype(np.int32)).max() < 1000:
+                raise AssertionError(f"bf16 {label}: {a.dtype} audio, peak {np.abs(a).max()}")
+            if not half and a.shape != (int(y) * 256,):
+                raise AssertionError(f"bf16 {label}: {a.shape}, y_length {y}")
+        if len(audios) != 8 or calls < 1 or (voc == "waveglow" and (
+                n_wn != 96 * calls or calls != len(wg_plan) or n_mrf)) or (
+                voc != "waveglow" and (n_mrf != per_call * calls or n_wn)):
+            raise AssertionError(f"bf16 {label}: {len(audios)} results, {calls} vocoder calls, "
+                                 f"{n_mrf} MRF and {n_wn} WN launches")
+        # against float32 at noise 0 (the WaveGlow prior drawn from one seed)
+        quiet = tts(voc, half=half, seed=1, noise_scale=0.0)
+        full = tts(voc, seed=1, noise_scale=0.0, precision="f32")
+        corrs = [audibly_identical(a, b, f"bf16 {label}, row {i} vs f32", shift_free=half)
+                 for i, (a, b) in enumerate(zip(quiet, full))]
+        audio_s = sum(a.shape[0] for a in audios) / 22050
+        key = "half" if half else voc
+        out["launches"][key] = n_wn if voc == "waveglow" else n_mrf
+        out[key] = {"wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+                    "peak_gib": peak, "run_peak_gib": run_peak, "calls": calls,
+                    "corr_vs_f32": corrs}
+        compared = [c for c in corrs if c is not None]
+        log(f"bf16 path, {label}: wall {wall:.4f} s, audio {audio_s:.2f} s, RTF "
+            f"{wall / audio_s:.6f}, peak device memory {peak:.2f} GiB ({run_peak:.2f} GiB above "
+            f"what the cached engines held before the run), vocoder calls {calls}, "
+            f"MRF launches {n_mrf}, WN launches {n_wn}; against float32 at noise 0: correlation "
+            f"min {min(compared, default=float('nan')):.6f} over {len(compared)} of 8 rows (tol > {BF16_CORRELATION}"
+            f"{'; rows whose bf16 durations moved a frame held to length and level' if half else ''}"
+            f"), level within {BF16_LEVEL:.0f}")
+
+    # half at the float32 durations: bf16 GlowTTS and vocoder, the f32
+    # engine's ceil'd durations, noise 0, against the f32 engine
+    pin_precision("f32")
+    try:
+        e32 = engine("high")
+    finally:
+        pin_precision(None)
+    e16 = engine("high", half=True)
+    ids = [j["ids"] for j in larynx_tpu_torch._build_jobs(text, VOICE, "high",
+                                                           custom_voices_dir=root,
+                                                           no_download=True)]
+    with torch.inference_mode():
+        enc32, _ = e32.encode_launch(ids, LENGTH_SCALE)
+        enc16, _ = e16.encode_launch(ids, LENGTH_SCALE)
+        y = enc32[4].cpu().numpy()
+
+        def at_f32_durations(e, enc):
+            parts, rows = e.synthesize_launch(enc, y, None, len(ids), noise_scale=0.0)
+            return e.crop_rows(e.vocode_collect(parts, rows), y, len(ids), 0.0)
+
+        a16 = at_f32_durations(e16, enc16[:3] + enc32[3:5] + enc16[5:])
+        a32 = at_f32_durations(e32, enc32)
+    corrs = [audibly_identical(a, b, f"bf16 half=True at the f32 durations, row {i}",
+                               correlation=BF16_HALF_CORRELATION)
+             for i, (a, b) in enumerate(zip(a16, a32))]
+    out["half"]["corr_vs_f32_at_f32_durations"] = corrs
+    y16 = enc16[4].cpu().numpy()[: len(ids)]
+    log(f"bf16 path, HiFi-GAN, half=True at the f32 durations, noise 0: correlation min "
+        f"{min(corrs):.6f} (tol > {BF16_HALF_CORRELATION}), level within {BF16_LEVEL:.0f}; "
+        f"bf16 y_lengths {y16.tolist()} against f32 {y[: len(ids)].tolist()}")
+
+    # streams: the CUDA default and half=True, time to first audio after a warm run
+    n_frames = int(y_lengths[0])
+    n_chunks = -(-n_frames // CHUNK_FRAMES)
+    def stream(noise_scale=0.667, **kwargs):
+        settings = {"length_scale": LENGTH_SCALE, "noise_scale": noise_scale}
+        return larynx_tpu_torch.stream_text_to_speech(
+            PANGRAM, vocoder_or_quality="high", device="cuda", tts_settings=settings,
+            seed=STREAM_SEED, **base, **kwargs)
+
+    pin_precision("f32")  # the engine is picked as the stream is read
+    try:
+        full = np.concatenate(list(stream(noise_scale=0.0)))
+    finally:
+        pin_precision(None)
+    for label, half in (("CUDA default (bf16 vocoder)", False), ("half=True", True)):
+
+        list(stream(half=half))
+        mrf_block.mrf_section.launches = 0
+        torch.cuda.synchronize()
+        with recording_mrf_shapes(shapes):
+            start = time.perf_counter()
+            it = stream(half=half)
+            chunks = [next(it)]
+            ttfa = time.perf_counter() - start
+            chunks += list(it)
+            total = time.perf_counter() - start
+        n_launch = mrf_block.mrf_section.launches
+        streamed = np.concatenate(chunks)
+        if n_launch != per_call * len(chunks) or (not half and len(chunks) != n_chunks):
+            raise AssertionError(f"bf16 stream, {label}: {len(chunks)} chunks, {n_launch} MRF "
+                                 "launches")
+        quiet = np.concatenate(list(stream(noise_scale=0.0, half=half)))
+        corr = audibly_identical(quiet, full, f"bf16 stream, {label} vs f32", shift_free=half)
+        key = "stream half" if half else "stream"
+        out["launches"][key] = n_launch
+        out[key] = {"ttfa_ms": 1e3 * ttfa, "total_ms": 1e3 * total, "chunks": len(chunks),
+                    "corr_vs_f32": corr}
+        log(f"bf16 stream, {label}: {streamed.shape[0] // 256} frames in {len(chunks)} chunks, "
+            f"time to first audio {1e3 * ttfa:.3f} ms, whole stream {1e3 * total:.3f} ms, MRF "
+            f"launches {n_launch}; against the float32 stream at noise 0: correlation "
+            f"{'-' if corr is None else f'{corr:.6f}'} (tol > {BF16_CORRELATION}), level within "
+            f"{BF16_LEVEL:.0f}")
+
+    # the CLI with --half, once in process, against the library's half=True call
+    argv = [PANGRAM, "--voice", VOICE, "--voices-dir", str(root), "--quality", "high", "--seed",
+            "7", "--length-scale", str(LENGTH_SCALE), "--no-download", "--half"]
+    ref = tts("high", half=True, seed=7, text=PANGRAM, denoiser_strength=0.005)[0]
+    stdout = sys.stdout
+    sys.stdout = io.TextIOWrapper(io.BytesIO())
+    mrf_block.mrf_section.launches = 0
+    try:
+        with recording_mrf_shapes(shapes):
+            cli.main(argv)
+        sys.stdout.flush()
+        data = sys.stdout.buffer.getvalue()
+    finally:
+        sys.stdout = stdout
+    n_launch = mrf_block.mrf_section.launches
+    rate, audio = wavfile.read(io.BytesIO(data))
+    if rate != 22050 or audio.shape != ref.shape or lsb(audio, ref) > AUDIO_TOLERANCE_LSB or \
+            n_launch != per_call:
+        raise AssertionError(f"bf16 cli --half: rate {rate}, {audio.shape} vs {ref.shape}, "
+                             f"{n_launch} MRF launches")
+    out["launches"]["cli --half"] = n_launch
+    log(f"bf16 cli --half, in process: {audio.shape[0]} samples, {lsb(audio, ref)} LSB from the "
+        f"library's half=True call (tol {AUDIO_TOLERANCE_LSB}), MRF launches {n_launch}")
+
+    # CUDA bf16 against the CPU path in bf16, a small batch at noise 0
+    for voc in ("high", "waveglow/wn_256_sigma0"):
+        small = " ".join(RAGGED[:2])
+        settings = {"noise_scale": 0.0}
+        gpu = [r.audio for r in larynx_tpu_torch.text_to_speech(
+            small, vocoder_or_quality=voc, device="cuda", tts_settings=settings, **base)]
+        start = time.perf_counter()
+        pin_precision("bf16")
+        try:
+            cpu = [r.audio for r in larynx_tpu_torch.text_to_speech(
+                small, vocoder_or_quality=voc, device="cpu", tts_settings=settings, **base)]
+        finally:
+            pin_precision(None)
+        t_cpu = time.perf_counter() - start
+        corrs = [audibly_identical(a, b, f"bf16 CUDA vs CPU, {voc}, row {i}")
+                 for i, (a, b) in enumerate(zip(gpu, cpu))]
+        if len(gpu) != 2 or len(cpu) != 2:
+            raise AssertionError(f"bf16 CUDA vs CPU, {voc}: {len(gpu)}/{len(cpu)} rows")
+        out[f"cuda vs cpu {voc}"] = corrs
+        log(f"bf16 CUDA vs CPU path, {voc}, 2 sentences at noise 0: correlation min "
+            f"{min(corrs):.6f} (tol > {BF16_CORRELATION}), level within {BF16_LEVEL:.0f}, "
+            f"CPU side {t_cpu:.1f} s")
+    log(f"bf16: mrf_section shapes (C, B, T) of the streams and the CLI {sorted(shapes)}")
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, by_path, rows, main_rows, scale=1):
+    """One entry of the kernels line: times summed over the main path's rows
+    (times ``scale``), the bound from their summed operations and bytes."""
+    ops = scale * sum(r["ops_ms"] for r in main_rows)
+    byt = scale * sum(r["bytes_ms"] for r in main_rows)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": scale * sum(r["ms"] for r in main_rows),
+        "plain_ms": scale * sum(r["plain_ms"] for r in main_rows),
+        "bound_ms": max(ops, byt), "bound_by": "operations" if ops > byt else "bytes",
+        "library_ms": scale * sum(r["library_ms"] for r in main_rows),
+        "cases": rows,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -1172,6 +1525,18 @@ def main() -> int:
         log(f"mrf_section: unit (k={k}, d={d}) at C={c}: {rows} input rows, dynamic shared memory "
             f"{got[0]} bytes per block, {got[1]}-stage weight ring, 384 threads, stride "
             f"{mrf_block.unit_stride(k, 2)} rows")
+    log(f"wn_layer bf16: dynamic shared memory {wn_layer._library().wn_layer_smem_bytes_bf16()} "
+        "bytes per block")
+    for c, k, d in ((128, 11, 5), (128, 7, 12), (64, 11, 5), (32, 11, 5), (8, 11, 5)):
+        rows = mrf_block.unit_rows(k, d)
+        got = (mrf_lib.mrf_unit_smem_bytes_bf16(c, rows), mrf_lib.mrf_unit_b_stages_bf16(c, rows))
+        want = (mrf_block.unit_smem_bytes(c, rows, torch.bfloat16),
+                mrf_block.unit_b_stages(c, rows, torch.bfloat16))
+        if got != want:
+            raise AssertionError(f"mrf_section bf16 (C={c}, k={k}, d={d}): kernel smem and ring "
+                                 f"{got}, ops/mrf_block.py mirrors {want}")
+        log(f"mrf_section bf16: unit (k={k}, d={d}) at C={c}: dynamic shared memory {got[0]} bytes "
+            f"per block, {got[1]}-stage weight ring")
 
     # plain references and the main path run in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1179,11 +1544,21 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         stage_voices(Path(tmp))
+        pin_precision("f32")  # phases 2-8: the float32 paths (the CUDA default is bf16)
         jobs, engine, y_lengths, main_cases = plan_main_path(Path(tmp))
         wg_jobs, wg_engine, wg_y, wg_plan, wg_shapes = plan_waveglow_path(Path(tmp))
-        mrf_cases, mrf_units = phase2_mrf_cases(main_cases, stream_cases(engine))
+        stream = stream_cases(engine)
+        mrf_cases, mrf_units = phase2_mrf_cases(main_cases, stream)
         rows = check_mrf(mrf_block, mrf_cases, mrf_units)
         wn_rows, wn_stacks = check_wn(wn_layer, wg_shapes)
+        bf16_cases = list(main_cases) + list(stream) + [
+            ("vctk_medium stage 4 (C=8, inputs padded to 16), 512-frame mel", 8, R1, 8, 131072,
+             False),
+            ("vctk_small stage 1, 512-frame mel", 128, R2, 8, 4096, False),
+            ("ragged T", 128, R1, 2, 1000, False),
+        ]
+        bf16_rows = check_mrf(mrf_block, bf16_cases, dtype=torch.bfloat16)
+        bf16_wn_rows, bf16_wn_stacks = check_wn(wn_layer, wg_shapes, dtype=torch.bfloat16)
         launches = main_path(Path(tmp), mrf_block, jobs, engine, y_lengths)
         wn_launches = waveglow_path(Path(tmp), wn_layer, mrf_block, wg_jobs, wg_engine, wg_y,
                                     wg_plan)
@@ -1195,6 +1570,13 @@ def main() -> int:
                                 path_shapes["cli"])
         # phase 8: the kernel at the shapes phases 6 and 7 gave it
         rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases, path_shapes))
+        # phase 9: the bf16 paths; phase 10: the bf16 kernel at their shapes
+        pin_precision(None)
+        bf16_shapes = set()
+        bf16 = bf16_path(Path(tmp), mrf_block, wn_layer, y_lengths, wg_plan, bf16_shapes)
+        bf16_rows += check_mrf(mrf_block, path_mrf_cases(bf16_cases, {"bf16 stream/cli":
+                                                                      bf16_shapes}),
+                               dtype=torch.bfloat16)
 
     main_rows = [r for r in rows if r["main_path"]]
     kernels = [{
@@ -1245,6 +1627,34 @@ def main() -> int:
     })
     if any(r["bound_by"] != "operations" for r in wn_rows + wn_stacks):
         raise AssertionError("expected the WN layer to be bound by operations")
+
+    # the bf16 instantiations: the same sources and TPU sites; bound_by from
+    # the main rows' summed operations and bytes (small rows may be bound by
+    # bytes at the bf16 peak)
+    bf16_main = [r for r in bf16_rows if r["main_path"]]
+    kernels.append(kernel_entry(
+        "mrf_section (bf16)", "larynx_tpu_torch/csrc/mrf_section.cu",
+        "larynx_tpu/ops/mrf_block.py:272; larynx_tpu/ops/mrf_block.py:382",
+        bf16["launches"]["high"],
+        {"text_to_speech, pangram x8, CUDA default": bf16["launches"]["high"],
+         "text_to_speech, pangram x8, half=True": bf16["launches"]["half"],
+         "stream_text_to_speech, pangram, CUDA default": bf16["launches"]["stream"],
+         "stream_text_to_speech, pangram, half=True": bf16["launches"]["stream half"],
+         "cli --half, pangram WAV": bf16["launches"]["cli --half"]},
+        bf16_rows, bf16_main))
+    bf16_stack_of = {(r["B"], r["T"]): r for r in bf16_wn_stacks}
+    kernels.append(kernel_entry(
+        "wn_layer (bf16)", "larynx_tpu_torch/csrc/wn_layer.cu",
+        "larynx_tpu/ops/wn_layer.py:258; larynx_tpu/ops/wn_layer.py:332",
+        bf16["launches"]["waveglow"],
+        {"text_to_speech, pangram x8, waveglow, CUDA default": bf16["launches"]["waveglow"]},
+        bf16_wn_rows + bf16_wn_stacks,
+        [bf16_stack_of[(rows_g, frames * cfg.upsample_stride // cfg.groups)]
+         for _s, rows_g, frames in wg_plan], scale=cfg.flows))
+    for k in kernels[2:]:
+        log(f"{k['name']}, main path: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, "
+            f"library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}, "
+            f"{k['bound_ms'] / k['ms']:.1%}), launches {k['launches']}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

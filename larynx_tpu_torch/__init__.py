@@ -9,11 +9,14 @@ argument: entry points run on ``cuda`` unless the caller names another
 device, and raise when no GPU is present and none is named.
 
 Ported so far: GlowTTS voices, HiFi-GAN and WaveGlow vocoders from
-``.npz`` voice dirs, float32, consecutive same-voice batching, the
-cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
+``.npz`` voice dirs, consecutive same-voice batching, the cross-request
+``BatchScheduler`` (``scheduler=``), chunked streaming
 (``stream_text_to_speech``, HiFi-GAN) and the CLI (``python -m
-larynx_tpu_torch``).  Griffin-Lim, other model families, interleaved
-batching and bf16 raise ``NotImplementedError``.
+larynx_tpu_torch``).  Precision as in ``larynx_tpu``: the vocoder runs in
+bfloat16 on a CUDA device and in float32 on the CPU
+(``LARYNX_TPU_VOCODER_PRECISION={bf16,f32}`` overrides), and ``half=True``
+runs GlowTTS in bfloat16 too.  Griffin-Lim, other model families and
+interleaved batching raise ``NotImplementedError``.
 """
 
 import logging
@@ -81,10 +84,9 @@ def text_to_speech(
 
     Same arguments as ``larynx_tpu.text_to_speech`` plus ``device``.
     Consecutive sentences of one voice are batched through one engine.
+    ``half`` runs GlowTTS and the vocoder in bfloat16.
     """
     device = resolve_device(device)
-    if half:
-        raise NotImplementedError("bf16 (half=True) is not ported yet")
     if interleaved_batching:
         raise NotImplementedError("interleaved batching is not ported yet")
 
@@ -103,6 +105,7 @@ def text_to_speech(
             seed=seed,
             device=device,
             scheduler=scheduler,
+            half=half,
         )
 
     return results()
@@ -130,12 +133,10 @@ def stream_text_to_speech(
     ``no_download`` and ``device``.  Audio arrives in ``chunk_frames``-mel
     chunks as the vocoder produces them, at fixed gain (no per-utterance
     peak normalisation); SSML pauses become silence chunks and sentence i
-    takes ``seed + i``.  HiFi-GAN only: another vocoder raises
-    ``NotImplementedError``.
+    takes ``seed + i``.  ``half`` runs GlowTTS and the vocoder in bfloat16.
+    HiFi-GAN only: another vocoder raises ``NotImplementedError``.
     """
     device = resolve_device(device)
-    if half:
-        raise NotImplementedError("bf16 (half=True) is not ported yet")
     noise_scale = 0.667
     length_scale = 1.0
     if tts_settings:
@@ -148,7 +149,7 @@ def stream_text_to_speech(
             custom_voices_dir=custom_voices_dir, url_format=url_format, no_download=no_download,
         )
         for index, job in enumerate(jobs):
-            engine = _get_engine(job["tts_model"], job["vocoder_model"], device)
+            engine = _get_engine(job["tts_model"], job["vocoder_model"], device, half=half)
             if engine.vocoder_kind != "hifi_gan":
                 raise NotImplementedError(
                     "streaming a non-HiFi-GAN vocoder (one chunk per sentence through the "
@@ -285,7 +286,7 @@ def _pad_pauses(job, audio):
 
 
 def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch, seed, device,
-              scheduler=None):
+              scheduler=None, half=False):
     """Batch consecutive same-(voice, vocoder) jobs; yield in document order.
 
     With a ``scheduler`` every sentence is submitted to it instead, so
@@ -301,7 +302,7 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
     if scheduler is not None:
         futures = [
             scheduler.submit(
-                _get_engine(job["tts_model"], job["vocoder_model"], device),
+                _get_engine(job["tts_model"], job["vocoder_model"], device, half=half),
                 job["ids"],
                 noise_scale=noise_scale,
                 length_scale=length_scale,
@@ -327,7 +328,8 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
 
     units = []
     for group in groups:
-        engine = _get_engine(jobs[group[0]]["tts_model"], jobs[group[0]]["vocoder_model"], device)
+        engine = _get_engine(jobs[group[0]]["tts_model"], jobs[group[0]]["vocoder_model"], device,
+                             half=half)
         lengths = [len(jobs[i]["ids"]) for i in group]
         for batch in engine.policy.group_by_text_bucket(lengths, max_batch):
             units.append((engine, [group[k] for k in batch]))
@@ -367,21 +369,24 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
 # -----------------------------------------------------------------------------
 # Engine and model caches
 
-_ENGINE_CACHE: typing.Dict[typing.Tuple[int, int, str], typing.Any] = {}
+_ENGINE_CACHE: typing.Dict[typing.Tuple[int, int, str, bool, bool], typing.Any] = {}
 # concurrent requests (threads sharing a scheduler) load each model and
 # build each engine once
 _CACHE_LOCK = threading.RLock()
 
 
-def _get_engine(tts_model, vocoder_model, device):
-    """One engine per (voice params, vocoder params, device)."""
+def _get_engine(tts_model, vocoder_model, device, half: bool = False):
+    """One engine per (voice params, vocoder params, device, precision): the
+    precision is ``half`` and the vocoder's dtype, ``half`` or the default
+    on the device, read at the call."""
     from larynx_tpu_torch.glow_tts import GlowTextToSpeech
     from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
-    from larynx_tpu_torch.runtime.engine import SynthesisEngine
+    from larynx_tpu_torch.runtime.engine import SynthesisEngine, default_vocoder_half
     from larynx_tpu_torch.waveglow import WaveGlowVocoder
 
+    vocoder_half = half or default_vocoder_half(device)
     with _CACHE_LOCK:
-        key = (id(tts_model), id(vocoder_model), str(device))
+        key = (id(tts_model), id(vocoder_model), str(device), half, vocoder_half)
         engine = _ENGINE_CACHE.get(key)
         if engine is None:
             if not isinstance(tts_model, GlowTextToSpeech):
@@ -401,6 +406,8 @@ def _get_engine(tts_model, vocoder_model, device):
                 vocoder_params=vocoder_model.params,
                 vocoder_cfg=vocoder_model.model_config,
                 device=device,
+                half=half,
+                vocoder_half=vocoder_half,
                 **extra,
             )
         return engine

@@ -173,7 +173,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> None:
     from larynx_tpu_torch import stream_text_to_speech, text_to_speech
     from larynx_tpu_torch.io.wavfile import write as wav_write
 
-    # float32 throughout: cuDNN's default would run the convs in TF32
+    # what runs in float32 runs in float32: cuDNN's default would run the convs in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -538,7 +538,7 @@ def get_args(argv: typing.Optional[typing.Sequence[str]] = None):
         help="Accepted for compatibility (--device picks the device)",
     )
     parser.add_argument(
-        "--half", action="store_true", help="bfloat16 vocoder (not ported yet: raises)"
+        "--half", action="store_true", help="Use bfloat16 compute on the GPU"
     )
     parser.add_argument(
         "--optimizations",

@@ -4,7 +4,9 @@ Counterpart of ``larynx_tpu/models/glow_tts/encoder.py``, channels-last
 [B, T, C].  Per-layer params are stacked on a leading axis (as in the
 native checkpoint) and run in a Python loop.  The relative-position logits
 use the same O(T * (2T-1)) pad/reshape skewing as the JAX package.
-Inference only: dropout is omitted.
+Inference only: dropout is omitted.  In bfloat16 (``half``) the attention
+scores, softmax and weighted sums run in float32, as the JAX package's
+einsums accumulate, and return to bfloat16 before the output projection.
 """
 
 import typing
@@ -67,11 +69,15 @@ def multi_head_attention(
     k = heads(p["k_w"], p["k_b"])
     v = heads(p["v_w"], p["v_b"])
 
-    scale = 1.0 / (dk**0.5)
-    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if x.dtype == torch.float32:
+        scale = 1.0 / (dk**0.5)
+    else:  # JAX's 1 / sqrt(dk), both steps in the compute dtype
+        scale = float(1.0 / torch.sqrt(torch.tensor(float(dk), dtype=x.dtype)))
+    q = q.float()
+    scores = torch.matmul(q, k.float().transpose(-1, -2)) * scale
     if window_size is not None:
         rel_k = _pad_relative_embeddings(p["emb_rel_k"], t, window_size)
-        rel_logits = torch.matmul(q, rel_k.t())  # [B, H, T, 2T-1]
+        rel_logits = torch.matmul(q, rel_k.float().t())  # [B, H, T, 2T-1]
         scores = scores + _relative_to_absolute(rel_logits) * scale
 
     scores = torch.where(attn_mask, scores, torch.full_like(scores, ATTN_MASK_VALUE))
@@ -81,12 +87,12 @@ def multi_head_attention(
         scores = torch.where(band, scores, torch.full_like(scores, ATTN_MASK_VALUE))
 
     probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs, v)
+    out = torch.matmul(probs, v.float())
     if window_size is not None:
         rel_v = _pad_relative_embeddings(p["emb_rel_v"], t, window_size)
-        out = out + torch.matmul(_absolute_to_relative(probs), rel_v)
+        out = out + torch.matmul(_absolute_to_relative(probs), rel_v.float())
 
-    out = out.transpose(1, 2).reshape(b, t, c)
+    out = out.to(x.dtype).transpose(1, 2).reshape(b, t, c)
     return matmul1x1(out, p["o_w"], p["o_b"])
 
 

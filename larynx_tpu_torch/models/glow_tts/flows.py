@@ -5,6 +5,8 @@ Counterpart of ``larynx_tpu/models/glow_tts/flows.py``, channels-last
 checkpoint) and the reverse pass walks the blocks last to first.  The WN
 last layer's res half is zero-padded in the params, so every layer has the
 same shape; 1x1 invertible-conv inverses come precomputed in the params.
+Every step runs in the tensors' dtype; in bfloat16 (``half``) the grouped
+invertible 1x1 is computed in float32 and cast back, as in the JAX package.
 """
 
 import typing
@@ -62,7 +64,7 @@ def inv_conv_near_reverse(p: Params, x, mask, n_split: int):
     """Inverse of the invertible 1x1 conv over channel groups."""
     c = x.shape[-1]
     grouped = _group_split(x, n_split)  # [B, T, S, C/S]
-    mixed = torch.einsum("sk,btkc->btsc", p["weight_inv"], grouped)
+    mixed = torch.einsum("sk,btkc->btsc", p["weight_inv"].float(), grouped.float()).to(x.dtype)
     return _group_merge(mixed, c) * mask[..., None]
 
 

@@ -6,7 +6,9 @@
                                  compare, sample, run the reverse flow.
 
 Latent noise is an optional tensor argument; when absent it is drawn from
-an explicit ``torch.Generator``.  Single-speaker voices only.
+an explicit ``torch.Generator``.  Single-speaker voices only.  The params'
+dtype is the compute dtype (bfloat16 with ``half``): the masks and the
+latent noise take it, the duration math stays float32.
 """
 
 import math
@@ -36,7 +38,8 @@ def encode(
     """
     p = params["encoder"]
     t = ids.shape[1]
-    mask = sequence_mask(lengths, t)  # [B, T]
+    # the compute dtype, so that mask products keep bfloat16 params bfloat16
+    mask = sequence_mask(lengths, t, p["emb"].dtype)  # [B, T]
     mask1 = mask[..., None]
 
     x = p["emb"][ids] * math.sqrt(cfg.enc_channels)
@@ -51,7 +54,7 @@ def encode(
         x_logs = matmul1x1(x, p["proj_s_w"], p["proj_s_b"]) * mask1
 
     logw = enc.duration_predictor(p["dp"], x, mask1)[..., 0]  # [B, T]
-    w = torch.exp(logw.float()) * mask * length_scale
+    w = torch.exp(logw.float()) * mask.float() * length_scale
     w_ceil = torch.ceil(w)
     y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1)
     y_lengths = (y_lengths.to(torch.int32) // cfg.n_sqz) * cfg.n_sqz
@@ -75,7 +78,8 @@ def expand_and_decode(
 
     ``mel_max_length`` (M) must be >= max(y_lengths) and a multiple of
     n_sqz.  ``noise`` [B, M, C] is the standard-normal latent noise; when
-    None it is drawn from ``generator``.
+    None it is drawn from ``generator``.  The noise, its scale and the mel
+    mask take x_m's dtype.
     """
     b, t, c = x_m.shape
     m = mel_max_length
@@ -92,11 +96,13 @@ def expand_and_decode(
     z_m = torch.gather(x_m, 1, gather_idx) * valid
     z_logs = torch.gather(x_logs, 1, gather_idx) * valid
 
-    z_mask = sequence_mask(y_lengths, m)  # [B, M]
+    z_mask = sequence_mask(y_lengths, m, x_m.dtype)  # [B, M]
     if noise is None:
         noise = torch.randn(
             (b, m, c), generator=generator, device=x_m.device, dtype=x_m.dtype
         )
+    noise = noise.to(x_m.dtype)
+    noise_scale = torch.as_tensor(noise_scale, dtype=x_m.dtype, device=x_m.device)
     z = (z_m + torch.exp(z_logs) * noise * noise_scale) * z_mask[..., None]
     mel = flows.decoder_reverse(params["decoder"], z, z_mask, cfg)
     return mel, z_mask

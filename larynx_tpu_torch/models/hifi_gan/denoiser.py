@@ -4,7 +4,8 @@ Counterpart of ``larynx_tpu/models/hifi_gan/denoiser.py``: the vocoder's
 bias signature comes from vocoding an 88-frame zero mel; the first STFT
 frame's magnitude of that bias audio, scaled by the strength, is subtracted
 from the output's magnitude, clipped at zero, and the waveform rebuilt with
-the original phase.
+the original phase.  The spectra are float32 whatever the vocoder's dtype:
+bfloat16 audio is widened before its STFT.
 """
 
 import torch
@@ -18,7 +19,7 @@ def compute_bias_spec(
     bias_audio: torch.Tensor, fft_size: int = 1024, hop: int = 256
 ) -> torch.Tensor:
     """bias audio [B, T] -> first-frame magnitude spectrum [B, n_freq, 1]."""
-    mag, _ = dsp.stft_magnitude_phase(bias_audio, fft_size, hop)
+    mag, _ = dsp.stft_magnitude_phase(bias_audio.float(), fft_size, hop)
     return mag[:, :, 0:1]
 
 
@@ -30,6 +31,6 @@ def denoise(
     hop: int = 256,
 ) -> torch.Tensor:
     """audio [B, T]; bias_spec [B or 1, n_freq, 1]; strength scalar or [B, 1, 1]."""
-    mag, phase = dsp.stft_magnitude_phase(audio, fft_size, hop)
+    mag, phase = dsp.stft_magnitude_phase(audio.float(), fft_size, hop)
     mag = torch.clamp(mag - bias_spec * strength, min=0.0)
     return dsp.inverse_magnitude_phase(mag, phase, fft_size, hop)

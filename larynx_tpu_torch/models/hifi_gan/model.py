@@ -11,6 +11,12 @@ Pallas kernels; :func:`pack_params` packs
 their weights once, at load.  Wider stages use plain
 torch convs, as the JAX package uses XLA there.  The upsample is a plain
 transposed conv: the JAX package's packed upsample only fills TPU lanes.
+
+The generator runs in its params' dtype: float32, or bfloat16 (the JAX
+engine's vocoder precision on an accelerator), where stage 1 and the
+transposed convs are bfloat16 torch convs, every leaky-ReLU is JAX's
+bfloat16 one (``models/nn.py``) and the MRF sections run the kernel's
+bfloat16 instantiation.
 """
 
 import typing
@@ -44,8 +50,9 @@ def _resblock2(p: Params, x: torch.Tensor, dilations) -> torch.Tensor:
 
 def pack_params(params: Params, cfg: HiFiGanConfig) -> Params:
     """params plus ``"mrf"``: per stage, the :class:`MRFStage` that
-    ``mrf_section`` takes where C <= 128, else None.  Call once, on the
-    device the generator runs on."""
+    ``mrf_section`` takes where C <= 128, else None, packed in the params'
+    dtype.  Call once, on the device and in the dtype the generator runs
+    in."""
     nk = cfg.num_kernels
     stages = []
     for i, up in enumerate(params["ups"]):
@@ -63,7 +70,7 @@ def pack_params(params: Params, cfg: HiFiGanConfig) -> Params:
 
 def generator(params: Params, cfg: HiFiGanConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel [B, T, num_mels] -> audio [B, T * total_upsample]; ``params``
-    from :func:`pack_params`."""
+    from :func:`pack_params`, mel in their dtype."""
     x = conv1d(mel, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
     nk = cfg.num_kernels
     dilations = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)

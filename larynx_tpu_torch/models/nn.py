@@ -7,6 +7,7 @@ convs ``[C_out, C_in, k]``, transposed convs ``[C_in, C_out, k]`` and 1x1
 projections ``[C_out, C_in]``.
 """
 
+import functools
 import typing
 
 import torch
@@ -59,11 +60,25 @@ def layer_norm(
     return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
 
 
-def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
-    """[B] lengths -> [B, max_length] float32 {0,1} mask."""
+def sequence_mask(
+    lengths: torch.Tensor, max_length: int, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """[B] lengths -> [B, max_length] {0,1} mask of ``dtype``."""
     pos = torch.arange(max_length, device=lengths.device, dtype=lengths.dtype)
-    return (pos[None, :] < lengths[:, None]).to(torch.float32)
+    return (pos[None, :] < lengths[:, None]).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_value(v: float) -> float:
+    """v rounded to the nearest bfloat16 number (0.1 -> 0.10009765625)."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    """x, or x * slope below zero.  In bfloat16 this is JAX's rounding: the
+    slope is a bfloat16 number and the product x * bf16(slope), exact in
+    float32, is rounded to bfloat16 (torch's ``x * 0.1`` would round x *
+    0.1 and differ on ~10% of negative values)."""
+    if x.dtype == torch.bfloat16:
+        return F.leaky_relu(x, bf16_value(slope))
     return torch.where(x >= 0, x, x * slope)

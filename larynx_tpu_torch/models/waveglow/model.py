@@ -15,6 +15,12 @@ Pallas kernel; :func:`pack_params` packs the layers' weights once, at load.
 The start and end 1x1s, the invertible 1x1 and the coupling stay plain
 torch.  The upsampler is a plain transposed conv trimmed to M * stride: the
 JAX package's phased matmul form only works around XLA's lowering.
+
+``infer`` runs in its params' dtype: float32, or bfloat16 (the JAX engine's
+vocoder precision on an accelerator), with the mel, the prior, the WN
+layers (the kernel's bfloat16 instantiation), the coupling's exp(-log_s)
+and the invertible 1x1s' inverses, cast from the float32 ones at load, all
+bfloat16.
 """
 
 import typing
@@ -31,7 +37,8 @@ Params = typing.Dict[str, typing.Any]
 def pack_params(params: Params, cfg: WaveGlowConfig) -> Params:
     """params plus, per flow, ``wn["layers"]``: the :class:`WNLayer` of each
     WN layer, with layer i's rows ``[2ch*i, 2ch*(i+1))`` of the stack's
-    conditioning 1x1.  Call once, on the device the vocoder runs on."""
+    conditioning 1x1, packed in the params' dtype.  Call once, on the device
+    and in the dtype the vocoder runs in."""
     flows = []
     for flow in params["flows"]:
         wn = flow["wn"]
@@ -92,7 +99,7 @@ def infer(
     sigma: float = 1.0,
 ) -> torch.Tensor:
     """mel [B, M, n_mels] -> audio [B, M * upsample_stride]; ``params``
-    from :func:`pack_params`.
+    from :func:`pack_params`, mel and ``z`` in their dtype.
 
     ``z`` ([B, blocks, groups], the forward output layout) is the prior;
     without it, ``sigma * N(0, 1)`` is drawn from ``generator``.

@@ -23,8 +23,16 @@ skip; on the first layer ``skip = s``.
 Weights travel packed (:func:`pack_wn_layer`, once, at load) in a
 :class:`WNLayer`: the torch-layout tensors for the plain version, the folded
 bias, and, where the kernel takes the geometry (ch = 256, cc a multiple of
-32), the kernel's weight stages: exact TF32 hi and lo planes in the wgmma
-operand order that its TMA ring reads (:func:`pack_weights`).
+32 in float32, of 64 in bfloat16), the kernel's weight stages in the wgmma
+operand order that its TMA ring reads (:func:`pack_weights`): exact TF32 hi
+and lo planes for float32, one plane for bfloat16.
+
+Two element types: float32, and bfloat16, the JAX engine's vocoder
+precision on an accelerator.  In bfloat16 the kernel and the plain version
+round where the Pallas kernel does (``larynx_tpu/ops/wn_layer.py:155-195``):
+the products sum in float32, ``bias_a = bf16(b_in + b_cond)``, the gate is
+formed in float32 and rounded before the res/skip product, ``rs + b_rs`` is
+rounded, and so are ``h + rs[..., :ch]`` and ``skip + rs[..., ch:]``.
 """
 
 import ctypes
@@ -37,9 +45,10 @@ import torch.nn.functional as F
 from larynx_tpu_torch.ops.mrf_block import _tf32_split
 
 KERNEL_CHANNELS = 256  # ch the kernel is built for (csrc/wn_layer.cu kCh)
-COND_ALIGN = 32  # cc must be a multiple of the kernel's K chunk
-STAGE_BYTES = 32768  # one weight stage of the kernel's ring (csrc/wn_layer.cu kBStageBytes)
+STAGE_BYTES = 32768  # one weight stage of the kernel's ring, float32 (Geom::kBStageBytes)
+STAGE_BYTES_BF16 = 16384  # ... bfloat16
 CONSUMERS = 2  # consumer warpgroups, each owning a half of every product's columns
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel modes (csrc/wn_layer.cu Mode)
 MODE_RS, MODE_MID, MODE_FIRST, MODE_LAST, MODE_FIRST_LAST = range(5)
@@ -51,7 +60,7 @@ class WNLayer:
     [2ch, cc], ``bias_a`` = b_in + b_cond [2ch], ``w_rs`` [rs_out, ch],
     ``b_rs`` [rs_out]; ``wpack`` the kernel's weight stages of
     [w_in taps; w_cond] and w_rs (:func:`pack_weights`; None where the
-    kernel does not take the geometry)."""
+    kernel does not take the geometry); all in the params' dtype."""
 
     w_in: torch.Tensor
     w_cond: torch.Tensor
@@ -61,25 +70,45 @@ class WNLayer:
     wpack: typing.Optional[torch.Tensor]
 
 
-def kernel_takes(ch: int, cc: int) -> bool:
-    """True when the CUDA kernel is built for this (ch, cc) geometry."""
-    return ch == KERNEL_CHANNELS and cc % COND_ALIGN == 0 and cc > 0
+def cond_align(dtype: torch.dtype = torch.float32) -> int:
+    """The kernel's K chunk, which cc must be a multiple of: 128 bytes of
+    channels (32 float32, 64 bfloat16)."""
+    return 128 // dtype.itemsize
+
+
+def kernel_takes(ch: int, cc: int, dtype: torch.dtype = torch.float32) -> bool:
+    """True when the CUDA kernel is built for this (ch, cc, dtype)."""
+    return (dtype in KERNEL_DTYPES and ch == KERNEL_CHANNELS and cc > 0
+            and cc % cond_align(dtype) == 0)
 
 
 def _stages(w: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """[K, N] -> the kernel's stages of one product, flat f32.  ``cols``
-    [CONSUMERS, n] lists the columns of W that consumer c owns, in its
-    wgmma column order.
+    """[K, N] -> the kernel's stages of one product, flat, in w's dtype.
+    ``cols`` [CONSUMERS, n] lists the columns of W that consumer c owns, in
+    its wgmma column order.
 
-    Order ``[stage][j][c][plane][ngrp][kgrp][r8][k4]``: ``kps`` k-steps of 8
-    rows per stage (as many as fill STAGE_BYTES), plane 0 the TF32 hi and
-    1 the lo of W, element = plane(W[8*(stage*kps + j) + 4*kgrp + k4,
-    cols[c, 8*ngrp + r8]]).  Each (j, c, plane) block is a K-major wgmma B
-    operand without swizzle: core matrices of 8 columns x 4 k (128 bytes),
-    the two k halves adjacent, 8-column groups 256 bytes apart.
+    float32: order ``[stage][j][c][plane][ngrp][kgrp][r8][k4]``: ``kps``
+    k-steps of 8 rows per stage (as many as fill STAGE_BYTES), plane 0 the
+    TF32 hi and 1 the lo of W, element = plane(W[8*(stage*kps + j) + 4*kgrp
+    + k4, cols[c, 8*ngrp + r8]]).  Each (j, c, plane) block is a K-major
+    wgmma B operand without swizzle: core matrices of 8 columns x 16 bytes
+    of k (128 bytes), the two k halves adjacent, 8-column groups 256 bytes
+    apart.
+
+    bfloat16: one plane, k-steps of 16 rows, STAGE_BYTES_BF16 a stage:
+    ``[stage][j][c][ngrp][kgrp][r8][k8]``, element = W[16*(stage*kps + j) +
+    8*kgrp + k8, cols[c, 8*ngrp + r8]].
     """
     k = w.shape[0]
     n = cols.shape[1]
+    if w.dtype == torch.bfloat16:
+        kps = STAGE_BYTES_BF16 // (CONSUMERS * n * 16 * 2)
+        if k % (16 * kps) or n % 8:
+            raise ValueError(f"_stages takes K a multiple of {16 * kps}, got {tuple(w.shape)}")
+        v = w[:, cols.reshape(-1)].contiguous().reshape(k // (16 * kps), kps, 2, 8, CONSUMERS,
+                                                        n // 8, 8)
+        # (stage, j, kgrp, k8, c, ngrp, r8) -> (stage, j, c, ngrp, kgrp, r8, k8)
+        return v.permute(0, 1, 4, 5, 2, 6, 3).contiguous().reshape(-1)
     kps = STAGE_BYTES // (CONSUMERS * 2 * n * 8 * 4)
     if k % (8 * kps) or n % 8:
         raise ValueError(f"_stages takes K a multiple of {8 * kps}, got {tuple(w.shape)}")
@@ -90,7 +119,8 @@ def _stages(w: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights(w_a: torch.Tensor, w_rs: torch.Tensor) -> torch.Tensor:
-    """The kernel's weight stages, flat f32: the first product's W_a [K, 2ch]
+    """The kernel's weight stages, flat, in the weights' dtype: the first
+    product's W_a [K, 2ch]
     (K = 3ch + cc rows, the conv taps for offsets -d, 0, +d then the cond
     1x1) and then the second product's W_rs [ch, rs_out], each in
     :func:`_stages` order.
@@ -119,7 +149,8 @@ def pack_wn_layer(
     rs_w: torch.Tensor,
     rs_b: torch.Tensor,
 ) -> WNLayer:
-    """One layer's torch-layout params -> :class:`WNLayer`, on their device.
+    """One layer's torch-layout params -> :class:`WNLayer`, on their device
+    and in their dtype (bfloat16: ``bias_a`` is the bfloat16 sum).
 
     ``in_w`` [2ch, ch, 3]; ``cond_w`` [2ch, cc] / ``cond_b`` [2ch] are the
     layer's rows of the stack's conditioning 1x1; ``rs_w`` [rs_out, ch].
@@ -127,7 +158,7 @@ def pack_wn_layer(
     two_ch, ch, _k = in_w.shape
     cc = cond_w.shape[-1]
     wpack = None
-    if kernel_takes(ch, cc) and in_w.shape[-1] == 3:
+    if kernel_takes(ch, cc, in_w.dtype) and in_w.shape[-1] == 3:
         taps = [in_w[:, :, tap].t() for tap in range(3)]  # [ch, 2ch] each
         wpack = pack_weights(torch.cat(taps + [cond_w.t()], dim=0), rs_w.t())
     return WNLayer(in_w, cond_w, (in_b + cond_b).contiguous(), rs_w, rs_b, wpack)
@@ -138,6 +169,12 @@ def pack_wn_layer(
 
 
 def _gated(h, cond, w_in, w_cond, bias_a, dilation):
+    """The gate of one layer; bfloat16 inputs run on float32 copies (exact
+    products, float32 sums) and the gate is rounded to bfloat16."""
+    if h.dtype == torch.bfloat16:
+        g = _gated(h.float(), cond.float(), w_in.float(), w_cond.float(), bias_a.float(),
+                   dilation)
+        return g.to(torch.bfloat16)
     k = w_in.shape[-1]
     a = F.conv1d(h.transpose(1, 2), w_in, None, padding=(k - 1) // 2 * dilation,
                  dilation=dilation).transpose(1, 2)
@@ -147,8 +184,12 @@ def _gated(h, cond, w_in, w_cond, bias_a, dilation):
 
 
 def wn_layer_plain(h, cond, w_in, w_cond, bias_a, w_rs, b_rs, dilation: int) -> torch.Tensor:
-    """rs [B, T, rs_out] of one layer, in plain torch."""
-    return F.linear(_gated(h, cond, w_in, w_cond, bias_a, dilation), w_rs, b_rs)
+    """rs [B, T, rs_out] of one layer, in plain torch (bfloat16: the gate
+    and rs + b_rs rounded, the product in float32)."""
+    g = _gated(h, cond, w_in, w_cond, bias_a, dilation)
+    if g.dtype == torch.bfloat16:
+        return F.linear(g.float(), w_rs.float(), b_rs.float()).to(torch.bfloat16)
+    return F.linear(g, w_rs, b_rs)
 
 
 def wn_layer_state_plain(
@@ -156,7 +197,8 @@ def wn_layer_state_plain(
     first: bool = False, last: bool = False,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """(h_new, skip_new) of one layer, in plain torch; ``skip`` is ignored
-    (may be None) when ``first``."""
+    (may be None) when ``first``.  The state adds run in the tensors' dtype
+    (bfloat16: rounded, as torch rounds a bfloat16 sum)."""
     ch = h.shape[-1]
     rs = wn_layer_plain(h, cond, w_in, w_cond, bias_a, w_rs, b_rs, dilation)
     if last:
@@ -176,10 +218,13 @@ def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
             f"h must be [B, T, ch] and cond [B, T, cc], got {tuple(h.shape)}, {tuple(cond.shape)}"
         )
     ch, cc = h.shape[-1], cond.shape[-1]
-    if not kernel_takes(ch, cc):
+    dtype = h.dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"wn_layer kernel takes float32 or bfloat16, h is {dtype}")
+    if not kernel_takes(ch, cc, dtype):
         raise NotImplementedError(
             f"wn_layer kernel takes ch={KERNEL_CHANNELS} and cc a multiple of "
-            f"{COND_ALIGN}, got ch={ch}, cc={cc}"
+            f"{cond_align(dtype)}, got ch={ch}, cc={cc}"
         )
     if layer.wpack is None:
         raise ValueError("the layer was packed without the kernel's weights")
@@ -187,8 +232,6 @@ def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
         raise ValueError(f"rs_out must be {ch} or {2 * ch}, got {rs_out}")
     if dilation < 1:
         raise ValueError(f"dilation must be >= 1, got {dilation}")
-    if layer.wpack.numel() != 2 * ((3 * ch + cc) * 2 * ch + ch * rs_out):
-        raise ValueError("the packed weights do not match the layer's geometry")
     tensors = [("h", h), ("cond", cond), ("wpack", layer.wpack), ("bias_a", layer.bias_a),
                ("b_rs", layer.b_rs)]
     if skip is not None:
@@ -198,22 +241,30 @@ def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
     for name, t in tensors:
         if t.device != h.device:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"wn_layer kernel takes float32, {name} is {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(
+                f"wn_layer kernel takes every tensor float32 or every tensor bfloat16, got h "
+                f"{dtype}, {name} {t.dtype}"
+            )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:  # TMA copies start on 16-byte boundaries
             raise ValueError(f"{name} must be 16-byte aligned")
+    planes = 2 if dtype == torch.float32 else 1
+    if layer.wpack.numel() != planes * ((3 * ch + cc) * 2 * ch + ch * rs_out):
+        raise ValueError("the packed weights do not match the layer's geometry")
 
 
 def _setup(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_layer_f32.restype = i
-    lib.wn_layer_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    for name in ("wn_layer_f32", "wn_layer_bf16"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wn_layer_error_string.restype = ctypes.c_char_p
     lib.wn_layer_error_string.argtypes = [i]
-    lib.wn_layer_smem_bytes.restype = i
-    lib.wn_layer_smem_bytes.argtypes = []
+    for name in ("wn_layer_smem_bytes", "wn_layer_smem_bytes_bf16"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
 
 
 def _library() -> ctypes.CDLL:
@@ -230,8 +281,9 @@ def _launch(lib, mode, h, cond, skip, layer, dilation, h_out, skip_out, rs):
     b, t, _ = h.shape
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    launch = lib.wn_layer_bf16 if h.dtype == torch.bfloat16 else lib.wn_layer_f32
     with torch.cuda.device(h.device):
-        err = lib.wn_layer_f32(
+        err = launch(
             h.data_ptr(), cond.data_ptr(), ptr(skip), layer.wpack.data_ptr(),
             layer.bias_a.data_ptr(), layer.b_rs.data_ptr(), ptr(h_out), ptr(skip_out), ptr(rs),
             b, t, cond.shape[-1], layer.b_rs.numel(),

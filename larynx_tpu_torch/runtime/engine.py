@@ -18,9 +18,18 @@ valid blocks and sliced per group, as there.
 gain (HiFi-GAN only); ``decode_launch(row_seeds=...)`` draws each seeded
 row's latent noise from its own seed, which lets the batch scheduler
 (``runtime/scheduler.py``) put seeded requests in one batch.
+
+Precision, as in the JAX engine: ``half`` runs GlowTTS and the vocoder in
+bfloat16, ``vocoder_half`` the vocoder alone; by default the vocoder is
+bfloat16 on a CUDA device and float32 on the CPU (:func:`default_vocoder_half`).
+The mel is cast to the vocoder's dtype after post-processing, as is
+WaveGlow's prior, and the audio returns to float32 before the denoiser and
+int16.
 """
 
 import logging
+import os
+import threading
 import typing
 
 import numpy as np
@@ -39,7 +48,7 @@ from larynx_tpu_torch.models.waveglow import model as wg_model
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 from larynx_tpu_torch.ops.mrf_block import chain_halo
 from larynx_tpu_torch.runtime.buckets import BucketPolicy
-from larynx_tpu_torch.weights import tree_to
+from larynx_tpu_torch.weights import cast, tree_to
 
 _LOGGER = logging.getLogger("larynx_tpu_torch.engine")
 
@@ -54,6 +63,24 @@ RAMP_MIN_BYTES = 8_000_000
 
 # Mel frames per independently seeded block of per-row noise (row_noise).
 NOISE_BLOCK_FRAMES = 256
+
+
+def default_vocoder_half(device=None) -> bool:
+    """The vocoder's default precision, the JAX engine's contract
+    (``larynx_tpu/runtime/engine.py::default_vocoder_half``) with "TPU
+    backend" read as "CUDA device": bfloat16 on CUDA (the dense bf16
+    tensor-core rate and half the bytes; the tanh-bounded waveform is
+    audibly identical), float32 elsewhere.  ``device`` None means the
+    default device (CUDA when present).
+    ``LARYNX_TPU_VOCODER_PRECISION={bf16,f32}`` overrides."""
+    pref = os.environ.get("LARYNX_TPU_VOCODER_PRECISION", "").lower()
+    if pref in ("bf16", "bfloat16", "half"):
+        return True
+    if pref in ("f32", "float32", "full"):
+        return False
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
 
 
 # Copied from larynx_tpu/runtime/engine.py::stream_halo_frames.
@@ -109,7 +136,11 @@ def to_int16(audio: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
 
 class SynthesisEngine:
     """Parameters and staged inference for one (GlowTTS voice, vocoder) pair;
-    the vocoder is HiFi-GAN or WaveGlow."""
+    the vocoder is HiFi-GAN or WaveGlow.
+
+    ``half`` casts both models to bfloat16; ``vocoder_half`` (None: ``half``
+    or :func:`default_vocoder_half` on the engine's device) the vocoder.
+    ``dtype`` and ``voc_dtype`` are the resulting compute dtypes."""
 
     def __init__(
         self,
@@ -123,6 +154,8 @@ class SynthesisEngine:
         seed: int = 1234,
         waveglow_sigma: float = 0.9,
         device=None,
+        half: bool = False,
+        vocoder_half: typing.Optional[bool] = None,
     ):
         if vocoder_kind not in ("hifi_gan", "waveglow"):
             raise NotImplementedError(f"vocoder {vocoder_kind!r} is not ported yet")
@@ -138,15 +171,25 @@ class SynthesisEngine:
         self.policy = policy or BucketPolicy(n_sqz=glow_cfg.n_sqz)
         self.seed = seed
         self.waveglow_sigma = waveglow_sigma
-        self.glow_params = tree_to(glow_params, self.device)
+        self.half = half
+        self.vocoder_half = (
+            vocoder_half if vocoder_half is not None
+            else (half or default_vocoder_half(self.device))
+        )
+        self.dtype = torch.bfloat16 if half else torch.float32
+        self.voc_dtype = torch.bfloat16 if self.vocoder_half else torch.float32
+        self.glow_params = cast(tree_to(glow_params, self.device), self.dtype)
         if vocoder_kind == "hifi_gan":
             pack = hifi_model.pack_params
             self.upsample, self.num_mels = vocoder_cfg.total_upsample, vocoder_cfg.num_mels
         else:
             pack = wg_model.pack_params
             self.upsample, self.num_mels = vocoder_cfg.upsample_stride, vocoder_cfg.mel_channels
-        self.vocoder_params = pack(tree_to(vocoder_params, self.device), vocoder_cfg)
-        self._bias_spec = None  # lazy denoiser bias
+        self.vocoder_params = pack(
+            cast(tree_to(vocoder_params, self.device), self.voc_dtype), vocoder_cfg
+        )
+        self._bias_spec = None  # lazy denoiser bias, built once under _bias_lock
+        self._bias_lock = threading.Lock()
         self.generator_calls = 0  # vocoder runs (generator or WaveGlow infer), bias included
 
     # ------------------------------------------------------------------
@@ -207,10 +250,13 @@ class SynthesisEngine:
         return torch.stack(rows)
 
     def _generate(self, mel: torch.Tensor, z: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
-        """mel [B, M, C] -> float audio [B, M * upsample]; ``z`` is
-        WaveGlow's prior [B, blocks, groups]."""
+        """mel [B, M, C] -> float32 audio [B, M * upsample]; ``z`` is
+        WaveGlow's prior [B, blocks, groups].  Both are cast to the
+        vocoder's dtype."""
         self.generator_calls += 1
+        mel = mel.to(self.voc_dtype)
         if self.vocoder_kind == "waveglow":
+            z = None if z is None else z.to(self.voc_dtype)
             return wg_model.infer(self.vocoder_params, self.vocoder_cfg, mel, z=z).float()
         return hifi_model.generator(self.vocoder_params, self.vocoder_cfg, mel).float()
 
@@ -304,7 +350,7 @@ class SynthesisEngine:
             (b, blocks_full, cfg.groups), device=self.device,
             generator=self._noise_generator(seed, batch_index, stream=1),
         )
-        valid_blocks = z_mask.sum(dim=1).to(torch.int64) * blocks_per_frame
+        valid_blocks = (z_mask > 0).sum(dim=1) * blocks_per_frame
         inside = torch.arange(blocks_full, device=self.device)[None, :] < valid_blocks[:, None]
         return torch.where(inside[..., None], z_full, 0.0)
 
@@ -312,7 +358,7 @@ class SynthesisEngine:
         """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)]."""
         mel_pp = postprocess(mel, z_mask, self.audio_settings)
         audio = self._generate(mel_pp.transpose(1, 2), z)
-        n_valid = z_mask.sum(dim=1).to(torch.int64) * self.upsample
+        n_valid = (z_mask > 0).sum(dim=1) * self.upsample
         if denoise:
             fft = self.audio_settings.filter_length
             hop = self.audio_settings.hop_length
@@ -416,22 +462,29 @@ class SynthesisEngine:
     @torch.inference_mode()
     def _get_bias_spec(self) -> torch.Tensor:
         """First-frame magnitude of the vocoder's output for an 88-frame zero
-        mel (and, for WaveGlow, a zero prior: sigma 0, NVIDIA's Denoiser mode)."""
+        mel (and, for WaveGlow, a zero prior: sigma 0, NVIDIA's Denoiser mode),
+        from the engine's own vocoder params in its vocoder dtype.  Built
+        once, under a lock: the scheduler's worker and callers on other
+        threads share the engine."""
         if self._bias_spec is None:
-            frames = hifi_denoiser.BIAS_MEL_FRAMES
-            zeros = torch.zeros((1, frames, self.num_mels), device=self.device)
-            z = None
-            if self.vocoder_kind == "waveglow":
-                cfg = self.vocoder_cfg
-                z = torch.zeros(
-                    (1, frames * cfg.upsample_stride // cfg.groups, cfg.groups), device=self.device
-                )
-            self._bias_spec = hifi_denoiser.compute_bias_spec(
-                self._generate(zeros, z),
-                self.audio_settings.filter_length,
-                self.audio_settings.hop_length,
-            )
+            with self._bias_lock:
+                if self._bias_spec is None:
+                    self._bias_spec = self._compute_bias_spec()
         return self._bias_spec
+
+    def _compute_bias_spec(self) -> torch.Tensor:
+        frames = hifi_denoiser.BIAS_MEL_FRAMES
+        zeros = torch.zeros((1, frames, self.num_mels), device=self.device, dtype=self.voc_dtype)
+        z = None
+        if self.vocoder_kind == "waveglow":
+            cfg = self.vocoder_cfg
+            z = torch.zeros((1, frames * cfg.upsample_stride // cfg.groups, cfg.groups),
+                            device=self.device, dtype=self.voc_dtype)
+        return hifi_denoiser.compute_bias_spec(
+            self._generate(zeros, z),
+            self.audio_settings.filter_length,
+            self.audio_settings.hop_length,
+        )
 
     # ------------------------------------------------------------------
     # host side

@@ -96,6 +96,17 @@ def tree_to(tree, device) -> typing.Any:
     return tree.to(device)
 
 
+def cast(tree, dtype: torch.dtype) -> typing.Any:
+    """A parameter tree with its floating tensors in ``dtype`` and its
+    integer tensors as they are, as the JAX engine casts its params for a
+    precision (``larynx_tpu/runtime/engine.py:299-313``)."""
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
 # -----------------------------------------------------------------------------
 # Random init in the native layout
 
