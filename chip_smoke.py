@@ -47,8 +47,23 @@ Phases (any failure exits non-zero):
      in bf16 against the CPU path in bf16 by the same bar.
  10. the bf16 MRF kernel at every shape phase 9 gave it that phase 2's bf16
      rows did not check.
-Phases 2-8 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the CUDA
-default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
+ 11. the HTTP server: ``larynx_tpu_torch.server.create_app`` behind aiohttp's
+     AppRunner on 127.0.0.1 with ``device="cuda"``, in float32: ``/api/tts``
+     (GET, POST) and MaryTTS ``/process`` against ``text_to_speech`` and
+     ``/api/stream`` against ``stream_text_to_speech`` (0 LSB, time to first
+     body byte), ``/api/stream?vocoder=waveglow`` through the unfused
+     fallback against ``WaveGlowVocoder.mels_to_audio`` (0 LSB),
+     ``vocoder=waveglow`` and ``vocoder=griffin_lim`` (spectral
+     convergence), eight concurrent requests in fewer batches
+     (``/api/stats``), the other routes, each path's kernel launches;
+     ``HiFiGanVocoder`` / ``WaveGlowVocoder.mels_to_audio`` (bucketed and
+     chunked) against the engine; Griffin-Lim CUDA against CPU at one
+     injected phase; ``/api/tts`` per-request wall against the library at
+     the CUDA default too; the CLI's ``--daemon --device cuda`` and
+     ``--stop-daemon`` as subprocesses; then both kernels against their
+     plain versions at every shape the phase gave them.
+Phases 2-8 and 11 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
+CUDA default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
 against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
 The MRF rows of phase 2 include the stream path's chunk windows (B=1).
 The last two lines are the kernels JSON and the device JSON.  Needs one
@@ -170,6 +185,9 @@ STREAM_SEED = 5
 CHUNK_FRAMES = 64
 # concurrent requests in the scheduler phase: three batches of max_batch 8
 SCHEDULER_REQUESTS = 24
+# Griffin-Lim through the server: its spectral convergence against the
+# target magnitudes, as a share of a random phase's
+GL_PROGRESS = 0.85
 
 
 def log(*args):
@@ -573,9 +591,18 @@ def check_wn(wn_layer, main_shapes, dtype=torch.float32):
             f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
             f"{row['bound_share']:.1%} of bound")
 
-    # a whole WN stack at each main-path shape: h and skip after 8 layers
+    return rows, wn_stack_rows(wn_layer, main_shapes, gen, dtype, "main path, 8-layer WN stack")
+
+
+def wn_stack_rows(wn_layer, shapes, gen, dtype, label):
+    """A whole WN stack (dilations 1..128) at each (B, T) of ``shapes``: h
+    and skip after 8 layers against the plain version, with times and bound."""
+    import torch.nn.functional as F
+
+    bf16 = dtype == torch.bfloat16
+    name = str(dtype).replace("torch.", "")
     stacks = []
-    for b, t in main_shapes:
+    for b, t in shapes:
         layers = [random_wn_layer(wn_layer, gen, 256 if i == 7 else 512, dtype=dtype)
                   for i in range(8)]
         h0 = (torch.randn((b, t, 256), generator=gen) * 0.1).cuda().to(dtype)
@@ -613,7 +640,7 @@ def check_wn(wn_layer, main_shapes, dtype=torch.float32):
         costs = [wn_cost(b, t, layer, i == 0, i == 7) for i, layer in enumerate(layers)]
         ops_s, bytes_s = sum(c[0] for c in costs), sum(c[1] for c in costs)
         row = {
-            "case": "main path, 8-layer WN stack", "dtype": name, "B": b, "T": t, "launches": 8,
+            "case": label, "dtype": name, "B": b, "T": t, "launches": 8,
             "max_abs_err": err, "bf16_ulps_of_scale": ulps,
             "ms": time_ms(lambda: stack(kernel_layer)),
             "plain_ms": time_ms(lambda: stack(plain_layer)), "library_ms": time_ms(library),
@@ -625,11 +652,11 @@ def check_wn(wn_layer, main_shapes, dtype=torch.float32):
         stacks.append(row)
         tol = (f"{ulps:.3g} bf16 ULPs of scale (tol {BF16_STACK_ULPS})" if bf16
                else f"(tol {WN_TOLERANCE})")
-        log(f"wn_layer {name} 8-layer stack B={b} T={t} (dilations 1..128): max_abs_err={err:.3g} "
+        log(f"wn_layer {name} {label} B={b} T={t} (dilations 1..128): max_abs_err={err:.3g} "
             f"{tol} kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"cuDNN+cuBLAS products {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, "
             f"{row['bound_share']:.1%} of bound")
-    return rows, stacks
+    return stacks
 
 
 def mrf_launches_per_call(cfg) -> int:
@@ -1470,6 +1497,556 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
     return out
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ServedApp:
+    """The port's ``create_app`` behind aiohttp's ``AppRunner`` on 127.0.0.1
+    at a free port, its event loop in a thread of its own; requests go over
+    HTTP from the caller's threads, and synthesis runs in the app's
+    executor and scheduler threads."""
+
+    def __init__(self, settings):
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        from larynx_tpu_torch.server.app import create_app
+
+        self.port = free_port()
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.app = create_app(settings)
+        self.runner = web.AppRunner(self.app)
+        self._run(self.runner.setup())
+        self._run(web.TCPSite(self.runner, "127.0.0.1", self.port).start())
+
+    def _run(self, coro):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout=120)
+
+    def close(self):
+        self._run(self.runner.cleanup())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=60)
+
+    def open(self, path, data=None, **params):
+        """The response of GET (POST with ``data``) ``path?params``; fails on
+        a status other than 200."""
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.port}{path}"
+        if params:
+            url += "?" + urllib.parse.urlencode(params)
+        try:
+            return urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=900)
+        except urllib.error.HTTPError as err:
+            raise AssertionError(f"{path}: HTTP {err.code}: {err.read()[:2000]!r}") from None
+
+    def body(self, path, data=None, **params) -> bytes:
+        with self.open(path, data, **params) as resp:
+            if resp.status != 200:
+                raise AssertionError(f"{path}: HTTP {resp.status}")
+            return resp.read()
+
+    def wav(self, path, data=None, **params) -> np.ndarray:
+        import io
+
+        from larynx_tpu_torch.io import wavfile
+
+        rate, audio = wavfile.read(io.BytesIO(self.body(path, data, **params)))
+        if rate != 22050 or audio.dtype != np.int16:
+            raise AssertionError(f"{path}: {rate} Hz {audio.dtype}")
+        return audio
+
+
+@contextlib.contextmanager
+def recording_wn_shapes(shapes: set):
+    """While open, add the (B, T) of every WN layer call that WaveGlow's
+    ``infer`` makes, from any thread, to ``shapes``."""
+    from larynx_tpu_torch.models.waveglow import model as wg_model
+
+    layer = wg_model.fused_wn_layer_state
+
+    def recorded(h, *args, **kwargs):
+        shapes.add((h.shape[0], h.shape[1]))
+        return layer(h, *args, **kwargs)
+
+    wg_model.fused_wn_layer_state = recorded
+    try:
+        yield shapes
+    finally:
+        wg_model.fused_wn_layer_state = layer
+
+
+def spectral_convergence(audio, target, fft=1024, hop=256) -> float:
+    """Gain-invariant spectral convergence of float audio [T] against linear
+    magnitudes [n_freq, frames]: ||a |STFT| - target|| / ||target|| at the
+    best gain a (peak normalisation and the un-normalised overlap-add scale
+    the waveform)."""
+    from larynx_tpu_torch.dsp.stft import stft_magnitude_phase
+
+    mag, _ = stft_magnitude_phase(torch.as_tensor(audio, dtype=torch.float32)[None].cpu(), fft, hop)
+    mag, ref = mag[0].double(), torch.as_tensor(target).double().cpu()
+    n = min(mag.shape[-1], ref.shape[-1])
+    mag, ref = mag[:, :n], ref[:, :n]
+    alpha = (mag * ref).sum() / (mag * mag).sum()
+    return float(torch.linalg.norm(alpha * mag - ref) / torch.linalg.norm(ref))
+
+
+def correlation(a, b) -> float:
+    return float(np.corrcoef(np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel())[0, 1])
+
+
+def pid_running(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: set,
+                wn_shapes: set):
+    """Phase 11: the port's HTTP server on the card, float32, on the staged
+    full-width voices, each route against the library call it wraps; the
+    scheduler through the server; the per-model surfaces against the
+    engine; Griffin-Lim CUDA against CPU; the CLI's daemon.  Adds the (C, B,
+    T) and (B, T) that the server's paths give the two kernels to the shape
+    sets.  Returns the launches and the measurements."""
+    import threading
+
+    import larynx_tpu_torch
+    import larynx_tpu_torch.dsp.mel as dspmel
+    import larynx_tpu_torch.dsp.stft as dsp
+    from larynx_tpu_torch.runtime import engine as engine_module
+    from larynx_tpu_torch.runtime.engine import postprocess
+    from larynx_tpu_torch.server.app import ServerSettings
+
+    strength = 0.005  # the server's default denoiser strength
+    quiet = {"noise_scale": 0.0, "length_scale": LENGTH_SCALE}
+    lib = dict(voice_or_lang=VOICE, custom_voices_dir=root, no_download=True, device="cuda",
+               denoiser_strength=strength, tts_settings=quiet)
+    per_call = mrf_launches_per_call(engine.vocoder_cfg)
+    out = {"launches": {}, "ms": {}}
+
+    # Griffin-Lim's voice: the random weights' normalised mels fill the clip
+    # range [-1, 1], which spec_gain 1 maps to amplitudes up to 1e20 whose
+    # squares overflow float32 (in the JAX package too; a trained voice stays
+    # far below); the same weights at spec_gain 20 give amplitudes under 10
+    gl_voice = "en-us_harvard_gl-glow_tts"
+    gl_dir = root / "en-us" / "harvard_gl-glow_tts"
+    gl_dir.mkdir(exist_ok=True)
+    config = json.loads((root / "en-us" / "harvard-glow_tts" / "config.json").read_text())
+    config["audio"]["spec_gain"] = 20.0
+    (gl_dir / "config.json").write_text(json.dumps(config))
+    for name in ("phonemes.txt", "generator.npz"):
+        if not (gl_dir / name).exists():
+            (gl_dir / name).symlink_to(root / "en-us" / "harvard-glow_tts" / name)
+
+    def library(text, vocoder="high", voice=VOICE):
+        return np.concatenate([r.audio for r in larynx_tpu_torch.text_to_speech(
+            text, vocoder_or_quality=vocoder, vocoder_settings={"denoiser_strength": strength},
+            **dict(lib, voice_or_lang=voice))])
+
+    # the server's defaults are this phase's settings: noise 0, LENGTH_SCALE,
+    # so /process (which takes no settings) is comparable
+    server = ServedApp(ServerSettings(voices_dir=str(root), quality="high", noise_scale=0.0,
+                                      length_scale=LENGTH_SCALE, device="cuda"))
+    try:
+        with recording_mrf_shapes(mrf_shapes), recording_wn_shapes(wn_shapes):
+            # /api/tts GET and POST against text_to_speech, and /process
+            server.wav("/api/tts", voice=VOICE, text=PANGRAM)  # warm: the server's threads
+            mrf_block.mrf_section.launches = 0
+            calls = engine.generator_calls
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = server.wav("/api/tts", voice=VOICE, text=PANGRAM)
+            out["ms"]["server /api/tts f32"] = 1e3 * (time.perf_counter() - start)
+            n_launch, calls = mrf_block.mrf_section.launches, engine.generator_calls - calls
+            if calls < 1 or n_launch != per_call * calls:
+                raise AssertionError(f"server /api/tts: {n_launch} MRF launches for {calls} "
+                                     f"generator calls")
+            out["launches"]["server /api/tts, pangram"] = n_launch
+            start = time.perf_counter()
+            want = library(PANGRAM)
+            out["ms"]["library text_to_speech f32"] = 1e3 * (time.perf_counter() - start)
+            posted = server.wav("/api/tts", data=PANGRAM.encode(), voice=VOICE)
+            mary = server.wav("/process", INPUT_TEXT=PANGRAM, VOICE=f"{VOICE};high")
+            mary_post = server.wav("/process", data=urllib_form(INPUT_TEXT=PANGRAM,
+                                                                VOICE=f"{VOICE};high"))
+            for label, audio in (("GET /api/tts", got), ("POST /api/tts", posted),
+                                 ("GET /process", mary), ("POST /process", mary_post)):
+                if audio.shape != want.shape or lsb(audio, want) != 0 or \
+                        np.abs(want.astype(np.int32)).max() < 1000:
+                    raise AssertionError(f"server {label}: {audio.shape} vs the library's "
+                                         f"{want.shape}, {lsb(audio, want) if audio.shape == want.shape else '-'} LSB")
+            log(f"server /api/tts (GET, POST) and /process (GET, POST), pangram at noise 0: "
+                f"{want.shape[0]} samples, 0 LSB from text_to_speech; one request "
+                f"{out['ms']['server /api/tts f32']:.3f} ms wall against the library call's "
+                f"{out['ms']['library text_to_speech f32']:.3f} ms; MRF launches {n_launch} "
+                f"({calls} generator call(s), {per_call} each)")
+
+            # /api/stream (HiFi-GAN) against stream_text_to_speech: time to first body byte
+            stream_args = dict(lib, vocoder_or_quality="high")
+            list(larynx_tpu_torch.stream_text_to_speech(PANGRAM, **stream_args))
+            start = time.perf_counter()
+            it = larynx_tpu_torch.stream_text_to_speech(PANGRAM, **stream_args)
+            chunks = [next(it)]
+            lib_ttfa = time.perf_counter() - start
+            chunks += list(it)
+            want = np.concatenate(chunks)
+            server.body("/api/stream", voice=VOICE, text=PANGRAM)  # warm
+            mrf_block.mrf_section.launches = 0
+            start = time.perf_counter()
+            with server.open("/api/stream", voice=VOICE, text=PANGRAM) as resp:
+                header = resp.read(44)
+                first = resp.read(2)
+                ttfb = time.perf_counter() - start
+                body = first + resp.read()
+            total = time.perf_counter() - start
+            n_launch = mrf_block.mrf_section.launches
+            got = np.frombuffer(body, dtype=np.int16)
+            if header[:4] != b"RIFF" or got.shape != want.shape or lsb(got, want) != 0:
+                raise AssertionError(f"server /api/stream: {got.shape} vs {want.shape}")
+            if n_launch != per_call * len(chunks):
+                raise AssertionError(f"server /api/stream: {n_launch} MRF launches for "
+                                     f"{len(chunks)} chunks")
+            out["launches"]["server /api/stream, pangram"] = n_launch
+            out["ms"]["server /api/stream first byte"] = 1e3 * ttfb
+            out["ms"]["library stream first chunk"] = 1e3 * lib_ttfa
+            log(f"server /api/stream, pangram: {len(chunks)} chunks, 0 LSB from "
+                f"stream_text_to_speech; time to first body byte {1e3 * ttfb:.3f} ms (the "
+                f"library's time to first audio {1e3 * lib_ttfa:.3f} ms), whole stream "
+                f"{1e3 * total:.3f} ms, MRF launches {n_launch}")
+
+            # /api/stream with WaveGlow: one chunk per sentence through the
+            # fallback, against WaveGlowVocoder.mels_to_audio on the same mels.
+            # Bit for bit needs cuDNN's deterministic algorithms: by default
+            # two runs of this path on one card differ by an LSB, so the
+            # run-to-run difference is printed beside it
+            voc = "waveglow/wn_256_sigma0"
+            text2 = f"{RAGGED[0]} {RAGGED[2]}"
+            jobs = larynx_tpu_torch._build_jobs(text2, VOICE, voc, custom_voices_dir=root,
+                                                no_download=True)
+
+            def reference():
+                parts = []
+                for job in jobs:
+                    mels = job["tts_model"].phonemes_to_mels(job["ids"], settings=quiet,
+                                                             device="cuda")
+                    s = job["audio_settings"]
+                    mels = s.dynamic_range_compression(s.db_to_amp(s.denormalize(mels)))
+                    parts.append(job["vocoder_model"].mels_to_audio(
+                        mels, settings={"denoiser_strength": strength}, device="cuda"))
+                return parts
+
+            default_runs = [np.concatenate(reference()) for _ in range(2)]
+            torch.backends.cudnn.deterministic = True
+            try:
+                server.body("/api/stream", voice=VOICE, text=text2, vocoder=voc)  # warm
+                wn_layer.fused_wn_layer_state.launches = 0
+                mrf_block.mrf_section.launches = 0
+                start = time.perf_counter()
+                got = np.frombuffer(server.body("/api/stream", voice=VOICE, text=text2,
+                                                vocoder=voc)[44:], dtype=np.int16)
+                wg_stream_ms = 1e3 * (time.perf_counter() - start)
+                n_wn = wn_layer.fused_wn_layer_state.launches
+                parts = reference()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            want = np.concatenate(parts)
+            if len(jobs) != 2 or got.shape != want.shape or lsb(got, want) != 0:
+                diff = lsb(got, want) if got.shape == want.shape else "-"
+                raise AssertionError(f"server /api/stream waveglow: {got.shape} vs "
+                                     f"{want.shape} over {len(jobs)} sentences, {diff} LSB; two "
+                                     f"default runs {lsb(*default_runs)} LSB apart")
+            if n_wn != 96 * len(jobs) or mrf_block.mrf_section.launches:
+                raise AssertionError(f"server /api/stream waveglow: {n_wn} WN launches")
+            out["launches"]["server /api/stream?vocoder=waveglow (fallback), 2 sentences"] = n_wn
+            out["ms"]["server /api/stream waveglow"] = wg_stream_ms
+            log(f"server /api/stream?vocoder={voc}, 2 sentences: one chunk per sentence "
+                f"({[len(p) for p in parts]} samples), 0 LSB from WaveGlowVocoder.mels_to_audio "
+                f"on the sentences' phonemes_to_mels (cuDNN deterministic; two runs of the "
+                f"reference at cuDNN's defaults {lsb(*default_runs)} LSB apart, "
+                f"{np.mean(default_runs[0] != default_runs[1]):.2e} of samples); "
+                f"{wg_stream_ms:.3f} ms wall, WN launches {n_wn} (96 per sentence)")
+
+            # /api/tts with WaveGlow through the engine
+            server.wav("/api/tts", voice=VOICE, text=PANGRAM, vocoder="waveglow")  # warm
+            wn_layer.fused_wn_layer_state.launches = 0
+            calls = wg_engine.generator_calls
+            audio = server.wav("/api/tts", voice=VOICE, text=PANGRAM, vocoder="waveglow")
+            n_wn, calls = wn_layer.fused_wn_layer_state.launches, wg_engine.generator_calls - calls
+            if calls < 1 or n_wn != 96 * calls or np.abs(audio.astype(np.int32)).max() < 1000:
+                raise AssertionError(f"server /api/tts waveglow: {n_wn} WN launches, {calls} calls")
+            out["launches"]["server /api/tts?vocoder=waveglow, pangram"] = n_wn
+            log(f"server /api/tts?vocoder=waveglow, pangram: {audio.shape[0]} samples, WN "
+                f"launches {n_wn} ({calls} group call(s), 96 each)")
+
+            # /api/tts with Griffin-Lim: spectral convergence against the target
+            gl_audio = server.wav("/api/tts", voice=gl_voice, text=PANGRAM, vocoder="griffin_lim")
+            gl_jobs = larynx_tpu_torch._build_jobs(PANGRAM, gl_voice, "griffin_lim",
+                                                   custom_voices_dir=root, no_download=True)
+            gl_engine = larynx_tpu_torch._get_engine(gl_jobs[0]["tts_model"],
+                                                     gl_jobs[0]["vocoder_model"],
+                                                     torch.device("cuda"))
+            with torch.inference_mode():
+                enc, _g = gl_engine.encode_launch([gl_jobs[0]["ids"]], LENGTH_SCALE)
+                y = enc[4].cpu().numpy()
+                mel, mask = gl_engine.decode_launch(enc, y, None, 1, noise_scale=0.0)
+                frames = int(y[0])
+                target = dspmel.linear_from_mel(postprocess(mel, mask, gl_engine.audio_settings),
+                                                gl_engine._gl_basis, 1000.0)[:, :, : frames - 1]
+            gen = torch.Generator().manual_seed(11)
+            phase = (2 * np.pi * torch.rand(target.shape, generator=gen)).cuda()
+            start_signal = dsp.inverse_magnitude_phase(target, phase)[0]
+            sc = spectral_convergence(gl_audio.astype(np.float32), target[0])
+            sc0 = spectral_convergence(start_signal, target[0])
+            # random weights give magnitudes that no signal has exactly (on the
+            # CPU test voice 60 iterations go from 0.70 to 0.52): the bar is
+            # that Griffin-Lim got a good part of the way
+            if gl_audio.shape != ((frames - 1) * 256 + 1024,) or not sc < GL_PROGRESS * sc0:
+                raise AssertionError(f"server /api/tts griffin_lim: {gl_audio.shape}, spectral "
+                                     f"convergence {sc} against {sc0} at its random start")
+            out["griffin_lim spectral convergence"] = sc
+            log(f"server /api/tts?vocoder=griffin_lim, pangram (spec_gain 20 voice): "
+                f"{gl_audio.shape[0]} samples, spectral convergence {sc:.4f} against the target "
+                f"magnitudes ({sc0:.4f} from a random phase; bar: under {GL_PROGRESS} of it)")
+
+            # Griffin-Lim CUDA against CPU at one injected phase, 60 Fast-GL iterations
+            gl = lambda mag, ph: dsp.griffin_lim(mag, None, 1024, 256, 60,  # noqa: E731
+                                                 initial_phase=ph, momentum=0.99)
+            with torch.inference_mode():
+                gl_cuda, t_gl = timed(lambda: gl(target, phase))
+                gl_cpu = gl(target.cpu(), phase.cpu())
+            sc_cuda = spectral_convergence(gl_cuda[0], target[0])
+            sc_cpu = spectral_convergence(gl_cpu[0], target[0])
+            corr = correlation(gl_cuda.cpu(), gl_cpu)
+            if not abs(sc_cuda - sc_cpu) <= 0.01 * sc_cpu or not corr > 0.99:
+                raise AssertionError(f"griffin_lim CUDA vs CPU: spectral convergence {sc_cuda} "
+                                     f"vs {sc_cpu}, correlation {corr}")
+            gl_rtf = t_gl / 1e3 / (gl_cuda.shape[-1] / 22050)
+            out["griffin_lim rtf"] = gl_rtf
+            out["ms"]["griffin_lim 60 iterations"] = t_gl
+            log(f"griffin_lim CUDA vs CPU, pangram magnitudes [513, {frames - 1}], injected "
+                f"phase, momentum 0.99, 60 iterations: spectral convergence {sc_cuda:.6f} vs "
+                f"{sc_cpu:.6f} (tol 1% relative), correlation {corr:.6f} (tol > 0.99); CUDA "
+                f"{t_gl:.3f} ms, RTF {gl_rtf:.6f}")
+
+            # the scheduler through the server: eight concurrent requests
+            before = json.loads(server.body("/api/stats"))
+            mrf_block.mrf_section.launches = 0
+            calls = engine.generator_calls
+            barrier = threading.Barrier(len(SHORT_SENTENCES))
+            results = {}
+
+            def request(i):
+                barrier.wait()
+                results[i] = server.wav("/api/tts", voice=VOICE, text=SHORT_SENTENCES[i])
+
+            threads = [threading.Thread(target=request, args=(i,))
+                       for i in range(len(SHORT_SENTENCES))]
+            start = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - start
+            stats = json.loads(server.body("/api/stats"))
+            n_launch, calls = mrf_block.mrf_section.launches, engine.generator_calls - calls
+            batches = stats["batches_run"] - before["batches_run"]
+            sentences = stats["sentences_run"] - before["sentences_run"]
+            if len(results) != 8 or sentences != 8 or not batches < 8 or \
+                    n_launch != per_call * calls:
+                raise AssertionError(f"server, 8 concurrent requests: {len(results)} results, "
+                                     f"{sentences} sentences in {batches} batches, {n_launch} "
+                                     f"MRF launches for {calls} generator calls")
+            out["launches"]["server, 8 concurrent /api/tts"] = n_launch
+            out["ms"]["server 8 concurrent /api/tts"] = 1e3 * wall
+            log(f"server, 8 concurrent /api/tts from threads: {sentences} sentences in "
+                f"{batches} batches (/api/stats), {calls} generator calls, MRF launches "
+                f"{n_launch}, wall {1e3 * wall:.3f} ms; engines {sorted(stats['engines'])}")
+
+            for path, params in (("/api/voices", {}), ("/api/vocoders", {}),
+                                 ("/api/phonemes", {"language": "en-us"}),
+                                 ("/openapi/swagger.json", {})):
+                json.loads(server.body(path, **params))
+            log("server /api/voices, /api/vocoders, /api/phonemes, /openapi/swagger.json: 200")
+
+            # the per-model surfaces against the engine, on the pangram's mel
+            job = larynx_tpu_torch._build_jobs(PANGRAM, VOICE, "high", custom_voices_dir=root,
+                                               no_download=True)[0]
+            hifi = job["vocoder_model"]
+            with torch.inference_mode():
+                enc, _g = engine.encode_launch([job["ids"]], LENGTH_SCALE)
+                y = enc[4].cpu().numpy()
+                mel, mask = engine.decode_launch(enc, y, None, 1, noise_scale=0.0)
+                frames = int(y[0])
+                mel_np = postprocess(mel, mask, engine.audio_settings)[:, :, :frames].cpu().numpy()
+            hifi.maybe_init_denoiser("cuda")  # its bias: one generator call, built once
+            rows = {}
+            for d in (0.0, strength):
+                parts = engine.vocode_launch(mel, mask, 1, d, y_lengths=y)
+                want = engine.crop_rows(engine.vocode_collect(parts, 1), y, 1, d)[0]
+                mrf_block.mrf_section.launches = 0
+                got = hifi.mels_to_audio(mel_np, settings={"denoiser_strength": d},
+                                         device="cuda")
+                n_launch = mrf_block.mrf_section.launches
+                # with the denoiser the engine's STFT runs past the mel's end
+                # and the model's stops there: samples from frames that both
+                # computed, the first (n - 1) hops
+                common = dsp.num_frames(frames * 256, 1024, 256) * 256 if d else want.shape[0]
+                if got.shape != want.shape or lsb(got[:common], want[:common]) > \
+                        AUDIO_TOLERANCE_LSB or n_launch != per_call:
+                    raise AssertionError(f"HiFiGanVocoder.mels_to_audio (denoiser {d}): "
+                                         f"{got.shape} vs {want.shape}, {n_launch} launches")
+                rows[d] = lsb(got[:common], want[:common])
+            out["launches"]["HiFiGanVocoder.mels_to_audio, one sentence"] = n_launch
+            log(f"HiFiGanVocoder.mels_to_audio, {frames} frames: from the engine's audio "
+                f"{rows[0.0]} LSB, with the denoiser {rows[strength]} LSB over the first "
+                f"{common} samples (tol {AUDIO_TOLERANCE_LSB}), MRF launches {n_launch}")
+
+            wg_jobs = larynx_tpu_torch._build_jobs(PANGRAM, VOICE, voc, custom_voices_dir=root,
+                                                   no_download=True)
+            waveglow = wg_jobs[0]["vocoder_model"]
+            wg_sigma0 = larynx_tpu_torch._get_engine(wg_jobs[0]["tts_model"], waveglow,
+                                                     torch.device("cuda"))
+            parts = wg_sigma0.vocode_launch(mel, mask, 1, 0.0, y_lengths=y)
+            want = wg_sigma0.crop_rows(wg_sigma0.vocode_collect(parts, 1), y, 1, 0.0)[0]
+            wn_layer.fused_wn_layer_state.launches = 0
+            got = waveglow.mels_to_audio(mel_np, settings={"denoiser_strength": 0.0},
+                                         device="cuda")
+            n_wn = wn_layer.fused_wn_layer_state.launches
+            if got.shape != want.shape or lsb(got, want) > AUDIO_TOLERANCE_LSB or n_wn != 96:
+                raise AssertionError(f"WaveGlowVocoder.mels_to_audio: {got.shape} vs "
+                                     f"{want.shape}, {n_wn} WN launches")
+            out["launches"]["WaveGlowVocoder.mels_to_audio, one sentence"] = n_wn
+            bucketed = got
+            area = engine_module.MAX_VOCODE_AREA
+            engine_module.MAX_VOCODE_AREA = 1024  # a 256-frame cap, as the env var would set
+            try:
+                wn_layer.fused_wn_layer_state.launches = 0
+                chunked = waveglow.mels_to_audio(mel_np, settings={"denoiser_strength": 0.0},
+                                                 device="cuda")
+                n_chunked = wn_layer.fused_wn_layer_state.launches
+            finally:
+                engine_module.MAX_VOCODE_AREA = area
+            wg_halo = waveglow._halo_frames()
+            n_chunks = -(-frames // 256)
+            inner = slice(0, (frames - wg_halo) * 256)  # the utterance's end: other buckets
+            if n_chunks < 2 or chunked.shape != bucketed.shape or \
+                    lsb(chunked[inner], bucketed[inner]) > AUDIO_TOLERANCE_LSB or \
+                    n_chunked != 96 * n_chunks:
+                raise AssertionError(f"WaveGlowVocoder.mels_to_audio chunked: {n_chunks} chunks, "
+                                     f"{chunked.shape}, {n_chunked} WN launches")
+            out["launches"]["WaveGlowVocoder.mels_to_audio, chunked"] = n_chunked
+            log(f"WaveGlowVocoder.mels_to_audio (sigma 0), {frames} frames: from the engine's "
+                f"audio {lsb(got, want)} LSB (tol {AUDIO_TOLERANCE_LSB}), WN launches {n_wn}; "
+                f"chunked at a 256-frame cap ({n_chunks} chunks, halo {wg_halo} frames) against "
+                f"the bucketed call {lsb(chunked[inner], bucketed[inner])} LSB over its first "
+                f"{inner.stop} samples, WN launches {n_chunked}")
+
+        # the server at the CUDA default (bf16 vocoder) against the library
+        pin_precision(None)
+        try:
+            server.wav("/api/tts", voice=VOICE, text=PANGRAM)
+            library(PANGRAM)
+            walls = {"server": [], "library": []}
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                got = server.wav("/api/tts", voice=VOICE, text=PANGRAM)
+                walls["server"].append(time.perf_counter() - start)
+                start = time.perf_counter()
+                want = library(PANGRAM)
+                walls["library"].append(time.perf_counter() - start)
+            if lsb(got, want) != 0:
+                raise AssertionError(f"server /api/tts bf16: {lsb(got, want)} LSB from the library")
+        finally:
+            pin_precision("f32")
+        out["ms"]["server /api/tts bf16"] = 1e3 * float(np.mean(walls["server"]))
+        out["ms"]["library text_to_speech bf16"] = 1e3 * float(np.mean(walls["library"]))
+        log(f"server /api/tts at the CUDA default (bf16 vocoder), pangram: "
+            f"{out['ms']['server /api/tts bf16']:.3f} ms wall per request against the library "
+            f"call's {out['ms']['library text_to_speech bf16']:.3f} ms (mean of 3), 0 LSB")
+    finally:
+        server.close()
+
+    out["daemon"] = daemon_path(root, PANGRAM, quiet, strength, mary)
+    log(f"server: mrf_section shapes (C, B, T) {sorted(mrf_shapes)}, wn_layer shapes (B, T) "
+        f"{sorted(wn_shapes)}")
+    return out
+
+
+def urllib_form(**fields) -> bytes:
+    import urllib.parse
+
+    return urllib.parse.urlencode(fields).encode()
+
+
+def daemon_path(root: Path, text, quiet, strength, served) -> str:
+    """The CLI's --daemon from the checkout root as a subprocess: it starts
+    the port's server on the card, returns a WAV equal to the in-process
+    server's ``served`` audio, and --stop-daemon stops it."""
+    import io
+
+    from larynx_tpu_torch.io import wavfile
+
+    here = Path(__file__).resolve().parent
+    port = free_port()
+    env = dict(os.environ, XDG_RUNTIME_DIR=str(root / "runtime"))
+    pidfile = root / "runtime" / "larynx" / "torch_daemon.pidfile"
+    argv = [sys.executable, "-m", "larynx_tpu_torch", text, "--daemon", "--daemon-port",
+            str(port), "--voices-dir", str(root), "--device", "cuda", "--voice", VOICE,
+            "--quality", "high", "--noise-scale", str(quiet["noise_scale"]), "--length-scale",
+            str(quiet["length_scale"]), "--denoiser-strength", str(strength)]
+    pid = None
+    try:
+        start = time.perf_counter()
+        proc = subprocess.run(argv, cwd=here, env=env, capture_output=True, timeout=600)
+        wall = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"cli --daemon: exit {proc.returncode}\n"
+                                 f"{proc.stderr.decode()[-3000:]}")
+        pid = int(pidfile.read_text())
+        rate, audio = wavfile.read(io.BytesIO(proc.stdout))
+        if rate != 22050 or audio.shape != served.shape or lsb(audio, served) != 0:
+            raise AssertionError(f"cli --daemon: {rate} Hz, {audio.shape} vs the in-process "
+                                 f"server's {served.shape}")
+        start = time.perf_counter()
+        again = subprocess.run(argv, cwd=here, env=env, capture_output=True, timeout=600)
+        reuse = time.perf_counter() - start
+        if again.returncode != 0 or again.stdout != proc.stdout or int(pidfile.read_text()) != pid:
+            raise AssertionError("cli --daemon: a second call did not reuse the daemon")
+    finally:
+        stop = subprocess.run([sys.executable, "-m", "larynx_tpu_torch", "--stop-daemon"],
+                              cwd=here, env=env, capture_output=True, timeout=120)
+    deadline = time.monotonic() + 30
+    while pid is not None and pid_running(pid) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if stop.returncode != 0 or pidfile.exists() or (pid is not None and pid_running(pid)):
+        raise AssertionError(f"cli --stop-daemon: exit {stop.returncode}, pidfile "
+                             f"{pidfile.exists()}, daemon {pid} running")
+    msg = (f"cli --daemon --device cuda (subprocess): the daemon (pid {pid}) answered with "
+           f"{audio.shape[0]} samples, 0 LSB from the in-process server's /process audio; "
+           f"first call {wall:.2f} s (server start, model load, synthesis), second call "
+           f"{reuse:.2f} s on the same daemon; --stop-daemon stopped it, pidfile removed")
+    log(msg)
+    return msg
+
+
 def kernel_entry(name, source, replaces, launches, by_path, rows, main_rows, scale=1):
     """One entry of the kernels line: times summed over the main path's rows
     (times ``scale``), the bound from their summed operations and bytes."""
@@ -1569,7 +2146,8 @@ def main() -> int:
         cli_launches = cli_path(Path(tmp), mrf_block, engine, int(y_lengths[0]),
                                 path_shapes["cli"])
         # phase 8: the kernel at the shapes phases 6 and 7 gave it
-        rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases, path_shapes))
+        phase8_cases = path_mrf_cases(mrf_cases, path_shapes)
+        rows += check_mrf(mrf_block, phase8_cases)
         # phase 9: the bf16 paths; phase 10: the bf16 kernel at their shapes
         pin_precision(None)
         bf16_shapes = set()
@@ -1577,6 +2155,20 @@ def main() -> int:
         bf16_rows += check_mrf(mrf_block, path_mrf_cases(bf16_cases, {"bf16 stream/cli":
                                                                       bf16_shapes}),
                                dtype=torch.bfloat16)
+        # phase 11: the server on the card in float32, then both kernels at
+        # the shapes it gave them
+        pin_precision("f32")
+        server_mrf, server_wn = set(), set()
+        served = server_path(Path(tmp), mrf_block, wn_layer, engine, wg_engine, server_mrf,
+                             server_wn)
+        rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases + phase8_cases,
+                                                    {"server": server_mrf}))
+        for shape in sorted(server_wn & set(wg_shapes)):
+            log(f"wn_layer server, B={shape[0]} T={shape[1]}: checked as a main path stack")
+        wn_stacks += wn_stack_rows(wn_layer, sorted(server_wn - set(wg_shapes), reverse=True),
+                                   torch.Generator().manual_seed(4), torch.float32,
+                                   "server paths, 8-layer WN stack")
+        pin_precision(None)
 
     main_rows = [r for r in rows if r["main_path"]]
     kernels = [{
@@ -1590,7 +2182,9 @@ def main() -> int:
                              "stream_text_to_speech, pangram": stream_launches,
                              f"scheduler, {SCHEDULER_REQUESTS} requests": scheduler_launches,
                              "cli, pangram WAV": cli_launches["WAV on stdout"],
-                             "cli --stream, pangram": cli_launches["--stream"]},
+                             "cli --stream, pangram": cli_launches["--stream"],
+                             **{k: v for k, v in served["launches"].items()
+                                if "Glow" not in k and "waveglow" not in k}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),
@@ -1617,6 +2211,9 @@ def main() -> int:
         "source": "larynx_tpu_torch/csrc/wn_layer.cu",
         "replaces": "larynx_tpu/ops/wn_layer.py:258; larynx_tpu/ops/wn_layer.py:332",
         "launches": wn_launches,
+        "launches_by_path": {"text_to_speech, pangram x8, waveglow": wn_launches,
+                             **{k: v for k, v in served["launches"].items()
+                                if "Glow" in k or "waveglow" in k}},
         "max_abs_err": max(r["max_abs_err"] for r in wn_rows + wn_stacks),
         "ms": sum(cfg.flows * r["ms"] for r in group_stacks),
         "plain_ms": sum(cfg.flows * r["plain_ms"] for r in group_stacks),

@@ -1,22 +1,25 @@
 """larynx_tpu_torch: the Larynx TTS pipeline in PyTorch and CUDA.
 
 Port of ``larynx_tpu`` (JAX) to one NVIDIA GPU: text -> phoneme ids ->
-GlowTTS mels -> HiFi-GAN or WaveGlow audio, batched through one
-``SynthesisEngine`` per (voice, vocoder).  The public surface mirrors ``larynx_tpu``'s
+GlowTTS mels -> HiFi-GAN, WaveGlow or Griffin-Lim audio, batched through
+one ``SynthesisEngine`` per (voice, vocoder).  The public surface mirrors ``larynx_tpu``'s
 ``text_to_speech()``, ``get_tts_model()``, ``get_vocoder_model()``,
 ``load_tts_model()`` and ``load_vocoder_model()``, plus a ``device``
 argument: entry points run on ``cuda`` unless the caller names another
 device, and raise when no GPU is present and none is named.
 
 Ported so far: GlowTTS voices, HiFi-GAN and WaveGlow vocoders from
-``.npz`` voice dirs, consecutive same-voice batching, the cross-request
-``BatchScheduler`` (``scheduler=``), chunked streaming
-(``stream_text_to_speech``, HiFi-GAN) and the CLI (``python -m
-larynx_tpu_torch``).  Precision as in ``larynx_tpu``: the vocoder runs in
-bfloat16 on a CUDA device and in float32 on the CPU
-(``LARYNX_TPU_VOCODER_PRECISION={bf16,f32}`` overrides), and ``half=True``
-runs GlowTTS in bfloat16 too.  Griffin-Lim, other model families and
-interleaved batching raise ``NotImplementedError``.
+``.npz`` voice dirs and Griffin-Lim, consecutive same-voice batching, the
+cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
+(``stream_text_to_speech``: HiFi-GAN in chunks, other vocoders one chunk per
+sentence through the models' own ``phonemes_to_mels`` / ``mels_to_audio``,
+the unfused fallback), the CLI (``python -m larynx_tpu_torch``) and the HTTP
+server (``python -m larynx_tpu_torch.server``).  Precision as in
+``larynx_tpu``: the vocoder runs in bfloat16 on a CUDA device and in
+float32 on the CPU (``LARYNX_TPU_VOCODER_PRECISION={bf16,f32}`` overrides;
+Griffin-Lim stays float32), and ``half=True`` runs GlowTTS in bfloat16 too.
+Tacotron2, multi-speaker voices and interleaved batching raise
+``NotImplementedError``.
 """
 
 import logging
@@ -93,6 +96,7 @@ def text_to_speech(
     def results():
         jobs = _build_jobs(
             text, voice_or_lang, vocoder_or_quality, ssml=ssml, backend=backend,
+            half=half, denoiser_strength=denoiser_strength,
             custom_voices_dir=custom_voices_dir, url_format=url_format,
             no_download=no_download, audio_settings_overrides=audio_settings_overrides,
         )
@@ -134,7 +138,8 @@ def stream_text_to_speech(
     chunks as the vocoder produces them, at fixed gain (no per-utterance
     peak normalisation); SSML pauses become silence chunks and sentence i
     takes ``seed + i``.  ``half`` runs GlowTTS and the vocoder in bfloat16.
-    HiFi-GAN only: another vocoder raises ``NotImplementedError``.
+    Another vocoder than HiFi-GAN (WaveGlow, Griffin-Lim) yields one chunk
+    per sentence through the unfused fallback, as the JAX stream does.
     """
     device = resolve_device(device)
     noise_scale = 0.667
@@ -146,26 +151,27 @@ def stream_text_to_speech(
     def chunks():
         jobs = _build_jobs(
             text, voice_or_lang, vocoder_or_quality, ssml=ssml, backend=backend,
+            half=half, denoiser_strength=denoiser_strength,
             custom_voices_dir=custom_voices_dir, url_format=url_format, no_download=no_download,
         )
         for index, job in enumerate(jobs):
             engine = _get_engine(job["tts_model"], job["vocoder_model"], device, half=half)
-            if engine.vocoder_kind != "hifi_gan":
-                raise NotImplementedError(
-                    "streaming a non-HiFi-GAN vocoder (one chunk per sentence through the "
-                    "model's mels_to_audio) is not ported yet"
-                )
             before, after = _pause_samples(job)
             if before:
                 yield np.zeros(before, dtype=np.int16)
-            yield from engine.synthesize_stream(
-                job["ids"],
-                noise_scale=noise_scale,
-                length_scale=length_scale,
-                seed=None if seed is None else seed + index,
-                denoiser_strength=denoiser_strength,
-                chunk_frames=chunk_frames,
-            )
+            if engine is not None and engine.vocoder_kind == "hifi_gan":
+                yield from engine.synthesize_stream(
+                    job["ids"],
+                    noise_scale=noise_scale,
+                    length_scale=length_scale,
+                    seed=None if seed is None else seed + index,
+                    denoiser_strength=denoiser_strength,
+                    chunk_frames=chunk_frames,
+                )
+            else:  # WaveGlow, Griffin-Lim, custom models: one chunk per sentence
+                yield _sentence_task_fallback(
+                    job, tts_settings, {"denoiser_strength": denoiser_strength}, device
+                )
             if after:
                 yield np.zeros(after, dtype=np.int16)
 
@@ -178,12 +184,16 @@ def _build_jobs(
     vocoder_or_quality,
     ssml=False,
     backend=None,
+    half=False,
+    denoiser_strength=0.0,
     custom_voices_dir=None,
     url_format=DEFAULT_VOICE_URL_FORMAT,
     no_download=False,
     audio_settings_overrides=None,
 ):
-    """Frontend + model resolution -> per-sentence job dicts."""
+    """Frontend + model resolution -> per-sentence job dicts; ``half`` and
+    ``denoiser_strength`` are the loaded models' defaults, as in
+    ``larynx_tpu``."""
     resolved_name = resolve_voice_name(voice_or_lang)
     try:
         voice_lang, _voice_name, _voice_type = split_voice_name(resolved_name)
@@ -209,6 +219,7 @@ def _build_jobs(
             tts_model = get_tts_model(
                 tts_voice_name,
                 backend=backend,
+                half=half,
                 custom_voices_dir=custom_voices_dir,
                 url_format=url_format,
                 no_download=no_download,
@@ -222,6 +233,8 @@ def _build_jobs(
         vocoder_model = get_vocoder_model(
             vocoder_or_quality,
             backend=backend,
+            half=half,
+            denoiser_strength=denoiser_strength,
             custom_voices_dir=custom_voices_dir,
             url_format=url_format,
             no_download=no_download,
@@ -290,7 +303,8 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
     """Batch consecutive same-(voice, vocoder) jobs; yield in document order.
 
     With a ``scheduler`` every sentence is submitted to it instead, so
-    sentences of concurrent requests share its batches."""
+    sentences of concurrent requests share its batches.  A sentence whose
+    models have no engine goes through the unfused fallback."""
     noise_scale = 0.667
     length_scale = 1.0
     if tts_settings:
@@ -300,19 +314,23 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
         denoiser_strength = float(vocoder_settings.get("denoiser_strength", denoiser_strength))
 
     if scheduler is not None:
-        futures = [
-            scheduler.submit(
-                _get_engine(job["tts_model"], job["vocoder_model"], device, half=half),
+        futures = []
+        for job in jobs:
+            engine = _get_engine(job["tts_model"], job["vocoder_model"], device, half=half)
+            futures.append(None if engine is None else scheduler.submit(
+                engine,
                 job["ids"],
                 noise_scale=noise_scale,
                 length_scale=length_scale,
                 denoiser_strength=denoiser_strength,
                 seed=seed,
-            )
-            for job in jobs
-        ]
+            ))
         for job, future in zip(jobs, futures):
-            job["result"].audio = _pad_pauses(job, future.result())
+            if future is None:
+                audio = _sentence_task_fallback(job, tts_settings, vocoder_settings, device)
+            else:
+                audio = future.result()
+            job["result"].audio = _pad_pauses(job, audio)
             yield job["result"]
         return
 
@@ -326,12 +344,15 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
         else:
             groups.append([i])
 
+    from larynx_tpu_torch.runtime.buckets import BucketPolicy
+
     units = []
     for group in groups:
         engine = _get_engine(jobs[group[0]]["tts_model"], jobs[group[0]]["vocoder_model"], device,
                              half=half)
         lengths = [len(jobs[i]["ids"]) for i in group]
-        for batch in engine.policy.group_by_text_bucket(lengths, max_batch):
+        policy = engine.policy if engine is not None else BucketPolicy()
+        for batch in policy.group_by_text_bucket(lengths, max_batch):
             units.append((engine, [group[k] for k in batch]))
 
     done = [False] * len(jobs)
@@ -339,14 +360,18 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
     for j, (engine, indices) in enumerate(units):
         start = time.perf_counter()
         n = len(indices)
-        audios = engine.synthesize_batch(
-            [jobs[i]["ids"] for i in indices],
-            noise_scale=noise_scale,
-            length_scale=length_scale,
-            seed=seed,
-            denoiser_strength=denoiser_strength,
-            batch_index=j,
-        )
+        if engine is None:
+            audios = [_sentence_task_fallback(jobs[i], tts_settings, vocoder_settings, device)
+                      for i in indices]
+        else:
+            audios = engine.synthesize_batch(
+                [jobs[i]["ids"] for i in indices],
+                noise_scale=noise_scale,
+                length_scale=length_scale,
+                seed=seed,
+                denoiser_strength=denoiser_strength,
+                batch_index=j,
+            )
         elapsed = time.perf_counter() - start
 
         for i, audio in zip(indices, audios):
@@ -366,6 +391,27 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             next_to_yield += 1
 
 
+def _sentence_task_fallback(job, tts_settings, vocoder_settings, device) -> np.ndarray:
+    """Unfused path through the models' own surfaces
+    (``larynx_tpu/__init__.py::_sentence_task_fallback``): ``phonemes_to_mels``,
+    the host-side mel chain (denormalize, db_to_amp, dynamic range
+    compression), ``mels_to_audio``, int16.  Only ``device`` is added."""
+    from larynx_tpu_torch.audio import audio_float_to_int16
+
+    settings = job["audio_settings"]
+    mels = job["tts_model"].phonemes_to_mels(job["ids"], settings=tts_settings, device=device)
+    if settings.signal_norm:
+        mels = settings.denormalize(mels)
+    if settings.convert_db_to_amp:
+        mels = settings.db_to_amp(mels)
+    if settings.do_dynamic_range_compression:
+        mels = settings.dynamic_range_compression(mels)
+    audio = job["vocoder_model"].mels_to_audio(mels, settings=vocoder_settings, device=device)
+    if audio.dtype != np.int16:
+        audio = audio_float_to_int16(audio)
+    return audio
+
+
 # -----------------------------------------------------------------------------
 # Engine and model caches
 
@@ -378,8 +424,11 @@ _CACHE_LOCK = threading.RLock()
 def _get_engine(tts_model, vocoder_model, device, half: bool = False):
     """One engine per (voice params, vocoder params, device, precision): the
     precision is ``half`` and the vocoder's dtype, ``half`` or the default
-    on the device, read at the call."""
+    on the device, read at the call.  None, where the JAX package has no
+    engine either (another acoustic model or vocoder class): the caller
+    then takes the unfused fallback."""
     from larynx_tpu_torch.glow_tts import GlowTextToSpeech
+    from larynx_tpu_torch.griffin_lim import GriffinLimVocoder
     from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
     from larynx_tpu_torch.runtime.engine import SynthesisEngine, default_vocoder_half
     from larynx_tpu_torch.waveglow import WaveGlowVocoder
@@ -387,29 +436,30 @@ def _get_engine(tts_model, vocoder_model, device, half: bool = False):
     vocoder_half = half or default_vocoder_half(device)
     with _CACHE_LOCK:
         key = (id(tts_model), id(vocoder_model), str(device), half, vocoder_half)
-        engine = _ENGINE_CACHE.get(key)
-        if engine is None:
-            if not isinstance(tts_model, GlowTextToSpeech):
-                raise NotImplementedError("only GlowTTS voices are ported yet")
-            if isinstance(vocoder_model, HiFiGanVocoder):
-                extra = {"vocoder_kind": "hifi_gan"}
-            elif isinstance(vocoder_model, WaveGlowVocoder):
-                extra = {"vocoder_kind": "waveglow", "waveglow_sigma": vocoder_model.sigma}
-            else:
-                raise NotImplementedError(
-                    f"vocoder {type(vocoder_model).__name__} is not ported yet"
-                )
-            engine = _ENGINE_CACHE[key] = SynthesisEngine(
+        if key in _ENGINE_CACHE:
+            return _ENGINE_CACHE[key]
+        extra = None
+        if isinstance(vocoder_model, HiFiGanVocoder):
+            extra = {"vocoder_kind": "hifi_gan", "vocoder_params": vocoder_model.params,
+                     "vocoder_cfg": vocoder_model.model_config}
+        elif isinstance(vocoder_model, WaveGlowVocoder):
+            extra = {"vocoder_kind": "waveglow", "vocoder_params": vocoder_model.params,
+                     "vocoder_cfg": vocoder_model.model_config,
+                     "waveglow_sigma": vocoder_model.sigma}
+        elif isinstance(vocoder_model, GriffinLimVocoder):
+            extra = {"vocoder_kind": "griffin_lim"}
+        engine = None
+        if isinstance(tts_model, GlowTextToSpeech) and extra is not None:
+            engine = SynthesisEngine(
                 tts_model.params,
                 tts_model.model_config,
                 tts_model.audio_settings or _DEFAULT_AUDIO_SETTINGS,
-                vocoder_params=vocoder_model.params,
-                vocoder_cfg=vocoder_model.model_config,
                 device=device,
                 half=half,
                 vocoder_half=vocoder_half,
                 **extra,
             )
+        _ENGINE_CACHE[key] = engine
         return engine
 
 
@@ -420,12 +470,15 @@ def get_tts_model(
     name: str = "",
     lang: str = "en-us",
     backend: typing.Optional[InferenceBackend] = None,
+    half: bool = False,
     url_format: str = DEFAULT_VOICE_URL_FORMAT,
     custom_voices_dir: typing.Optional[typing.Union[str, Path]] = None,
     no_download: bool = False,
     audio_settings_overrides: typing.Optional[typing.Dict[str, typing.Any]] = None,
 ):
-    """Find (or download), load and cache a voice; None if not found."""
+    """Find (or download), load and cache a voice; None if not found.
+    ``half`` is the loaded model's default for its own ``phonemes_to_mels``
+    (the cache keeps the first load's, as ``larynx_tpu`` does)."""
     with _CACHE_LOCK:
         resolved_name = resolve_voice_name(name or resolve_lang(lang))
         if not audio_settings_overrides:  # overridden models are not cached
@@ -475,7 +528,7 @@ def get_tts_model(
         if audio_settings_overrides:
             audio_config.update(audio_settings_overrides)
 
-        model = load_tts_model(voice_model_type, model_dir, backend=backend)
+        model = load_tts_model(voice_model_type, model_dir, backend=backend, half=half)
         model.phoneme_to_id = phoneme_to_id
         model.audio_settings = AudioSettings(**audio_config)
         if not audio_settings_overrides:
@@ -487,12 +540,13 @@ def load_tts_model(
     model_type: typing.Union[str, TextToSpeechType],
     model_path: typing.Union[str, Path],
     backend: typing.Optional[InferenceBackend] = None,
+    half: bool = False,
 ):
     """Load an acoustic model from a voice dir."""
     if model_type == TextToSpeechType.GLOW_TTS:
         from larynx_tpu_torch.glow_tts import GlowTextToSpeech
 
-        return GlowTextToSpeech(model_path, backend=backend)
+        return GlowTextToSpeech(model_path, backend=backend, half=half)
     if model_type == TextToSpeechType.TACOTRON2:
         raise NotImplementedError("Tacotron2 is not ported yet")
     raise ValueError(f"Unknown text to speech model type: {model_type}")
@@ -504,11 +558,17 @@ _VOCODER_MODEL_CACHE: typing.Dict[str, typing.Any] = {}
 def get_vocoder_model(
     name_or_quality: typing.Union[str, VocoderQuality] = VocoderQuality.HIGH,
     backend: typing.Optional[InferenceBackend] = None,
+    use_cuda: bool = False,  # accepted for API parity; ``device`` decides
+    half: bool = False,
+    denoiser_strength: float = 0.0,
     url_format: str = DEFAULT_VOICE_URL_FORMAT,
     custom_voices_dir: typing.Optional[typing.Union[str, Path]] = None,
     no_download: bool = False,
 ):
-    """Find (or download), load and cache a vocoder; None if not found."""
+    """Find (or download), load and cache a vocoder; None if not found.
+    ``half`` and ``denoiser_strength`` are the loaded model's defaults for
+    its own ``mels_to_audio`` (the cache keeps the first load's, as
+    ``larynx_tpu`` does); ``"griffin_lim"`` needs no files."""
     with _CACHE_LOCK:
         quality_key = (
             name_or_quality.value
@@ -519,7 +579,9 @@ def get_vocoder_model(
         if maybe_model is not None:
             return maybe_model
         if quality_key == VocoderType.GRIFFIN_LIM.value:
-            raise NotImplementedError("Griffin-Lim is not ported yet")
+            model = load_vocoder_model(VocoderType.GRIFFIN_LIM, "")
+            _VOCODER_MODEL_CACHE[quality_key] = model
+            return model
 
         resolved = VOCODER_QUALITY.get(quality_key)
         if resolved is None:
@@ -551,7 +613,8 @@ def get_vocoder_model(
         if model_dir is None:
             return None
 
-        model = load_vocoder_model(VocoderType(model_type), model_dir, backend=backend)
+        model = load_vocoder_model(VocoderType(model_type), model_dir, backend=backend, half=half,
+                                   denoiser_strength=denoiser_strength)
         _VOCODER_MODEL_CACHE[quality_key] = model
         return model
 
@@ -560,16 +623,23 @@ def load_vocoder_model(
     model_type: typing.Union[str, VocoderType],
     model_path: typing.Union[str, Path],
     backend: typing.Optional[InferenceBackend] = None,
+    half: bool = False,
+    denoiser_strength: float = 0.0,
 ):
-    """Load a vocoder from its dir."""
+    """Load a vocoder from its dir (Griffin-Lim has none: any path; it runs
+    in float32 and has no denoiser)."""
+    if model_type == VocoderType.GRIFFIN_LIM:
+        from larynx_tpu_torch.griffin_lim import GriffinLimVocoder
+
+        return GriffinLimVocoder()
     if model_type == VocoderType.HIFI_GAN:
         from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
 
-        return HiFiGanVocoder(model_path, backend=backend)
+        return HiFiGanVocoder(model_path, backend=backend, half=half,
+                              denoiser_strength=denoiser_strength)
     if model_type == VocoderType.WAVEGLOW:
         from larynx_tpu_torch.waveglow import WaveGlowVocoder
 
-        return WaveGlowVocoder(model_path, backend=backend)
-    if model_type == VocoderType.GRIFFIN_LIM:
-        raise NotImplementedError(f"vocoder type {model_type!r} is not ported yet")
+        return WaveGlowVocoder(model_path, backend=backend, half=half,
+                               denoiser_strength=denoiser_strength)
     raise ValueError(f"Unknown vocoder model type: {model_type}")

@@ -7,8 +7,9 @@ paragraphs, id|text CSV), output as one WAV on stdout, per-sentence WAV
 files, interactive playback, a raw PCM stream per sentence
 (``--raw-stream``) or per vocoder chunk (``--stream``), the voice list and
 an SSML mark file.  ``--device`` (default ``cuda``) picks the device, as the
-library's ``device=`` does.  The daemon mode needs the HTTP server, which
-is not ported: ``--daemon`` and ``--stop-daemon`` exit non-zero.
+library's ``device=`` does.  ``--daemon`` starts (or reuses) the port's HTTP
+server in the background on that device and synthesises through its
+``/api/tts``; ``--stop-daemon`` stops it.
 """
 
 import argparse
@@ -22,6 +23,8 @@ import sys
 import threading
 import time
 import typing
+import urllib.parse
+import urllib.request
 from enum import Enum
 from pathlib import Path
 from queue import Queue
@@ -30,6 +33,7 @@ from larynx_tpu_torch.constants import InferenceBackend
 from larynx_tpu_torch.voices import (
     DEFAULT_VOICE_URL_FORMAT,
     VOCODER_ALIASES,
+    get_runtime_dir,
     get_voices_dirs,
     list_voices,
     valid_voice_dir,
@@ -38,7 +42,10 @@ from larynx_tpu_torch.voices import (
 _LOGGER = logging.getLogger("larynx_tpu_torch")
 
 VOCODER_DIR_NAMES = {"hifi_gan", "waveglow"}
-SERVER_NOT_PORTED = "the HTTP server is not ported yet"
+# beside the JAX package's daemon.pidfile / daemon.log in the same runtime
+# dir: the two packages' daemons are told apart
+DAEMON_PIDFILE = "torch_daemon.pidfile"
+DAEMON_LOGFILE = "torch_daemon.log"
 
 
 def _isatty(stream) -> bool:
@@ -134,6 +141,104 @@ def _play_wav(wav_data: bytes, play_command: str) -> None:
         )
 
 
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+    except PermissionError:  # exists, other user
+        return True
+
+
+def _spawn_daemon(port: int, pidfile_path: Path, logfile: Path,
+                  server_args: typing.Sequence[str] = ()) -> None:
+    """Reuse a live daemon, else launch ``python -m larynx_tpu_torch.server``
+    with ``server_args`` and wait until it answers (as
+    ``larynx_tpu/__main__.py::_spawn_daemon``; a server that exits before it
+    answers raises at once)."""
+    if pidfile_path.is_file():
+        try:
+            pid = int(pidfile_path.read_text().strip() or "0")
+        except ValueError:
+            pid = 0
+        if pid and _pid_alive(pid):
+            _LOGGER.debug("Daemon already running (pid=%s)", pid)
+        else:
+            # stale pidfile of a crashed daemon: the wait below must watch
+            # the new server's file
+            pidfile_path.unlink(missing_ok=True)
+
+    proc = None
+    if not pidfile_path.is_file():
+        server_argv = [
+            sys.executable, "-m", "larynx_tpu_torch.server",
+            "--host", "127.0.0.1",
+            "--port", str(port),
+            "--pidfile", str(pidfile_path),
+            "--logfile", str(logfile),
+            *server_args,
+        ]
+        proc = subprocess.Popen(server_argv, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+    # the pidfile appears before the port binds (model loading can take a
+    # while), and a daemon found above may still be starting: wait until
+    # the server answers
+    deadline = time.monotonic() + 300.0
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"the daemon exited with code {proc.returncode} before it "
+                               f"answered; see {logfile}")
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/version", timeout=2).read()
+            _LOGGER.info("Daemon running (pid=%s)", pidfile_path.read_text().strip())
+            return
+        except OSError:
+            time.sleep(0.5)
+    raise TimeoutError(f"daemon on port {port} did not come up")
+
+
+def _synthesize_via_daemon(args) -> bytes:
+    """One /api/tts round trip against the daemon, with the call's voice,
+    quality, SSML flag and synthesis settings."""
+    text = " ".join(args.text) if args.text else sys.stdin.read()
+    query = {
+        "voice": args.voice, "text": text, "vocoder": args.quality,
+        "noiseScale": args.noise_scale, "lengthScale": args.length_scale,
+        "denoiserStrength": args.denoiser_strength,
+    }
+    if args.ssml:
+        query["ssml"] = "true"
+    url = f"http://127.0.0.1:{args.daemon_port}/api/tts?" + urllib.parse.urlencode(query)
+    start = time.perf_counter()
+    with urllib.request.urlopen(url) as response:
+        wav_data = response.read()
+    _LOGGER.debug("Got %s byte(s) of WAV data in %s second(s)", len(wav_data),
+                  time.perf_counter() - start)
+    return wav_data
+
+
+def _stop_daemon() -> None:
+    """SIGTERM the daemon of the pidfile, wait up to 5 s, remove the pidfile."""
+    import signal
+
+    pidfile = get_runtime_dir() / DAEMON_PIDFILE
+    if not pidfile.is_file():
+        _LOGGER.info("No daemon running")
+        return
+    try:
+        daemon_pid = int(pidfile.read_text().strip())
+        os.kill(daemon_pid, signal.SIGTERM)
+        for _ in range(50):
+            if not _pid_alive(daemon_pid):
+                break
+            time.sleep(0.1)
+        _LOGGER.info("Stopped daemon")
+    except (ValueError, ProcessLookupError):
+        _LOGGER.info("Daemon not running")
+    pidfile.unlink(missing_ok=True)
+
+
 # -----------------------------------------------------------------------------
 
 
@@ -160,9 +265,22 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> None:
     if args.cuda:
         _LOGGER.warning("--cuda is a no-op: --device picks the device (default cuda)")
 
+    # ------------------------------------------------------------------
+    # Daemon mode: spawn/reuse the background HTTP server, then query it
+    # ------------------------------------------------------------------
     if args.daemon:
-        _LOGGER.error("--daemon: %s", SERVER_NOT_PORTED)
-        sys.exit(2)
+        runtime_dir = get_runtime_dir()
+        server_args = ["--device", args.device]
+        if args.voices_dir:
+            server_args += ["--voices-dir", str(args.voices_dir)]
+        if args.half:
+            server_args.append("--half")
+        _LOGGER.debug("Trying to start daemon on port %s", args.daemon_port)
+        _spawn_daemon(args.daemon_port, runtime_dir / DAEMON_PIDFILE,
+                      runtime_dir / DAEMON_LOGFILE, server_args)
+        sys.stdout.buffer.write(_synthesize_via_daemon(args))
+        sys.stdout.buffer.flush()
+        return
 
     # ------------------------------------------------------------------
     # Direct synthesis
@@ -518,7 +636,8 @@ def get_args(argv: typing.Optional[typing.Sequence[str]] = None):
     )
     parser.add_argument(
         "--daemon", action="store_true",
-        help=f"Connect to or run a background HTTP server for TTS ({SERVER_NOT_PORTED})",
+        help="Connect to or run a background HTTP server for TTS (on --device, "
+             "with --voices-dir and --half)",
     )
     parser.add_argument(
         "--daemon-port", type=int, default=15002,
@@ -526,7 +645,7 @@ def get_args(argv: typing.Optional[typing.Sequence[str]] = None):
     )
     parser.add_argument(
         "--stop-daemon", action="store_true",
-        help=f"Try to stop the currently running daemon and exit ({SERVER_NOT_PORTED})",
+        help="Try to stop the currently running daemon and exit",
     )
     parser.add_argument("--ssml", action="store_true", help="Input text is SSML")
     parser.add_argument(
@@ -567,8 +686,8 @@ def get_args(argv: typing.Optional[typing.Sequence[str]] = None):
         sys.exit(0)
 
     if args.stop_daemon:
-        _LOGGER.error("--stop-daemon: %s", SERVER_NOT_PORTED)
-        sys.exit(2)
+        _stop_daemon()
+        sys.exit(0)
 
     if args.list:
         _list_voices_vocoders(get_voices_dirs(args.voices_dir))

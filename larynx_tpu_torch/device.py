@@ -1,8 +1,9 @@
 """Device choice for the port's entry points.
 
 Entry points run on the GPU unless the caller names another device.  With
-no GPU and no explicit device they raise: a run never continues quietly on
-the CPU.
+no GPU they raise, whether the device is left to them or named as CUDA: a
+run never continues quietly on the CPU, and a server never starts that
+would fail every request.
 """
 
 import typing
@@ -11,12 +12,12 @@ import torch
 
 
 def resolve_device(device: typing.Union[str, torch.device, None] = None) -> torch.device:
-    """``None`` -> ``cuda``; anything else is taken as the caller's choice."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``None`` -> ``cuda``; anything else is taken as the caller's choice.
+    A CUDA device with no GPU present raises."""
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "larynx_tpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU explicitly"
         )
-    return torch.device("cuda")
+    return resolved

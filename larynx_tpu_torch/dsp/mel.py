@@ -1,7 +1,9 @@
 """Mel post-processing on the device.
 
-Counterpart of ``larynx_tpu/dsp/mel.py::mel_postprocess``: the chain that
-the pipeline applies between the acoustic model and the vocoder.
+Counterpart of ``larynx_tpu/dsp/mel.py``: ``mel_postprocess``, the chain
+that the pipeline applies between the acoustic model and the vocoder, and
+``linear_from_mel``, Griffin-Lim's projection of a mel back to linear
+magnitudes.
 """
 
 import torch
@@ -34,3 +36,17 @@ def mel_postprocess(mels: torch.Tensor, settings: AudioSettings) -> torch.Tensor
         x = torch.log(torch.clamp(x, min=1e-5))
 
     return x
+
+
+def dynamic_range_decompression(x: torch.Tensor, C: float = 1.0) -> torch.Tensor:
+    return torch.exp(x) / C
+
+
+def linear_from_mel(
+    mels: torch.Tensor, mel_basis: torch.Tensor, mel_scaling: float = 1000.0
+) -> torch.Tensor:
+    """Mel [B, n_mels, T] -> linear magnitude [B, n_freq, T] through the
+    transposed mel basis ([n_mels, n_freq]): dynamic-range decompress,
+    project, scale (``larynx_tpu/dsp/mel.py::linear_from_mel``)."""
+    amp = dynamic_range_decompression(mels.float())
+    return torch.einsum("bmt,mf->bft", amp, mel_basis.float()) * mel_scaling

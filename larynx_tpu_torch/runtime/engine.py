@@ -1,7 +1,8 @@
 """The synthesis engine: staged, bucketed, batched inference on one device.
 
-Counterpart of the single-device HiFi-GAN and WaveGlow batch paths of
-``larynx_tpu/runtime/engine.py``:
+Counterpart of the single-device HiFi-GAN, WaveGlow and Griffin-Lim batch
+paths of ``larynx_tpu/runtime/engine.py``, and of its mel-only ``"none"``
+kind behind ``GlowTextToSpeech.phonemes_to_mels``:
 
   stage A  encode      ids [B,T]        -> means / durations / y_lengths
   stage B  decode      means [B,T]      -> mel [B,M,C]        (flow reverse)
@@ -12,7 +13,10 @@ mel bucket M.  Stage C runs length-sorted ragged row groups, each at its
 own bucketed width, with the same group plan as the JAX engine, then the
 optional bias denoiser and int16 peak normalisation on the device.
 WaveGlow's prior is drawn once for the whole batch, zeroed past each row's
-valid blocks and sliced per group, as there.
+valid blocks and sliced per group, as there.  Griffin-Lim vocodes the
+whole batch in one call (60 iterations, Fast Griffin-Lim momentum 0.99 by
+default, ``LARYNX_TPU_GL_MOMENTUM`` overrides), in float32 whatever the
+vocoder precision, from a random phase drawn on the vocoder's noise stream.
 
 ``synthesize_stream`` vocodes one utterance in haloed mel windows at fixed
 gain (HiFi-GAN only); ``decode_launch(row_seeds=...)`` draws each seeded
@@ -38,6 +42,7 @@ import torch
 import larynx_tpu_torch.dsp.mel as dspmel
 import larynx_tpu_torch.dsp.stft as dsp
 from larynx_tpu_torch.audio import AudioSettings
+from larynx_tpu_torch.audio import mel_basis as make_mel_basis
 from larynx_tpu_torch.device import resolve_device
 from larynx_tpu_torch.models.glow_tts import model as glow_model
 from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
@@ -55,10 +60,11 @@ _LOGGER = logging.getLogger("larynx_tpu_torch.engine")
 SILENCE_LOG_MEL = float(np.log(1e-5))
 
 # Group-plan constants of the JAX engine's defaults: upper bound on
-# (rows x mel frames) per vocoder call, and the estimated int16 bytes below
-# which a plan neither ramps its first group nor splits a small batch.
-# Kept equal so every row is vocoded at the same width as there.
-MAX_VOCODE_AREA = 16384
+# (rows x mel frames) per vocoder call (LARYNX_TPU_MAX_VOCODE_AREA, read at
+# import as there), and the estimated int16 bytes below which a plan neither
+# ramps its first group nor splits a small batch.  Kept equal so every row
+# is vocoded at the same width as there.
+MAX_VOCODE_AREA = int(os.environ.get("LARYNX_TPU_MAX_VOCODE_AREA", "16384"))
 RAMP_MIN_BYTES = 8_000_000
 
 # Mel frames per independently seeded block of per-row noise (row_noise).
@@ -136,7 +142,7 @@ def to_int16(audio: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
 
 class SynthesisEngine:
     """Parameters and staged inference for one (GlowTTS voice, vocoder) pair;
-    the vocoder is HiFi-GAN or WaveGlow.
+    the vocoder is HiFi-GAN, WaveGlow or Griffin-Lim, or none (mels only).
 
     ``half`` casts both models to bfloat16; ``vocoder_half`` (None: ``half``
     or :func:`default_vocoder_half` on the engine's device) the vocoder.
@@ -156,10 +162,13 @@ class SynthesisEngine:
         device=None,
         half: bool = False,
         vocoder_half: typing.Optional[bool] = None,
+        griffin_lim_iters: int = 60,
+        griffin_lim_momentum: typing.Optional[float] = None,
     ):
-        if vocoder_kind not in ("hifi_gan", "waveglow"):
-            raise NotImplementedError(f"vocoder {vocoder_kind!r} is not ported yet")
-        if vocoder_cfg is None or vocoder_params is None:
+        if vocoder_kind not in ("hifi_gan", "waveglow", "griffin_lim", "none"):
+            raise ValueError(f"unknown vocoder kind {vocoder_kind!r}")
+        neural = vocoder_kind in ("hifi_gan", "waveglow")
+        if neural and (vocoder_cfg is None or vocoder_params is None):
             raise ValueError(f"the {vocoder_kind} engine needs vocoder params and config")
         if glow_cfg.n_speakers > 1:
             raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
@@ -179,15 +188,28 @@ class SynthesisEngine:
         self.dtype = torch.bfloat16 if half else torch.float32
         self.voc_dtype = torch.bfloat16 if self.vocoder_half else torch.float32
         self.glow_params = cast(tree_to(glow_params, self.device), self.dtype)
+        self.griffin_lim_iters = griffin_lim_iters
+        if griffin_lim_momentum is None:
+            griffin_lim_momentum = float(os.environ.get("LARYNX_TPU_GL_MOMENTUM", "0.99"))
+        self.griffin_lim_momentum = griffin_lim_momentum
+        self.vocoder_params = None
         if vocoder_kind == "hifi_gan":
             pack = hifi_model.pack_params
             self.upsample, self.num_mels = vocoder_cfg.total_upsample, vocoder_cfg.num_mels
-        else:
+        elif vocoder_kind == "waveglow":
             pack = wg_model.pack_params
             self.upsample, self.num_mels = vocoder_cfg.upsample_stride, vocoder_cfg.mel_channels
-        self.vocoder_params = pack(
-            cast(tree_to(vocoder_params, self.device), self.voc_dtype), vocoder_cfg
-        )
+        else:
+            self.upsample, self.num_mels = audio_settings.hop_length, audio_settings.mel_channels
+        if neural:
+            self.vocoder_params = pack(
+                cast(tree_to(vocoder_params, self.device), self.voc_dtype), vocoder_cfg
+            )
+        if vocoder_kind == "griffin_lim":
+            self._gl_basis = torch.from_numpy(make_mel_basis(
+                audio_settings.sample_rate, audio_settings.filter_length,
+                audio_settings.mel_channels, audio_settings.mel_fmin, audio_settings.mel_fmax,
+            )).to(self.device)
         self._bias_spec = None  # lazy denoiser bias, built once under _bias_lock
         self._bias_lock = threading.Lock()
         self.generator_calls = 0  # vocoder runs (generator or WaveGlow infer), bias included
@@ -222,7 +244,8 @@ class SynthesisEngine:
 
     def _noise_generator(self, seed: typing.Optional[int], batch_index: int, stream: int = 0):
         """A generator seeded from (seed or the engine's seed, batch index);
-        stream 0 is the decode noise, stream 1 the WaveGlow prior."""
+        stream 0 is the decode noise, stream 1 the vocoder's (WaveGlow's prior
+        or Griffin-Lim's initial phase)."""
         base = self.seed if seed is None else seed
         return self._generator([base & 0xFFFFFFFF, batch_index] + ([stream] if stream else []))
 
@@ -332,8 +355,15 @@ class SynthesisEngine:
     ):
         """Vocode the first ``n_valid`` rows -> [(int16 part, row indices)].
 
-        ``seed`` and ``batch_index`` seed WaveGlow's prior, on a stream of
-        its own beside the decode noise's."""
+        ``seed`` and ``batch_index`` seed WaveGlow's prior or Griffin-Lim's
+        initial phase, on a stream of their own beside the decode noise's.
+        Griffin-Lim vocodes every row in one part and takes no denoiser."""
+        if self.vocoder_kind == "griffin_lim":
+            part = self._vocode_griffin_lim(mel, z_mask, seed, batch_index)
+            return [(part, list(range(mel.shape[0])))]
+        if self.vocoder_kind == "none":
+            raise RuntimeError("an engine with vocoder_kind='none' cannot vocode "
+                               "(mel-only surface; use phonemes_to_mels)")
         z_full = None
         if self.vocoder_kind == "waveglow":
             z_full = self._waveglow_prior(mel.shape[0], mel.shape[1], z_mask, seed, batch_index)
@@ -353,6 +383,21 @@ class SynthesisEngine:
         valid_blocks = (z_mask > 0).sum(dim=1) * blocks_per_frame
         inside = torch.arange(blocks_full, device=self.device)[None, :] < valid_blocks[:, None]
         return torch.where(inside[..., None], z_full, 0.0)
+
+    def _vocode_griffin_lim(self, mel, z_mask, seed, batch_index) -> torch.Tensor:
+        """mel [B, M, C] -> int16 audio [B, (M - 1) * hop + fft]: linear
+        magnitudes through the mel basis (last frame dropped), Griffin-Lim
+        from a random phase, each row normalised over its (y - 1) * hop + fft
+        samples."""
+        fft, hop = self.audio_settings.filter_length, self.audio_settings.hop_length
+        mel_pp = postprocess(mel, z_mask, self.audio_settings)
+        spec = dspmel.linear_from_mel(mel_pp, self._gl_basis, 1000.0)[:, :, :-1]
+        signal = dsp.griffin_lim(
+            spec, self._noise_generator(seed, batch_index, stream=1), fft, hop,
+            self.griffin_lim_iters, momentum=self.griffin_lim_momentum,
+        )
+        y_len = (z_mask > 0).sum(dim=1)
+        return to_int16(signal, torch.clamp(y_len - 1, min=1) * hop + fft)
 
     def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool, z=None) -> torch.Tensor:
         """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)]."""
@@ -508,7 +553,10 @@ class SynthesisEngine:
         out = []
         for i in range(n):
             n_samples = int(y_lengths[i]) * self.upsample
-            if denoised:
+            if self.vocoder_kind == "griffin_lim":
+                # (frames - 1) usable spectrogram frames
+                n_samples = max(int(y_lengths[i]) - 1, 1) * hop + fft
+            elif denoised:
                 n_samples = dsp.num_frames(n_samples, fft, hop) * hop + fft
             n_samples = min(n_samples, audio_rows[i].shape[-1])
             out.append(np.ascontiguousarray(audio_rows[i][:n_samples]))
@@ -625,6 +673,18 @@ class SynthesisEngine:
             prev = audio_c[0, off : off + emit * self.upsample]
         if prev is not None:
             yield prev.cpu().numpy()
+
+    @torch.inference_mode()
+    def phonemes_to_mels(self, ids: np.ndarray, noise_scale=0.667, length_scale=1.0,
+                         seed: typing.Optional[int] = None) -> np.ndarray:
+        """One id sequence -> its raw (normalised) mel [1, C, frames], float32
+        numpy, decoded at its mel bucket with the noise of (seed or the
+        engine's seed, batch 0)."""
+        enc_out, g = self.encode_launch([np.asarray(ids)], length_scale)
+        y_lengths = enc_out[4].cpu().numpy()
+        mel, _ = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale, seed=seed)
+        frames = int(y_lengths[0])
+        return mel[0:1, :frames].float().transpose(1, 2).cpu().numpy()
 
     def warmup(self, text_lengths=(16, 64), batch_sizes=(1,)):
         """Run each (batch, text length) shape once."""

@@ -16,6 +16,7 @@ JAX can stage a voice directory.
 """
 
 import math
+import threading
 import typing
 
 import numpy as np
@@ -94,6 +95,28 @@ def tree_to(tree, device) -> typing.Any:
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+class PerDevice:
+    """What a model keeps per (device, dtype), such as its packed params:
+    built by ``build(device, dtype)`` once per key, under a lock, since
+    threads that share the model (the server's workers) may ask for it at
+    once."""
+
+    def __init__(self, build: typing.Callable[[torch.device, torch.dtype], typing.Any]):
+        self._build = build
+        self._items: typing.Dict[typing.Tuple[str, torch.dtype], typing.Any] = {}
+        self._lock = threading.Lock()
+
+    def get(self, device: torch.device, dtype: torch.dtype) -> typing.Any:
+        key = (str(device), dtype)
+        item = self._items.get(key)
+        if item is None:
+            with self._lock:
+                item = self._items.get(key)
+                if item is None:
+                    item = self._items[key] = self._build(device, dtype)
+        return item
 
 
 def cast(tree, dtype: torch.dtype) -> typing.Any:

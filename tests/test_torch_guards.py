@@ -2,16 +2,25 @@
 
 import ast
 import dataclasses
-import types
+import io
+import os
+import socket
+import subprocess
+import sys
+import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import larynx_tpu_torch
 import larynx_tpu_torch.__main__ as cli
 from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.io import wavfile
 from larynx_tpu_torch.ops import mrf_block
+
+from test_torch_pipeline import VOCODER, VOICE, voices_dir  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "larynx_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -50,32 +59,170 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def _stream_waveglow(monkeypatch):
-    """stream_text_to_speech on a sentence whose engine has a WaveGlow vocoder."""
-    job = {"tts_model": None, "vocoder_model": None, "ids": None}
-    monkeypatch.setattr(larynx_tpu_torch, "_build_jobs", lambda *args, **kwargs: [job])
-    monkeypatch.setattr(larynx_tpu_torch, "_get_engine",
-                        lambda *args, **kwargs: types.SimpleNamespace(vocoder_kind="waveglow"))
-    list(larynx_tpu_torch.stream_text_to_speech("Hello.", device="cpu"))
-
-
 @pytest.mark.parametrize("call", [
-    lambda mp: larynx_tpu_torch.text_to_speech("Hello.", device="cpu", interleaved_batching=True),
-    lambda mp: larynx_tpu_torch.get_vocoder_model("griffin_lim"),
-    _stream_waveglow,
-], ids=["interleaved", "griffin_lim", "stream-waveglow"])
-def test_unported_options_raise(monkeypatch, call):
+    lambda: larynx_tpu_torch.text_to_speech("Hello.", device="cpu", interleaved_batching=True),
+], ids=["interleaved"])
+def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError):
-        call(monkeypatch)
+        call()
 
 
-@pytest.mark.parametrize("flag", ["--daemon", "--stop-daemon"])
-def test_cli_daemon_exits_non_zero(flag, caplog):
-    """The daemon needs the HTTP server, which is not ported."""
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main([flag, "--device", "cpu", "Hello."])
-    assert exit_info.value.code not in (0, None)
-    assert "the HTTP server is not ported yet" in caplog.text
+SLICE_MODULES = ["larynx_tpu_torch.server", "larynx_tpu_torch.server.app",
+                 "larynx_tpu_torch.server.__main__", "larynx_tpu_torch.dsp.ipa_synth",
+                 "larynx_tpu_torch.griffin_lim", "larynx_tpu_torch.models.griffin_lim"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
+    """Imported in a fresh interpreter, the module brings in no module of
+    jax or of larynx_tpu, directly or through what it imports."""
+    code = (f"import sys, {module}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'larynx_tpu')))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=Path(__file__).resolve().parent.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
+
+
+def test_create_app_without_gpu_or_device_raises(monkeypatch):
+    from larynx_tpu_torch.server.app import ServerSettings, create_app
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_app(ServerSettings(voices_dir="/nonexistent"))
+
+
+def test_server_main_without_gpu_fails_and_leaves_no_pidfile(monkeypatch, tmp_path):
+    from larynx_tpu_torch.server import __main__ as server_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pidfile = tmp_path / "server.pid"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server_main.main(["--voices-dir", str(tmp_path), "--pidfile", str(pidfile),
+                          "--port", "0"])
+    assert not pidfile.exists()
+
+
+def _model_calls(voices):
+    from larynx_tpu_torch.griffin_lim import GriffinLimVocoder
+
+    mel = np.zeros((1, 80, 8), dtype=np.float32)
+    return {
+        "phonemes_to_mels": lambda: larynx_tpu_torch.get_tts_model(
+            VOICE, custom_voices_dir=voices, no_download=True).phonemes_to_mels(
+            np.array([1, 2, 3])),
+        "hifi_gan": lambda: larynx_tpu_torch.load_vocoder_model(
+            larynx_tpu_torch.VocoderType.HIFI_GAN, voices / VOCODER).mels_to_audio(mel),
+        "hifi_gan denoiser": lambda: larynx_tpu_torch.load_vocoder_model(
+            larynx_tpu_torch.VocoderType.HIFI_GAN, voices / VOCODER).maybe_init_denoiser(),
+        "griffin_lim": lambda: GriffinLimVocoder().mels_to_audio(mel),
+    }
+
+
+@pytest.mark.parametrize("name", ["phonemes_to_mels", "hifi_gan", "hifi_gan denoiser",
+                                  "griffin_lim"])
+def test_model_surfaces_without_gpu_or_device_raise(voices_dir, monkeypatch, name):  # noqa: F811
+    """The per-model surfaces take the device as the entry points do: with
+    no GPU and no device they raise before any work."""
+    call = _model_calls(voices_dir)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_waveglow_mels_to_audio_without_gpu_or_device_raises(monkeypatch, tmp_path):
+    import json
+
+    from larynx_tpu_torch.convert.native import save_params
+    from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
+    from larynx_tpu_torch.waveglow import WaveGlowVocoder
+    from larynx_tpu_torch.weights import init_params
+
+    cfg = WaveGlowConfig(mel_channels=8, flows=2, groups=8, early_every=2, early_size=2,
+                         wn_channels=32, wn_layers=2, upsample_kernel=128, upsample_stride=64)
+    (tmp_path / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    save_params(tmp_path / "generator.npz", init_params(torch.Generator().manual_seed(0), cfg))
+    vocoder = WaveGlowVocoder(tmp_path)
+    mel = np.zeros((1, 8, 4), dtype=np.float32)
+    assert vocoder.mels_to_audio(mel, device="cpu").shape == (4 * 64,)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: vocoder.mels_to_audio(mel), vocoder.maybe_init_denoiser):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+@pytest.fixture
+def daemon_voices(voices_dir, tmp_path, monkeypatch):  # noqa: F811
+    """The voices dir with its vocoder as "low", and a runtime dir of the
+    test's own (the daemon's pidfile and log)."""
+    low = voices_dir / "hifi_gan" / "vctk_small"
+    if not low.exists():
+        low.symlink_to(voices_dir / VOCODER)
+    monkeypatch.setenv("XDG_RUNTIME_DIR", str(tmp_path))
+    return voices_dir
+
+
+def test_cli_daemon_round_trip_on_cpu(daemon_voices, capsysbinary, caplog):
+    """--daemon --device cpu starts the port's server in the background,
+    synthesises through it (the library's audio within 2 LSB), reuses it
+    for a second call, and --stop-daemon stops it and removes its pidfile."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["Hello from the daemon.", "--daemon", "--daemon-port", str(port), "--device", "cpu",
+            "--voices-dir", str(daemon_voices), "--voice", VOICE, "--quality", "low",
+            "--noise-scale", "0", "--denoiser-strength", "0.005"]
+    pidfile = Path(os.environ["XDG_RUNTIME_DIR"]) / "larynx" / cli.DAEMON_PIDFILE
+    try:
+        cli.main(argv)
+        first = capsysbinary.readouterr().out
+        pid = int(pidfile.read_text())
+        cli.main(argv)  # reuses the running daemon
+        second = capsysbinary.readouterr().out
+        assert int(pidfile.read_text()) == pid
+    finally:
+        with pytest.raises(SystemExit) as exit_info:
+            cli.main(["--stop-daemon"])
+    assert exit_info.value.code == 0
+    assert not pidfile.exists()
+    # the daemon is this process's child here: reap it (a CLI process that
+    # spawned it would have exited)
+    deadline, reaped = time.monotonic() + 10, 0
+    while not reaped and time.monotonic() < deadline:
+        try:
+            reaped = os.waitpid(pid, os.WNOHANG)[0]
+        except ChildProcessError:  # already reaped by the subprocess module
+            reaped = pid
+        time.sleep(0.1)
+    assert reaped == pid and not cli._pid_alive(pid)
+
+    rate, audio = wavfile.read(io.BytesIO(first))
+    assert rate == 22050 and first == second
+    want = next(iter(larynx_tpu_torch.text_to_speech(
+        "Hello from the daemon.", voice_or_lang=VOICE, vocoder_or_quality="low",
+        custom_voices_dir=daemon_voices, no_download=True, device="cpu",
+        tts_settings={"noise_scale": 0.0}, denoiser_strength=0.005))).audio
+    assert audio.shape == want.shape and np.abs(audio.astype(np.int32)).max() > 1000
+    assert np.abs(audio.astype(np.int32) - want.astype(np.int32)).max() <= 2
+
+
+def test_cli_daemon_that_cannot_start_fails_fast(daemon_voices, tmp_path):
+    """A daemon whose server exits (no GPU behind --device cuda) makes the
+    CLI exit non-zero at once instead of waiting for it."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    start = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "larynx_tpu_torch", "Hello.", "--daemon", "--daemon-port",
+         str(port), "--device", "cuda", "--voices-dir", str(daemon_voices)],
+        capture_output=True, cwd=Path(__file__).resolve().parent.parent, env=env, timeout=240)
+    assert proc.returncode != 0 and proc.stdout == b""
+    assert b"exited with code" in proc.stderr
+    assert time.monotonic() - start < 200
+    assert not (tmp_path / "larynx" / cli.DAEMON_PIDFILE).exists()
 
 
 def _stage(c=8, dtype=torch.float32):
