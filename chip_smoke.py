@@ -61,8 +61,22 @@ Phases (any failure exits non-zero):
      injected phase; ``/api/tts`` per-request wall against the library at
      the CUDA default too; the CLI's ``--daemon --device cuda`` and
      ``--stop-daemon`` as subprocesses; then both kernels against their
-     plain versions at every shape the phase gave them.
-Phases 2-8 and 11 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
+     plain versions at every shape the phase gave them.  A library call
+     that a route is compared with bit for bit decodes at the exact mel
+     bucket, as the server's scheduler does (``exact_mel_buckets``).
+ 12. the pipelined batch path and multi-speaker GlowTTS, in float32:
+     bench.py's chapter (16 pangrams, two units of one voice) cold and warm,
+     with the mel-bucket estimator's state, the host wall against the same
+     units run one by one, and the card's busy time (torch.profiler);
+     bench.py's three-voice SSML document interleaved and consecutive, each
+     one pooled HiFi-GAN vocode (27 MRF launches), and per unit with
+     ``LARYNX_TPU_VOCODE_POOL=0``; the document through a pooled WaveGlow;
+     every sentence within 1 LSB of the unit-by-unit run and in document
+     order; a multi-speaker voice (8 speakers) through the engine: a batch
+     of 8 speakers against the CPU path, the stream, the per-model
+     ``phonemes_to_mels`` and the missing speaker id's ValueError; then both
+     kernels at every shape the phase gave them.
+Phases 2-8, 11 and 12 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
 CUDA default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
 against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
 The MRF rows of phase 2 include the stream path's chunk windows (B=1).
@@ -188,6 +202,33 @@ SCHEDULER_REQUESTS = 24
 # Griffin-Lim through the server: its spectral convergence against the
 # target magnitudes, as a share of a random phase's
 GL_PROGRESS = 0.85
+# Phase 12: bench.py's multilingual SSML document and its chapter, on three
+# GlowTTS voices at the harvard dimensions (bench.py's 64-symbol superset of
+# the inventories) with their own random weights, sharing universal_large
+SSML = """<speak>
+  <voice name="en-us_bench_en-glow_tts">The beige hue on the waters of
+  the loch impressed all. Just as young Arthur wanted.</voice>
+  <break time="300ms"/>
+  <voice name="de-de_bench_de-glow_tts"><s lang="de">Falsches Üben von
+  Xylophonmusik quält jeden größeren Zwerg.</s></voice>
+  <voice name="sw_bench_sw-glow_tts"><s lang="sw">Gari langu
+  linaloangama limejaa na mikunga.</s></voice>
+  <voice name="en-us_bench_en-glow_tts">Before she heard that symphony
+  again. Including the French queen.</voice>
+</speak>"""
+BOOK = " ".join([PANGRAM] * 16)
+BENCH_EN = "en-us_bench_en-glow_tts"
+BENCH_VOICES = {BENCH_EN: 10, "de-de_bench_de-glow_tts": 11, "sw_bench_sw-glow_tts": 12}
+BENCH_SYMBOLS = 64
+# The repo names no released multi-speaker voice: this phase's choice, the
+# harvard dimensions with 8 speakers and a 256-wide speaker embedding
+MULTI_VOICE = "en-us_bench_multi-glow_tts"
+MULTI_SPEAKERS = 8
+MULTI_GIN = 256
+# A row vocoded in a pooled launch against the same row in its own unit's
+# launch (the JAX package's bound, tests/test_pipeline.py): only the padded
+# width it is computed at changes
+POOL_LSB = 1
 
 
 def log(*args):
@@ -431,6 +472,50 @@ def stage_voices(root: Path):
             save_params(wg_dir / "generator.npz", wg)
         else:
             (wg_dir / "generator.npz").symlink_to(root / "waveglow" / "wn_256" / "generator.npz")
+
+
+def stage_bench_voices(root: Path):
+    """Phase 12's voices beside stage_voices' ones: bench.py's three GlowTTS
+    voices (seeds 10, 11, 12) and the multi-speaker voice (seed 13), each
+    with a phoneme table that covers every symbol the port's frontend gives
+    its sentences of SSML and BOOK; returns the tables' sizes."""
+    import unicodedata
+
+    from larynx_tpu_torch.convert.native import save_params
+    from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
+    from larynx_tpu_torch.text import ids as text_ids
+    from larynx_tpu_torch.text.frontend import sentences
+    from larynx_tpu_torch.weights import init_params
+
+    symbols = {voice: set() for voice in BENCH_VOICES}
+    for text, ssml in ((SSML, True), (BOOK, False)):
+        for sentence in sentences(text, lang="en-us", ssml=ssml, explicit_lang=False):
+            for word in sentence:
+                for p in word.phonemes or []:
+                    p = unicodedata.normalize("NFC", p)
+                    p = text_ids.SIMPLE_PUNCTUATION.get(p, p)
+                    symbols[sentence.voice or BENCH_EN].update(
+                        text_ids._split_separate(p, text_ids.DEFAULT_SEPARATE))
+    sizes = {}
+    voices = dict(BENCH_VOICES, **{MULTI_VOICE: 13})
+    for voice, seed in voices.items():
+        base = PHONEMES if voice.startswith("en-us") else ["_", "|", "‖", "#"]
+        table = base + sorted(symbols.get(voice, set()) - set(base))
+        multi = voice == MULTI_VOICE
+        cfg = GlowTTSConfig(num_symbols=len(PHONEMES), n_speakers=MULTI_SPEAKERS,
+                            gin_channels=MULTI_GIN) if multi else GlowTTSConfig(
+                                num_symbols=BENCH_SYMBOLS)
+        if len(table) > cfg.num_symbols:
+            raise AssertionError(f"{voice}: {len(table)} symbols, more than {cfg.num_symbols}")
+        lang, rest = voice.split("_", 1)
+        path = root / lang / rest
+        path.mkdir(parents=True)
+        model = {k: getattr(cfg, k) for k in cfg.__dataclass_fields__}
+        (path / "config.json").write_text(json.dumps({"audio": AUDIO, "model": model}))
+        (path / "phonemes.txt").write_text("".join(f"{i} {p}\n" for i, p in enumerate(table)))
+        save_params(path / "generator.npz", init_params(torch.Generator().manual_seed(seed), cfg))
+        sizes[voice] = len(table)
+    return sizes
 
 
 def vocode_plan(engine, jobs, length_scale):
@@ -1497,6 +1582,356 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
     return out
 
 
+@contextlib.contextmanager
+def exact_mel_buckets():
+    """While open, every engine decodes at the exact mel bucket: its
+    frames-per-token estimator reads as cold and learns nothing.  The
+    estimators' values are restored on exit."""
+    import larynx_tpu_torch
+    from larynx_tpu_torch.runtime.engine import SynthesisEngine
+
+    engines = [e for e in list(larynx_tpu_torch._ENGINE_CACHE.values()) if e is not None]
+    saved = [(e, e._frames_per_token) for e in engines]
+    observe = SynthesisEngine._observe_frames_per_token
+    SynthesisEngine._observe_frames_per_token = lambda self, *args: None
+    for e in engines:
+        e._frames_per_token = 0.0
+    try:
+        yield
+    finally:
+        SynthesisEngine._observe_frames_per_token = observe
+        for e, value in saved:
+            e._frames_per_token = value
+
+
+@contextlib.contextmanager
+def counting_vocode_launches(calls: list):
+    """While open, append the ``n_valid`` of every engine vocode_launch."""
+    from larynx_tpu_torch.runtime.engine import SynthesisEngine
+
+    launch = SynthesisEngine.vocode_launch
+
+    def counted(self, mel, z_mask, n_valid, *args, **kwargs):
+        calls.append(n_valid)
+        return launch(self, mel, z_mask, n_valid, *args, **kwargs)
+
+    SynthesisEngine.vocode_launch = counted
+    try:
+        yield calls
+    finally:
+        SynthesisEngine.vocode_launch = launch
+
+
+def device_busy_ms(fn):
+    """(fn's result, host wall ms, the card's busy ms) of one traced run:
+    the union of the device intervals (kernels, copies, memsets) in
+    torch.profiler's trace, so that a copy that overlaps a kernel counts
+    once; None when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    return out, wall, (busy / 1e3 if spans else None)
+
+
+def run_jobs_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: set):
+    """Phase 12, float32: text_to_speech's pipelined batch path on
+    bench.py's SSML document (three voices, one HiFi-GAN) and chapter, the
+    pooled WaveGlow path, and a multi-speaker voice through the engine.
+    Each document against the same sentences run unit by unit through
+    public engine calls (encode_launch, the lengths read at once,
+    synthesize_launch, vocode_collect), under cuDNN's deterministic
+    algorithms.  Adds the shapes that the CUDA runs give the kernels to
+    ``mrf_shapes`` and ``wn_shapes``; returns launches and measurements."""
+    import larynx_tpu_torch
+    from larynx_tpu_torch.runtime.engine import stream_halo_frames
+
+    sizes = stage_bench_voices(root)
+    log(f"run_jobs: bench voices staged, phoneme tables {sizes} (the port's frontend on the "
+        f"SSML document and the chapter); {MULTI_VOICE}: {MULTI_SPEAKERS} speakers, "
+        f"gin_channels {MULTI_GIN}")
+    cuda = torch.device("cuda")
+    quiet = {"noise_scale": 0.0, "length_scale": LENGTH_SCALE}
+    out = {"launches": {}, "ms": {}}
+    timings = {}
+
+    def tts(text, vocoder="high", ssml=True, interleaved=True, pool=True):
+        os.environ["LARYNX_TPU_VOCODE_POOL"] = "1" if pool else "0"
+        try:
+            return list(larynx_tpu_torch.text_to_speech(
+                text, voice_or_lang=BENCH_EN, vocoder_or_quality=vocoder, ssml=ssml,
+                custom_voices_dir=root, no_download=True, tts_settings=quiet,
+                interleaved_batching=interleaved, device="cuda"))
+        finally:
+            os.environ.pop("LARYNX_TPU_VOCODE_POOL", None)
+
+    def unit_by_unit(text, vocoder="high", ssml=True, interleaved=True):
+        """(texts, audio, units) of the document's units, each run alone:
+        encode, the lengths read, synthesize_launch at the exact bucket,
+        vocode_collect, the SSML pauses."""
+        jobs = larynx_tpu_torch._build_jobs(text, BENCH_EN, vocoder, ssml=ssml,
+                                            custom_voices_dir=root, no_download=True)
+        units = larynx_tpu_torch._plan_units(jobs, 8, cuda, interleaved=interleaved)
+        audio = [None] * len(jobs)
+        for j, (engine, indices) in enumerate(units):
+            n = len(indices)
+            enc, g = engine.encode_launch([jobs[i]["ids"] for i in indices], LENGTH_SCALE)
+            y = enc.lengths.numpy()
+            parts, rows = engine.synthesize_launch(enc, y, g, n, noise_scale=0.0, batch_index=j)
+            crops = engine.crop_rows(engine.vocode_collect(parts, rows), y, n, 0.0)
+            for i, a in zip(indices, crops):
+                audio[i] = larynx_tpu_torch._pad_pauses(jobs[i], a)
+        return [job["result"].text for job in jobs], audio, units
+
+    def agree(results, ref, where):
+        texts, audio, _units = ref
+        if [r.text for r in results] != texts:
+            raise AssertionError(f"{where}: results out of document order")
+        worst = 0
+        for i, (r, a) in enumerate(zip(results, audio)):
+            if r.audio.shape != a.shape or np.abs(a.astype(np.int32)).max() < 1000:
+                raise AssertionError(f"{where}, sentence {i}: {r.audio.shape} vs {a.shape}")
+            worst = max(worst, lsb(r.audio, a))
+        if worst > POOL_LSB:
+            diffs = [lsb(r.audio, a) for r, a in zip(results, audio)]
+            raise AssertionError(f"{where}: {diffs} LSB from the unit-by-unit run (tol {POOL_LSB})")
+        return worst
+
+    def engine_of(voice, vocoder="high"):
+        """The cached engine that text_to_speech runs the voice on."""
+        models = dict(custom_voices_dir=root, no_download=True)
+        return larynx_tpu_torch._get_engine(larynx_tpu_torch.get_tts_model(voice, **models),
+                                            larynx_tpu_torch.get_vocoder_model(vocoder, **models),
+                                            cuda)
+
+    def generator_calls(vocoder):
+        return sum(engine_of(voice, vocoder).generator_calls for voice in BENCH_VOICES)
+
+    per_call = mrf_launches_per_call(engine_of(BENCH_EN).vocoder_cfg)
+    torch.backends.cudnn.deterministic = True
+    try:
+        # b. the chapter: 16 sentences, two units of 8 through one voice; the
+        # voice's engine is fresh (its estimator cold) on the first run
+        en = engine_of(BENCH_EN)
+        if en._frames_per_token != 0.0:
+            raise AssertionError("book: the voice's estimator is not cold")
+        for label in ("cold", "warm"):
+            calls = []
+            mrf_block.mrf_section.launches = 0
+            gen_before = en.generator_calls
+            with counting_vocode_launches(calls), recording_mrf_shapes(mrf_shapes):
+                results, t = timed_once(lambda: tts(BOOK, ssml=False))
+            n_mrf, gen = mrf_block.mrf_section.launches, en.generator_calls - gen_before
+            if calls != [16] or n_mrf != per_call * gen:
+                raise AssertionError(f"book, {label}: vocode launches {calls}, {n_mrf} MRF "
+                                     f"launches for {gen} generator calls; expected one "
+                                     "pooled launch of 16 rows")
+            timings[f"book {label}"] = t
+            out[f"book {label}"] = {"frames_per_token": en._frames_per_token,
+                                    "bucket_mispredicts": en._bucket_mispredicts}
+            log(f"run_jobs book, {label} run: {len(results)} sentences, one pooled vocode "
+                f"launch of {calls[0]} rows, {gen} generator calls, {n_mrf} MRF launches; "
+                f"estimator frames_per_token {en._frames_per_token:.6f}, bucket_mispredicts "
+                f"{en._bucket_mispredicts}; wall {t:.3f} ms")
+        out["launches"]["text_to_speech, chapter of 16 pangrams"] = n_mrf
+        ref = unit_by_unit(BOOK, ssml=False)
+        worst = agree(results, ref, "book")
+        walls = {"text_to_speech": [], "unit by unit": []}
+        for _ in range(3):
+            walls["text_to_speech"].append(timed_once(lambda: tts(BOOK, ssml=False))[1])
+            walls["unit by unit"].append(timed_once(lambda: unit_by_unit(BOOK, ssml=False))[1])
+        _, traced_wall, busy = device_busy_ms(lambda: tts(BOOK, ssml=False))
+        _, ref_traced_wall, ref_busy = device_busy_ms(lambda: unit_by_unit(BOOK, ssml=False))
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        out["ms"].update({"book text_to_speech": med["text_to_speech"],
+                          "book unit by unit": med["unit by unit"],
+                          "book traced wall": traced_wall, "book busy": busy,
+                          "book unit by unit traced wall": ref_traced_wall,
+                          "book unit by unit busy": ref_busy})
+        share = lambda b, w: "not measured" if b is None else f"{b:.3f} ms, {b / w:.1%}"  # noqa
+        log(f"run_jobs book: {worst} LSB from the unit-by-unit run (tol {POOL_LSB}); host wall "
+            f"(median of 3) text_to_speech {med['text_to_speech']:.3f} ms "
+            f"{walls['text_to_speech']}, unit by unit {med['unit by unit']:.3f} ms "
+            f"{walls['unit by unit']}; the card busy (torch.profiler, the union of kernel, "
+            f"copy and memset intervals) {share(busy, traced_wall)} of a traced wall of "
+            f"{traced_wall:.3f} ms; unit by unit {share(ref_busy, ref_traced_wall)} of "
+            f"{ref_traced_wall:.3f} ms")
+
+
+        # a. the SSML document: pooled, interleaved and consecutive, and per unit
+        for interleaved in (True, False):
+            tts(SSML, interleaved=interleaved)  # warm: the engines, cuDNN plans
+        ssml_units = {}
+        for interleaved in (True, False):
+            ref = unit_by_unit(SSML, interleaved=interleaved)
+            ssml_units[interleaved] = ref[2]
+            calls = []
+            mrf_block.mrf_section.launches = 0
+            gen_before = generator_calls("high")
+            with counting_vocode_launches(calls), recording_mrf_shapes(mrf_shapes):
+                results, t = timed_once(lambda: tts(SSML, interleaved=interleaved))
+            gen = generator_calls("high") - gen_before
+            n_mrf = mrf_block.mrf_section.launches
+            label = "interleaved" if interleaved else "consecutive"
+            if calls != [len(results)] or gen != 1 or n_mrf != per_call:
+                raise AssertionError(f"SSML {label}: vocode launches {calls}, generator calls "
+                                     f"{gen}, MRF launches {n_mrf}: expected one pooled launch "
+                                     f"of all {len(results)} rows, {per_call} MRF launches")
+            worst = agree(results, ref, f"SSML {label}, pooled")
+            out["launches"][f"text_to_speech, SSML ({label}), pooled"] = n_mrf
+            timings[f"SSML {label} pooled"] = t
+            log(f"run_jobs SSML, {label}: {len(results)} sentences in {len(ref[2])} units over "
+                f"3 voices, one pooled vocode_launch of {calls[0]} rows, {gen} generator call, "
+                f"{n_mrf} MRF launches; {worst} LSB from the unit-by-unit run (tol {POOL_LSB}); "
+                f"wall {t:.3f} ms")
+        calls = []
+        mrf_block.mrf_section.launches = 0
+        gen_before = generator_calls("high")
+        with counting_vocode_launches(calls), recording_mrf_shapes(mrf_shapes):
+            results, t = timed_once(lambda: tts(SSML, pool=False))
+        gen = generator_calls("high") - gen_before
+        n_mrf = mrf_block.mrf_section.launches
+        units = ssml_units[True]
+        if len(calls) != len(units) or n_mrf != per_call * gen:
+            raise AssertionError(f"SSML, LARYNX_TPU_VOCODE_POOL=0: vocode launches {calls} for "
+                                 f"{len(units)} units, {n_mrf} MRF launches, {gen} calls")
+        worst = agree(results, unit_by_unit(SSML), "SSML, per unit")
+        timings["SSML interleaved per unit"] = t
+        out["launches"]["text_to_speech, SSML, LARYNX_TPU_VOCODE_POOL=0"] = n_mrf
+        log(f"run_jobs SSML, LARYNX_TPU_VOCODE_POOL=0: {len(calls)} vocode launches "
+            f"({calls} rows), {gen} generator calls, {n_mrf} MRF launches, {worst} LSB from "
+            f"the unit-by-unit run; wall {t:.3f} ms")
+
+        # c. the SSML document through WaveGlow (sigma 0: a zero prior, so the
+        # pooled and the per-unit runs are comparable), pooled
+        wg = "waveglow/wn_256_sigma0"
+        tts(SSML, vocoder=wg)  # warm
+        ref = unit_by_unit(SSML, vocoder=wg)
+        calls = []
+        wn_layer.fused_wn_layer_state.launches = 0
+        gen_before = generator_calls(wg)
+        with counting_vocode_launches(calls), recording_wn_shapes(wn_shapes):
+            results, t = timed_once(lambda: tts(SSML, vocoder=wg))
+        gen = generator_calls(wg) - gen_before
+        n_wn = wn_layer.fused_wn_layer_state.launches
+        if calls != [len(results)] or n_wn != 96 * gen:
+            raise AssertionError(f"SSML waveglow: vocode launches {calls}, {n_wn} WN launches "
+                                 f"for {gen} group calls")
+        worst = agree(results, ref, "SSML waveglow, pooled")
+        out["launches"]["text_to_speech, SSML, waveglow pooled"] = n_wn
+        timings["SSML waveglow pooled"] = t
+        log(f"run_jobs SSML, WaveGlow ({wg}): one pooled vocode_launch of {calls[0]} rows in "
+            f"{gen} group calls, {n_wn} WN launches (96 per call); {worst} LSB from the "
+            f"unit-by-unit run (tol {POOL_LSB}); wall {t:.3f} ms")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # d. multi-speaker GlowTTS through the engine
+    tts_model = larynx_tpu_torch.get_tts_model(MULTI_VOICE, custom_voices_dir=root,
+                                               no_download=True)
+    vocoder = larynx_tpu_torch.get_vocoder_model("high", custom_voices_dir=root,
+                                                 no_download=True)
+    engine = larynx_tpu_torch._get_engine(tts_model, vocoder, cuda)
+    cpu_engine = larynx_tpu_torch._get_engine(tts_model, vocoder, torch.device("cpu"))
+    jobs = larynx_tpu_torch._build_jobs(" ".join(SHORT_SENTENCES), MULTI_VOICE, "high",
+                                        custom_voices_dir=root, no_download=True)
+    ids = [job["ids"] for job in jobs]
+    speakers = list(range(MULTI_SPEAKERS))
+    mrf_block.mrf_section.launches = 0
+    calls = engine.generator_calls
+    with recording_mrf_shapes(mrf_shapes):
+        engine.synthesize_batch(ids, noise_scale=0.0, speaker_ids=speakers)  # warm
+        mrf_block.mrf_section.launches = 0
+        calls = engine.generator_calls
+        gpu, t_gpu = timed_once(lambda: engine.synthesize_batch(ids, noise_scale=0.0,
+                                                                speaker_ids=speakers))
+    n_mrf, calls = mrf_block.mrf_section.launches, engine.generator_calls - calls
+    cpu, t_cpu = timed_once(lambda: cpu_engine.synthesize_batch(ids, noise_scale=0.0,
+                                                                speaker_ids=speakers))
+    worst = 0
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if a.shape != b.shape or np.abs(a.astype(np.int32)).max() < 1000:
+            raise AssertionError(f"multi-speaker row {i}: CUDA {a.shape}, CPU {b.shape}")
+        worst = max(worst, lsb(a, b))
+    if worst > AUDIO_TOLERANCE_LSB or n_mrf != per_call * calls:
+        raise AssertionError(f"multi-speaker synthesize_batch: CUDA vs CPU {worst} LSB, "
+                             f"{n_mrf} MRF launches for {calls} generator calls")
+    out["launches"]["engine.synthesize_batch, multi-speaker, 8 speakers"] = n_mrf
+    out["ms"].update({"multi-speaker synthesize_batch": t_gpu,
+                      "multi-speaker synthesize_batch cpu": t_cpu})
+    first = ids[0]
+    mels = [engine.phonemes_to_mels(first, noise_scale=0.0, length_scale=LENGTH_SCALE,
+                                    speaker_id=k) for k in (0, 5)]
+    if mels[0].shape == mels[1].shape and np.abs(mels[0] - mels[1]).max() < 1e-2:
+        raise AssertionError("multi-speaker: speakers 0 and 5 give the same mel")
+    k = 3
+    model_mel = tts_model.phonemes_to_mels(first, settings={
+        "noise_scale": 0.0, "length_scale": LENGTH_SCALE, "speaker_id": k}, device="cuda")
+    engine_mel = engine.phonemes_to_mels(first, noise_scale=0.0, length_scale=LENGTH_SCALE,
+                                         speaker_id=k)
+    mel_err = float(np.abs(model_mel - engine_mel).max()) if model_mel.shape == \
+        engine_mel.shape else float("inf")
+    if not mel_err <= 1e-5:
+        raise AssertionError(f"multi-speaker: GlowTextToSpeech.phonemes_to_mels is {mel_err} "
+                             "from the engine's")
+    with recording_mrf_shapes(mrf_shapes):
+        stream = np.concatenate(list(engine.synthesize_stream(
+            first, noise_scale=0.0, length_scale=LENGTH_SCALE, speaker_ids=[k],
+            chunk_frames=CHUNK_FRAMES)))
+        whole = np.concatenate(list(engine.synthesize_stream(
+            first, noise_scale=0.0, length_scale=LENGTH_SCALE, speaker_ids=[k],
+            chunk_frames=10**6)))
+        batch_row = engine.synthesize_batch([first], noise_scale=0.0,
+                                            length_scale=LENGTH_SCALE, speaker_ids=[k])[0]
+    diff = np.abs(stream.astype(np.int32) - whole.astype(np.int32))
+    a, b = stream.astype(np.float64), batch_row.astype(np.float64)
+    corr = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-9)) \
+        if a.shape == b.shape else float("nan")
+    if stream.shape != whole.shape or diff.max() > STREAM_WINDOW_LSB or \
+            not np.mean(diff != 0) < STREAM_WINDOW_SHARE or not corr > 0.9999:
+        raise AssertionError(f"multi-speaker stream: {stream.shape} vs {whole.shape}, "
+                             f"{diff.max()} LSB, correlation with the batch row {corr}")
+    try:
+        engine.synthesize_batch(ids[:1], noise_scale=0.0)
+        raise AssertionError("multi-speaker: no speaker id did not raise")
+    except ValueError as err:
+        missing = str(err)
+    log(f"run_jobs multi-speaker ({MULTI_SPEAKERS} speakers, gin {MULTI_GIN}): "
+        f"synthesize_batch of {len(ids)} sentences with speakers {speakers} at noise 0 and "
+        f"length scale 1: CUDA vs CPU {worst} LSB (tol {AUDIO_TOLERANCE_LSB}), CUDA "
+        f"{t_gpu:.3f} ms, CPU {t_cpu:.1f} ms, MRF launches {n_mrf}; speakers 0 and 5 give "
+        f"other mels; GlowTextToSpeech.phonemes_to_mels(speaker_id={k}) {mel_err:.3g} from "
+        f"the engine's; stream (speaker {k}) vs one window {diff.max()} LSB, correlation with "
+        f"the batch row {corr:.6f}; no speaker id: ValueError ({missing})")
+    out["ms"].update(timings)
+    log("run_jobs walls (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+    return out
+
+
+def timed_once(fn):
+    """(fn's result, host-clocked ms) of one call between synchronisations."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, 1e3 * (time.perf_counter() - start)
+
+
 def free_port() -> int:
     import socket
 
@@ -1656,9 +2091,14 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
             (gl_dir / name).symlink_to(root / "en-us" / "harvard-glow_tts" / name)
 
     def library(text, vocoder="high", voice=VOICE):
-        return np.concatenate([r.audio for r in larynx_tpu_torch.text_to_speech(
-            text, vocoder_or_quality=vocoder, vocoder_settings={"denoiser_strength": strength},
-            **dict(lib, voice_or_lang=voice))])
+        # the server's routes run through its scheduler, which decodes at
+        # the exact mel bucket; the library call is held to the same shapes
+        # so that the two compare bit for bit
+        with exact_mel_buckets():
+            return np.concatenate([r.audio for r in larynx_tpu_torch.text_to_speech(
+                text, vocoder_or_quality=vocoder,
+                vocoder_settings={"denoiser_strength": strength},
+                **dict(lib, voice_or_lang=voice))])
 
     # the server's defaults are this phase's settings: noise 0, LENGTH_SCALE,
     # so /process (which takes no settings) is comparable
@@ -2161,13 +2601,29 @@ def main() -> int:
         server_mrf, server_wn = set(), set()
         served = server_path(Path(tmp), mrf_block, wn_layer, engine, wg_engine, server_mrf,
                              server_wn)
-        rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases + phase8_cases,
-                                                    {"server": server_mrf}))
+        server_cases = path_mrf_cases(mrf_cases + phase8_cases, {"server": server_mrf})
+        rows += check_mrf(mrf_block, server_cases)
         for shape in sorted(server_wn & set(wg_shapes)):
             log(f"wn_layer server, B={shape[0]} T={shape[1]}: checked as a main path stack")
         wn_stacks += wn_stack_rows(wn_layer, sorted(server_wn - set(wg_shapes), reverse=True),
                                    torch.Generator().manual_seed(4), torch.float32,
                                    "server paths, 8-layer WN stack")
+        # phase 12: the pipelined batch path and multi-speaker GlowTTS in
+        # float32, then both kernels at the shapes it gave them
+        start12 = time.perf_counter()
+        run_mrf, run_wn = set(), set()
+        run = run_jobs_path(Path(tmp), mrf_block, wn_layer, run_mrf, run_wn)
+        t_path = time.perf_counter() - start12
+        rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases + phase8_cases + server_cases,
+                                                    {"run_jobs": run_mrf}))
+        checked_wn = set(wg_shapes) | server_wn
+        for shape in sorted(run_wn & checked_wn):
+            log(f"wn_layer run_jobs, B={shape[0]} T={shape[1]}: checked by an earlier stack")
+        wn_stacks += wn_stack_rows(wn_layer, sorted(run_wn - checked_wn, reverse=True),
+                                   torch.Generator().manual_seed(5), torch.float32,
+                                   "run_jobs paths, 8-layer WN stack")
+        log(f"phase 12 times: paths {t_path:.1f} s, kernels at its shapes "
+            f"{time.perf_counter() - start12 - t_path:.1f} s")
         pin_precision(None)
 
     main_rows = [r for r in rows if r["main_path"]]
@@ -2184,7 +2640,8 @@ def main() -> int:
                              "cli, pangram WAV": cli_launches["WAV on stdout"],
                              "cli --stream, pangram": cli_launches["--stream"],
                              **{k: v for k, v in served["launches"].items()
-                                if "Glow" not in k and "waveglow" not in k}},
+                                if "Glow" not in k and "waveglow" not in k},
+                             **{k: v for k, v in run["launches"].items() if "waveglow" not in k}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),
@@ -2213,7 +2670,8 @@ def main() -> int:
         "launches": wn_launches,
         "launches_by_path": {"text_to_speech, pangram x8, waveglow": wn_launches,
                              **{k: v for k, v in served["launches"].items()
-                                if "Glow" in k or "waveglow" in k}},
+                                if "Glow" in k or "waveglow" in k},
+                             **{k: v for k, v in run["launches"].items() if "waveglow" in k}},
         "max_abs_err": max(r["max_abs_err"] for r in wn_rows + wn_stacks),
         "ms": sum(cfg.flows * r["ms"] for r in group_stacks),
         "plain_ms": sum(cfg.flows * r["plain_ms"] for r in group_stacks),

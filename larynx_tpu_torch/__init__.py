@@ -8,9 +8,13 @@ one ``SynthesisEngine`` per (voice, vocoder).  The public surface mirrors ``lary
 argument: entry points run on ``cuda`` unless the caller names another
 device, and raise when no GPU is present and none is named.
 
-Ported so far: GlowTTS voices, HiFi-GAN and WaveGlow vocoders from
-``.npz`` voice dirs and Griffin-Lim, consecutive same-voice batching, the
-cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
+Ported so far: GlowTTS voices (multi-speaker ones through the engine's
+``speaker_ids``), HiFi-GAN and WaveGlow vocoders from ``.npz`` voice dirs
+and Griffin-Lim; ``text_to_speech``'s pipelined batch path as ``larynx_tpu``
+runs it (consecutive or interleaved same-voice batching, every unit's encode
+launched first, decodes on a predicted mel bucket, one unit launched ahead
+of the one collected, units that share a vocoder vocoded as one pooled
+batch); the cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
 (``stream_text_to_speech``: HiFi-GAN in chunks, other vocoders one chunk per
 sentence through the models' own ``phonemes_to_mels`` / ``mels_to_audio``,
 the unfused fallback), the CLI (``python -m larynx_tpu_torch``) and the HTTP
@@ -18,11 +22,13 @@ server (``python -m larynx_tpu_torch.server``).  Precision as in
 ``larynx_tpu``: the vocoder runs in bfloat16 on a CUDA device and in
 float32 on the CPU (``LARYNX_TPU_VOCODER_PRECISION={bf16,f32}`` overrides;
 Griffin-Lim stays float32), and ``half=True`` runs GlowTTS in bfloat16 too.
-Tacotron2, multi-speaker voices and interleaved batching raise
-``NotImplementedError``.
+Tacotron2 raises ``NotImplementedError``.  ``text_to_speech`` passes no
+speaker id, as ``larynx_tpu``'s does, so on a multi-speaker voice it raises
+the engine's ``ValueError``.
 """
 
 import logging
+import os
 import threading
 import time
 import typing
@@ -86,12 +92,18 @@ def text_to_speech(
     """Synthesize text into per-sentence audio results, in document order.
 
     Same arguments as ``larynx_tpu.text_to_speech`` plus ``device``.
-    Consecutive sentences of one voice are batched through one engine.
-    ``half`` runs GlowTTS and the vocoder in bfloat16.
+    Consecutive sentences of one voice are batched through one engine;
+    ``interleaved_batching`` also batches a multi-voice document's scattered
+    sentences of one voice (audio still comes in document order, but the
+    first result waits for every earlier sentence's batch); None reads
+    ``LARYNX_TPU_INTERLEAVED_BATCHING`` (off).  ``half`` runs GlowTTS and
+    the vocoder in bfloat16.
     """
     device = resolve_device(device)
-    if interleaved_batching:
-        raise NotImplementedError("interleaved batching is not ported yet")
+    if interleaved_batching is None:
+        interleaved_batching = os.environ.get(
+            "LARYNX_TPU_INTERLEAVED_BATCHING", ""
+        ).lower() in ("1", "true", "yes")
 
     def results():
         jobs = _build_jobs(
@@ -110,6 +122,7 @@ def text_to_speech(
             device=device,
             scheduler=scheduler,
             half=half,
+            interleaved=interleaved_batching,
         )
 
     return results()
@@ -298,13 +311,53 @@ def _pad_pauses(job, audio):
     return audio
 
 
+def _plan_units(jobs, max_batch, device, half=False, interleaved=False):
+    """[(engine or None, job indices)] in the order ``_run_jobs`` launches
+    them: jobs grouped by (voice, vocoder), consecutive runs only or, with
+    ``interleaved``, every job of a pair in its first job's group; each
+    group split into batches of one text bucket and at most ``max_batch``
+    sentences."""
+    from larynx_tpu_torch.runtime.buckets import BucketPolicy
+
+    groups: typing.List[typing.List[int]] = []
+    group_of: typing.Dict[typing.Tuple[int, int], int] = {}
+    for i, job in enumerate(jobs):
+        key = (id(job["tts_model"]), id(job["vocoder_model"]))
+        if interleaved and key in group_of:
+            groups[group_of[key]].append(i)
+        elif not interleaved and groups and group_of.get(key) == len(groups) - 1:
+            groups[-1].append(i)
+        else:
+            group_of[key] = len(groups)
+            groups.append([i])
+
+    units = []
+    for group in groups:
+        engine = _get_engine(jobs[group[0]]["tts_model"], jobs[group[0]]["vocoder_model"], device,
+                             half=half)
+        lengths = [len(jobs[i]["ids"]) for i in group]
+        policy = engine.policy if engine is not None else BucketPolicy()
+        for batch in policy.group_by_text_bucket(lengths, max_batch):
+            units.append((engine, [group[k] for k in batch]))
+    return units
+
+
 def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch, seed, device,
-              scheduler=None, half=False):
-    """Batch consecutive same-(voice, vocoder) jobs; yield in document order.
+              scheduler=None, half=False, interleaved=False):
+    """Batch same-(voice, vocoder) jobs; yield in document order
+    (``larynx_tpu/__init__.py::_run_jobs``, step for step).
 
     With a ``scheduler`` every sentence is submitted to it instead, so
-    sentences of concurrent requests share its batches.  A sentence whose
-    models have no engine goes through the unfused fallback."""
+    sentences of concurrent requests share its batches.  Otherwise the
+    units run pipelined: every unit's encode is launched first; a unit's
+    decode goes out on a predicted mel bucket; units whose engines share a
+    vocoder (a multi-voice document) vocode as one pooled batch while its
+    audio stays under the ramp threshold; unit j + 1 is launched before
+    unit j is collected, deeper while the audio in flight is small.  A
+    sentence whose models have no engine goes through the unfused
+    fallback."""
+    from larynx_tpu_torch.runtime.engine import RAMP_MIN_BYTES, _pool_rows, vocode_pool_enabled
+
     noise_scale = 0.667
     length_scale = 1.0
     if tts_settings:
@@ -334,45 +387,151 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             yield job["result"]
         return
 
-    groups: typing.List[typing.List[int]] = []
-    for i, job in enumerate(jobs):
-        if groups and (
-            jobs[groups[-1][0]]["tts_model"] is job["tts_model"]
-            and jobs[groups[-1][0]]["vocoder_model"] is job["vocoder_model"]
+    units = _plan_units(jobs, max_batch, device, half=half, interleaved=interleaved)
+
+    # every unit's encode first; each starts its lengths' copy to the host
+    encodes: typing.List[typing.Any] = []
+    for engine, indices in units:
+        if engine is None:
+            encodes.append(None)
+            continue
+        t0 = time.perf_counter()
+        enc_out, g = engine.encode_launch([jobs[i]["ids"] for i in indices],
+                                          length_scale=length_scale)
+        encodes.append((enc_out, g, t0))
+
+    # pools: units that can share one vocode launch (unseeded, same
+    # vocoder model and precision); the others are pools of one
+    pool_ids = [0] * len(units)
+    pools: typing.List[typing.List[int]] = []
+    pool_key_of: typing.Dict[typing.Tuple[int, bool], int] = {}
+    for j, (engine, indices) in enumerate(units):
+        key = None
+        if (
+            vocode_pool_enabled()
+            and seed is None
+            and engine is not None
+            and engine.vocoder_kind in ("hifi_gan", "waveglow")
         ):
-            groups[-1].append(i)
+            key = (id(jobs[indices[0]]["vocoder_model"]), engine.vocoder_half)
+        if key is not None and key in pool_key_of:
+            p = pool_key_of[key]
+            pools[p].append(j)
         else:
-            groups.append([i])
+            p = len(pools)
+            if key is not None:
+                pool_key_of[key] = p
+            pools.append([j])
+        pool_ids[j] = p
 
-    from larynx_tpu_torch.runtime.buckets import BucketPolicy
+    pool_tails: typing.List[typing.Optional[dict]] = [None] * len(pools)
 
-    units = []
-    for group in groups:
-        engine = _get_engine(jobs[group[0]]["tts_model"], jobs[group[0]]["vocoder_model"], device,
-                             half=half)
-        lengths = [len(jobs[i]["ids"]) for i in group]
-        policy = engine.policy if engine is not None else BucketPolicy()
-        for batch in policy.group_by_text_bucket(lengths, max_batch):
-            units.append((engine, [group[k] for k in batch]))
+    def launch_pool(p: int) -> None:
+        members = [j for j in pools[p] if encodes[j] is not None]
+        if pool_tails[p] is not None or not members:
+            return
+        decs = []
+        for j in members:
+            engine, indices = units[j]
+            enc_out, g, _t0 = encodes[j]
+            decs.append(engine.decode_launch_predicted(
+                enc_out, g, len(indices),
+                max_id_len=max(len(jobs[i]["ids"]) for i in indices),
+                noise_scale=noise_scale, length_scale=length_scale,
+                seed=seed, batch_index=j,
+            ))
+        n_valids = tuple(len(units[j][1]) for j in members)
+        bytes_of = {
+            j: int(np.sum(d[2][:nv])) * units[j][0].upsample * 2
+            for j, d, nv in zip(members, decs, n_valids)
+        }
+        tail: dict = {"bytes_of": bytes_of}
+        # pooling pays while launches, not the audio, are the wall; past the
+        # ramp threshold per-unit launches let each unit's copy overlap the
+        # next unit's work
+        if (
+            len(members) > 1
+            and sum(bytes_of.values()) < RAMP_MIN_BYTES
+            and len({d[0].shape[2] for d in decs}) == 1
+        ):
+            eng0 = units[members[0]][0]
+            m_pool = max(d[0].shape[1] for d in decs)
+            mel_p, mask_p = _pool_rows([d[0] for d in decs], [d[1] for d in decs], n_valids,
+                                       m_pool)
+            y_pool = np.concatenate([d[2][:nv] for d, nv in zip(decs, n_valids)])
+            parts = eng0.vocode_launch(mel_p, mask_p, int(sum(n_valids)), denoiser_strength,
+                                       y_lengths=y_pool, seed=seed, batch_index=members[0])
+            offs = np.concatenate([[0], np.cumsum(n_valids)])
+            tail.update(
+                mode="pooled", parts=parts, y_pool=y_pool, eng0=eng0,
+                total_rows=int(sum(n_valids)),
+                span={j: (int(offs[i]), int(n_valids[i])) for i, j in enumerate(members)},
+            )
+        else:
+            per = {}
+            for j, (mel, z_mask, y_lengths) in zip(members, decs):
+                engine, indices = units[j]
+                per[j] = (
+                    engine.vocode_launch(mel, z_mask, len(indices), denoiser_strength,
+                                         y_lengths=y_lengths, seed=seed, batch_index=j),
+                    y_lengths,
+                    mel.shape[0],
+                )
+            tail.update(mode="per_unit", per=per)
+        pool_tails[p] = tail
 
+    def tail_bytes(j: int) -> int:
+        """int16 audio bytes of a launched unit (its lengths are on the host
+        once launch_pool returns)."""
+        tail = pool_tails[pool_ids[j]]
+        if tail is None:
+            return 0
+        return tail["bytes_of"].get(j, 0)
+
+    # lookahead: always one unit ahead of the one collected, deeper while
+    # the audio in flight stays under the ramp threshold
+    launched = 0
+    inflight_bytes = 0
+
+    def launch_ahead(j_current: int) -> None:
+        nonlocal launched, inflight_bytes
+        while launched < len(units):
+            deep = launched > j_current + 1
+            if deep and inflight_bytes >= RAMP_MIN_BYTES:
+                break
+            launch_pool(pool_ids[launched])
+            inflight_bytes += tail_bytes(launched)
+            launched += 1
+
+    # results in document order: a drain pointer yields each job once it
+    # and every job before it are done
     done = [False] * len(jobs)
     next_to_yield = 0
+    if units:
+        launch_ahead(-1)
     for j, (engine, indices) in enumerate(units):
-        start = time.perf_counter()
+        launch_ahead(j)
         n = len(indices)
-        if engine is None:
+        if encodes[j] is None:
+            start = time.perf_counter()
             audios = [_sentence_task_fallback(jobs[i], tts_settings, vocoder_settings, device)
                       for i in indices]
+            elapsed = time.perf_counter() - start
         else:
-            audios = engine.synthesize_batch(
-                [jobs[i]["ids"] for i in indices],
-                noise_scale=noise_scale,
-                length_scale=length_scale,
-                seed=seed,
-                denoiser_strength=denoiser_strength,
-                batch_index=j,
-            )
-        elapsed = time.perf_counter() - start
+            tail = pool_tails[pool_ids[j]]
+            if tail["mode"] == "pooled":
+                if "rows_np" not in tail:
+                    tail["rows_np"] = tail["eng0"].vocode_collect(tail["parts"],
+                                                                  tail["total_rows"])
+                off, nv = tail["span"][j]
+                audios = engine.crop_rows(tail["rows_np"][off : off + nv],
+                                          tail["y_pool"][off : off + nv], nv, denoiser_strength)
+            else:
+                parts, y_lengths, b_rows = tail["per"][j]
+                audios = engine.crop_rows(engine.vocode_collect(parts, b_rows), y_lengths, n,
+                                          denoiser_strength)
+            inflight_bytes -= tail_bytes(j)
+            elapsed = time.perf_counter() - encodes[j][2]
 
         for i, audio in zip(indices, audios):
             job = jobs[i]

@@ -8,6 +8,7 @@ would fail every request.
 
 import typing
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,14 @@ def resolve_device(device: typing.Union[str, torch.device, None] = None) -> torc
             "pass device='cpu' to run on the CPU explicitly"
         )
     return resolved
+
+
+def to_device(arr: np.ndarray, device: typing.Union[str, torch.device]) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  On CUDA it goes through
+    pinned memory by a non-blocking copy: a copy from pageable memory would
+    wait for everything queued on the stream, which stalls the host behind
+    the card between launches."""
+    tensor = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)

@@ -21,6 +21,8 @@ import typing
 import numpy as np
 import torch
 
+from larynx_tpu_torch.device import to_device
+
 
 def hann_window(fft_size: int) -> np.ndarray:
     """numpy.hanning (N points, endpoints 0)."""
@@ -28,7 +30,7 @@ def hann_window(fft_size: int) -> np.ndarray:
 
 
 def _window(fft_size: int, device) -> torch.Tensor:
-    return torch.from_numpy(hann_window(fft_size)).to(device)
+    return to_device(hann_window(fft_size), device)
 
 
 def num_frames(n_samples: int, fft_size: int, hop: int) -> int:

@@ -64,14 +64,17 @@ class GlowTextToSpeech:
 
     def phonemes_to_mels(self, phoneme_ids: np.ndarray, settings=None, device=None) -> np.ndarray:
         """ids [T] or [1, T] -> normalised mels [1, n_mels, frames] (numpy),
-        on ``device`` (None: CUDA); ``settings`` may set ``noise_scale`` and
-        ``length_scale``."""
+        on ``device`` (None: CUDA); ``settings`` may set ``noise_scale``,
+        ``length_scale`` and, for a multi-speaker voice, ``speaker_id``."""
         noise_scale, length_scale = self.noise_scale, self.length_scale
+        speaker_id = None
         if settings:
             noise_scale = float(settings.get("noise_scale", noise_scale))
             length_scale = float(settings.get("length_scale", length_scale))
+            speaker_id = settings.get("speaker_id", None)
         ids = np.asarray(phoneme_ids)
         if ids.ndim == 2:
             ids = ids[0]
         engine = self._engines.get(resolve_device(device), None)
-        return engine.phonemes_to_mels(ids, noise_scale=noise_scale, length_scale=length_scale)
+        return engine.phonemes_to_mels(ids, noise_scale=noise_scale, length_scale=length_scale,
+                                       speaker_id=speaker_id)

@@ -5,6 +5,8 @@ Counterpart of ``larynx_tpu/models/glow_tts/flows.py``, channels-last
 checkpoint) and the reverse pass walks the blocks last to first.  The WN
 last layer's res half is zero-padded in the params, so every layer has the
 same shape; 1x1 invertible-conv inverses come precomputed in the params.
+A multi-speaker voice's couplings carry a cond 1x1 (``cond_w`` [1, 2h * L,
+gin], ``cond_b``) that maps the speaker embedding into every WaveNet layer.
 Every step runs in the tensors' dtype; in bfloat16 (``half``) the grouped
 invertible 1x1 is computed in float32 and cast back, as in the JAX package.
 """
@@ -68,14 +70,19 @@ def inv_conv_near_reverse(p: Params, x, mask, n_split: int):
     return _group_merge(mixed, c) * mask[..., None]
 
 
-def wavenet(p: Params, x, mask, dilation_rate: int = 1):
-    """Gated dilated-conv WaveNet stack; layer i uses dilation rate**i."""
+def wavenet(p: Params, x, mask, dilation_rate: int = 1, g=None):
+    """Gated dilated-conv WaveNet stack; layer i uses dilation rate**i.
+
+    ``g`` is the speaker conditioning [B, 1, 2h * n_layers] out of the
+    coupling's cond 1x1: layer i adds its 2h slice before the gate."""
     n_layers = p["in_w"].shape[0]
     h = x.shape[-1]
     mask1 = mask[..., None]
     output = torch.zeros_like(x)
     for i in range(n_layers):
         x_in = conv1d(x, p["in_w"][i], p["in_b"][i], dilation=dilation_rate**i)
+        if g is not None:
+            x_in = x_in + g[..., i * 2 * h : (i + 1) * 2 * h]
         acts = torch.tanh(x_in[..., :h]) * torch.sigmoid(x_in[..., h:])
         res_skip = matmul1x1(acts, p["res_skip_w"][i], p["res_skip_b"][i])
         x = (x + res_skip[..., :h]) * mask1
@@ -83,12 +90,17 @@ def wavenet(p: Params, x, mask, dilation_rate: int = 1):
     return output * mask1
 
 
-def coupling_reverse(p: Params, x, mask, cfg: GlowTTSConfig):
-    """Inverse affine coupling block."""
+def coupling_reverse(p: Params, x, mask, cfg: GlowTTSConfig, g=None):
+    """Inverse affine coupling block; ``g`` [B, gin] is the normalised
+    speaker embedding, which a multi-speaker voice's cond 1x1 maps to the
+    WaveNet's conditioning."""
     half = x.shape[-1] // 2
     x0, x1 = x[..., :half], x[..., half:]
+    g_cond = None
+    if g is not None and "cond_w" in p["wn"]:
+        g_cond = matmul1x1(g, p["wn"]["cond_w"][0], p["wn"]["cond_b"])[:, None, :]
     h = matmul1x1(x0, p["start_w"], p["start_b"]) * mask[..., None]
-    h = wavenet(p["wn"], h, mask, dilation_rate=cfg.dilation_rate)
+    h = wavenet(p["wn"], h, mask, dilation_rate=cfg.dilation_rate, g=g_cond)
     out = matmul1x1(h, p["end_w"], p["end_b"])
     m, logs = out[..., :half], out[..., half:]
     if cfg.sigmoid_scale:
@@ -105,9 +117,10 @@ def _block(stacked: Params, i: int) -> Params:
 
 
 def decoder_reverse(
-    stacked_blocks: Params, x: torch.Tensor, mask: torch.Tensor, cfg: GlowTTSConfig
+    stacked_blocks: Params, x: torch.Tensor, mask: torch.Tensor, cfg: GlowTTSConfig, g=None
 ) -> torch.Tensor:
-    """Reverse flow: latent [B, T, C] -> mel [B, T, C]."""
+    """Reverse flow: latent [B, T, C] -> mel [B, T, C]; ``g`` as in
+    :func:`coupling_reverse`."""
     if cfg.n_sqz > 1:
         x, sq_mask = squeeze(x, mask, cfg.n_sqz)
     else:
@@ -115,7 +128,7 @@ def decoder_reverse(
     n_blocks = stacked_blocks["actnorm"]["logs"].shape[0]
     for i in reversed(range(n_blocks)):
         p = _block(stacked_blocks, i)
-        x = coupling_reverse(p["coupling"], x, sq_mask, cfg)
+        x = coupling_reverse(p["coupling"], x, sq_mask, cfg, g=g)
         x = inv_conv_near_reverse(p["invconv"], x, sq_mask, cfg.n_split)
         x = actnorm_reverse(p["actnorm"], x, sq_mask)
     if cfg.n_sqz > 1:

@@ -6,7 +6,9 @@
                                  compare, sample, run the reverse flow.
 
 Latent noise is an optional tensor argument; when absent it is drawn from
-an explicit ``torch.Generator``.  Single-speaker voices only.  The params'
+an explicit ``torch.Generator``.  A multi-speaker voice takes ``g``, the
+L2-normalised speaker embedding (:func:`speaker_embedding`), in the duration
+predictor's input and in every flow coupling.  The params'
 dtype is the compute dtype (bfloat16 with ``half``): the masks and the
 latent noise take it, the duration math stays float32.
 """
@@ -30,10 +32,12 @@ def encode(
     ids: torch.Tensor,
     lengths: torch.Tensor,
     length_scale: typing.Union[float, torch.Tensor] = 1.0,
+    g: typing.Optional[torch.Tensor] = None,
 ):
     """ids [B, T] -> (x_m, x_logs, logw, w_ceil, y_lengths, x_mask).
 
-    The duration math stays float32: exp -> ceil -> y_lengths floored to a
+    ``g`` [B, gin] is broadcast over T and concatenated to the duration
+    predictor's input.  The duration math stays float32: exp -> ceil -> y_lengths floored to a
     multiple of n_sqz, at least n_sqz.
     """
     p = params["encoder"]
@@ -53,7 +57,10 @@ def encode(
     else:
         x_logs = matmul1x1(x, p["proj_s_w"], p["proj_s_b"]) * mask1
 
-    logw = enc.duration_predictor(p["dp"], x, mask1)[..., 0]  # [B, T]
+    x_dp = x
+    if g is not None:
+        x_dp = torch.cat([x, g[:, None, :].expand(x.shape[0], t, g.shape[-1])], dim=-1)
+    logw = enc.duration_predictor(p["dp"], x_dp, mask1)[..., 0]  # [B, T]
     w = torch.exp(logw.float()) * mask.float() * length_scale
     w_ceil = torch.ceil(w)
     y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1)
@@ -73,13 +80,15 @@ def expand_and_decode(
     noise_scale: typing.Union[float, torch.Tensor] = 1.0,
     noise: typing.Optional[torch.Tensor] = None,
     generator: typing.Optional[torch.Generator] = None,
+    g: typing.Optional[torch.Tensor] = None,
 ):
     """(x_m [B,T,C], durations [B,T]) -> mel [B, M, C], mel mask [B, M].
 
     ``mel_max_length`` (M) must be >= max(y_lengths) and a multiple of
     n_sqz.  ``noise`` [B, M, C] is the standard-normal latent noise; when
     None it is drawn from ``generator``.  The noise, its scale and the mel
-    mask take x_m's dtype.
+    mask take x_m's dtype.  ``g`` [B, gin] conditions the flow's couplings
+    (a multi-speaker voice).
     """
     b, t, c = x_m.shape
     m = mel_max_length
@@ -104,10 +113,16 @@ def expand_and_decode(
     noise = noise.to(x_m.dtype)
     noise_scale = torch.as_tensor(noise_scale, dtype=x_m.dtype, device=x_m.device)
     z = (z_m + torch.exp(z_logs) * noise * noise_scale) * z_mask[..., None]
-    mel = flows.decoder_reverse(params["decoder"], z, z_mask, cfg)
+    mel = flows.decoder_reverse(params["decoder"], z, z_mask, cfg, g=g)
     return mel, z_mask
 
 
-def decode_reverse(params: Params, cfg: GlowTTSConfig, z, z_mask):
+def decode_reverse(params: Params, cfg: GlowTTSConfig, z, z_mask, g=None):
     """Raw reverse flow: latent [B, M, C] -> mel [B, M, C]."""
-    return flows.decoder_reverse(params["decoder"], z, z_mask, cfg)
+    return flows.decoder_reverse(params["decoder"], z, z_mask, cfg, g=g)
+
+
+def speaker_embedding(params: Params, speaker_id: torch.Tensor) -> torch.Tensor:
+    """The L2-normalised ``emb_g`` rows of speaker indices [B] -> [B, gin]."""
+    g = params["emb_g"][speaker_id]
+    return g / torch.linalg.vector_norm(g, dim=-1, keepdim=True)

@@ -8,9 +8,13 @@ kind behind ``GlowTextToSpeech.phonemes_to_mels``:
   stage B  decode      means [B,T]      -> mel [B,M,C]        (flow reverse)
   stage C  vocode      mel [B,M,C]      -> int16 audio [B,M*up]
 
-Between A and B the host reads the per-sentence mel lengths and picks the
-mel bucket M.  Stage C runs length-sorted ragged row groups, each at its
-own bucketed width, with the same group plan as the JAX engine, then the
+Between A and B the host needs the mel bucket M.  ``encode_launch`` starts
+the copy of the per-sentence mel lengths to pinned host memory and returns
+at once (:class:`HostCopy`); ``decode_launch_predicted`` launches the decode
+on a bucket predicted from a learned frames-per-token bound and reads the
+lengths while it runs, decoding again at the exact bucket if the
+prediction was short.  Stage C runs length-sorted ragged row groups, each
+at its own bucketed width, with the same group plan as the JAX engine, then the
 optional bias denoiser and int16 peak normalisation on the device.
 WaveGlow's prior is drawn once for the whole batch, zeroed past each row's
 valid blocks and sliced per group, as there.  Griffin-Lim vocodes the
@@ -18,10 +22,18 @@ whole batch in one call (60 iterations, Fast Griffin-Lim momentum 0.99 by
 default, ``LARYNX_TPU_GL_MOMENTUM`` overrides), in float32 whatever the
 vocoder precision, from a random phase drawn on the vocoder's noise stream.
 
+Each vocoded part starts its own copy to pinned host memory, and
+``vocode_collect`` waits on the parts' events only, so a caller can launch
+the next batch before it collects this one (``_run_jobs``), and units of
+several voices that share a vocoder can vocode as one batch
+(:func:`_pool_rows`).
+
 ``synthesize_stream`` vocodes one utterance in haloed mel windows at fixed
 gain (HiFi-GAN only); ``decode_launch(row_seeds=...)`` draws each seeded
 row's latent noise from its own seed, which lets the batch scheduler
-(``runtime/scheduler.py``) put seeded requests in one batch.
+(``runtime/scheduler.py``) put seeded requests in one batch.  A
+multi-speaker voice takes ``speaker_ids`` at the encode, and their
+normalised embeddings ``g`` condition the encode and the decode.
 
 Precision, as in the JAX engine: ``half`` runs GlowTTS and the vocoder in
 bfloat16, ``vocoder_half`` the vocoder alone; by default the vocoder is
@@ -32,6 +44,7 @@ int16.
 """
 
 import logging
+import math
 import os
 import threading
 import typing
@@ -43,7 +56,7 @@ import larynx_tpu_torch.dsp.mel as dspmel
 import larynx_tpu_torch.dsp.stft as dsp
 from larynx_tpu_torch.audio import AudioSettings
 from larynx_tpu_torch.audio import mel_basis as make_mel_basis
-from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.device import resolve_device, to_device
 from larynx_tpu_torch.models.glow_tts import model as glow_model
 from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
@@ -69,6 +82,78 @@ RAMP_MIN_BYTES = 8_000_000
 
 # Mel frames per independently seeded block of per-row noise (row_noise).
 NOISE_BLOCK_FRAMES = 256
+
+# Safety margin of the predicted mel bucket over the learned frames-per-token
+# bound (the JAX engine's).
+BUCKET_MARGIN = 1.15
+
+
+def _env_flag(name: str, default: str) -> bool:
+    return os.environ.get(name, default).lower() not in ("0", "false", "no")
+
+
+def vocode_pool_enabled() -> bool:
+    """Units of a document that share a vocoder vocode as one pooled batch
+    (``_run_jobs``), as in the JAX engine; ``LARYNX_TPU_VOCODE_POOL=0``
+    vocodes each unit alone.  Read at each call."""
+    return _env_flag("LARYNX_TPU_VOCODE_POOL", "1")
+
+
+def fused_encode_enabled() -> bool:
+    """``encode_decode_launch_predicted``'s gate, off by default as in the
+    JAX engine (``LARYNX_TPU_FUSED_ENCODE=1`` turns it on).  Read at each
+    call."""
+    return _env_flag("LARYNX_TPU_FUSED_ENCODE", "0")
+
+
+def _pool_rows(mels, masks, n_valids, m_pool: int):
+    """The first ``n_valids[i]`` rows of each (mel [B, M, C], mask [B, M])
+    pair, their frames zero-padded to ``m_pool``, concatenated.  The padded
+    frames carry a zero mask, so a pooled row is vocoded as at its own
+    unit's width (``larynx_tpu/runtime/engine.py::_pool_rows``)."""
+    out_mel, out_mask = [], []
+    for mel, mask, n in zip(mels, masks, n_valids):
+        pad = m_pool - mel.shape[1]
+        out_mel.append(torch.nn.functional.pad(mel[:n], (0, 0, 0, pad)))
+        out_mask.append(torch.nn.functional.pad(mask[:n], (0, pad)))
+    return torch.cat(out_mel), torch.cat(out_mask)
+
+
+class HostCopy:
+    """A tensor's copy to the host, started without blocking: on CUDA into a
+    pinned host tensor by ``copy_(non_blocking=True)`` on the tensor's
+    current stream, with an event recorded behind it (the JAX engine's
+    ``_start_d2h``).  :meth:`numpy` waits on that event alone and returns
+    pageable memory, so the pinned block goes back to the allocator's
+    cache for the next copy.  A CPU tensor has nothing to wait for."""
+
+    def __init__(self, src: torch.Tensor):
+        self.shape = tuple(src.shape)
+        self._event = None
+        if src.device.type == "cuda":
+            self._host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            self._host.copy_(src, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(src.device))
+        else:
+            self._host = src
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy().copy()
+
+
+class EncodeOutput(tuple):
+    """``encode``'s (x_m, x_logs, logw, w_ceil, y_lengths, x_mask); its
+    ``lengths`` is the copy of y_lengths to the host, started at the launch.
+    It travels with the output, not on the engine: the threads that share
+    an engine each read their own."""
+
+    def __new__(cls, tensors):
+        out = super().__new__(cls, tensors)
+        out.lengths = HostCopy(tensors[4])
+        return out
 
 
 def default_vocoder_half(device=None) -> bool:
@@ -170,8 +255,6 @@ class SynthesisEngine:
         neural = vocoder_kind in ("hifi_gan", "waveglow")
         if neural and (vocoder_cfg is None or vocoder_params is None):
             raise ValueError(f"the {vocoder_kind} engine needs vocoder params and config")
-        if glow_cfg.n_speakers > 1:
-            raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
         self.device = resolve_device(device)
         self.glow_cfg = glow_cfg
         self.audio_settings = audio_settings
@@ -213,6 +296,11 @@ class SynthesisEngine:
         self._bias_spec = None  # lazy denoiser bias, built once under _bias_lock
         self._bias_lock = threading.Lock()
         self.generator_calls = 0  # vocoder runs (generator or WaveGlow infer), bias included
+        # the predicted mel bucket's state: an upper bound on mel frames per
+        # input token at length scale 1 (0: nothing observed yet), and the
+        # decodes launched again because a prediction fell short
+        self._frames_per_token = 0.0
+        self._bucket_mispredicts = 0
 
     # ------------------------------------------------------------------
     # helpers
@@ -233,7 +321,7 @@ class SynthesisEngine:
     def _row_param(self, value, b_bucket: int, ndim: int) -> torch.Tensor:
         """Scalar or per-row sequence -> [b_bucket, 1, ...] f32 tensor."""
         arr = self._row_values(value, b_bucket).reshape((b_bucket,) + (1,) * (ndim - 1))
-        return torch.from_numpy(arr).to(self.device)
+        return to_device(arr, self.device)
 
     def _generator(self, entropy: typing.List[int]) -> torch.Generator:
         """A generator on the engine's device seeded by ``SeedSequence(entropy)``."""
@@ -297,44 +385,72 @@ class SynthesisEngine:
             ids[i, : len(seq)] = seq
             lengths[i] = len(seq)
         lengths[n:] = 1
-        return (
-            torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-            b_bucket,
-        )
+        return to_device(ids, self.device), to_device(lengths, self.device), b_bucket
+
+    def _speaker_embedding(self, speaker_ids, b_bucket: int):
+        """Speaker indices -> normalised embeddings [b_bucket, gin] (padding
+        rows take speaker 0), or None for a single-speaker voice.  A
+        multi-speaker voice without speaker ids raises: its duration
+        predictor and couplings take the embedding."""
+        if "emb_g" not in self.glow_params:
+            return None
+        n_speakers = self.glow_params["emb_g"].shape[0]
+        if speaker_ids is None:
+            raise ValueError(
+                f"this GlowTTS voice has {n_speakers} speakers: pass speaker_ids "
+                "(speaker_id for one sentence); there is no default speaker"
+            )
+        idx = np.zeros((b_bucket,), dtype=np.int64)
+        idx[: len(speaker_ids)] = np.asarray(speaker_ids, dtype=np.int64)
+        if idx.min() < 0 or idx.max() >= n_speakers:
+            raise ValueError(f"speaker ids {list(speaker_ids)} outside [0, {n_speakers})")
+        return glow_model.speaker_embedding(self.glow_params, to_device(idx, self.device))
 
     @torch.inference_mode()
-    def encode_launch(self, id_seqs, length_scale=1.0):
-        """Encode a batch -> (x_m, x_logs, logw, w_ceil, y_lengths, x_mask), g.
-
-        ``g`` (speaker conditioning) is always None here."""
+    def encode_launch(self, id_seqs, length_scale=1.0, speaker_ids=None):
+        """Encode a batch -> (:class:`EncodeOutput`, g), without waiting for
+        the card: the output's ``lengths`` is the copy of y_lengths to the
+        host, already started.  ``g`` is the speaker conditioning of
+        ``speaker_ids`` (one per sentence), None for a single-speaker voice."""
         ids, lengths, b_bucket = self._pad_id_batch(id_seqs)
+        g = self._speaker_embedding(speaker_ids, b_bucket)
         out = glow_model.encode(
             self.glow_params, self.glow_cfg, ids, lengths,
-            length_scale=self._row_param(length_scale, b_bucket, 2),
+            length_scale=self._row_param(length_scale, b_bucket, 2), g=g,
         )
-        return out, None
+        return EncodeOutput(out), g
+
+    def encode_batch(self, id_seqs, length_scale=1.0, speaker_ids=None):
+        """Blocking encode -> (outputs, y_lengths numpy, g)."""
+        out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
+        return out, out.lengths.numpy(), g
 
     @torch.inference_mode()
     def decode_launch(
         self,
         enc_out,
-        y_lengths: np.ndarray,
+        y_lengths: typing.Optional[np.ndarray],
         g,
         n: int,
         noise_scale=0.667,
         seed: typing.Optional[int] = None,
         batch_index: int = 0,
         row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
+        mel_bucket_override: typing.Optional[int] = None,
     ):
-        """Flow decode at ``policy.mel_bucket(max y_length)`` -> (mel, z_mask).
+        """Flow decode at ``policy.mel_bucket(max y_length)``, or at
+        ``mel_bucket_override`` (then ``y_lengths`` may be None: the rows'
+        masks come from the lengths on the device) -> (mel, z_mask).
 
         ``row_seeds`` (one entry per sentence, None = unseeded) switches to
         per-row noise (:meth:`row_noise`), so seeded rows reproduce whatever
         their batchmates; it replaces the scalar ``seed``."""
         x_m, x_logs, _logw, w_ceil, y_dev, _mask = enc_out
         b, _t, c = x_m.shape
-        mel_bucket = self.policy.mel_bucket(int(y_lengths[:n].max()))
+        mel_bucket = (
+            mel_bucket_override if mel_bucket_override is not None
+            else self.policy.mel_bucket(int(y_lengths[:n].max()))
+        )
         noise = generator = None
         if row_seeds is not None:
             noise = self.row_noise(row_seeds, b, mel_bucket, c, batch_index)
@@ -346,21 +462,123 @@ class SynthesisEngine:
             noise_scale=self._row_param(noise_scale, b, 3),
             noise=noise,
             generator=generator,
+            g=g,
         )
+
+    # ------------------------------------------------------------------
+    # the predicted mel bucket
+
+    @staticmethod
+    def _length_scale_max(length_scale) -> float:
+        """The largest per-row length scale, floored away from zero: the
+        estimator counts frames per token at length scale 1, so a request's
+        scale divides out of an observation and multiplies into a prediction."""
+        try:
+            ls = float(max(length_scale))
+        except TypeError:
+            ls = float(length_scale)
+        return max(ls, 1e-6)
+
+    def _predict_mel_bucket(self, max_id_len: int, ls: float) -> int:
+        """The mel bucket of the learned frames-per-token bound, plus 15%."""
+        pred_frames = int(math.ceil(max_id_len * self._frames_per_token * ls * BUCKET_MARGIN))
+        return self.policy.mel_bucket(pred_frames)
+
+    def _observe_frames_per_token(self, actual: int, max_id_len: int, ls: float) -> None:
+        """Jump to a new maximum at once (an upper bound); decay slowly
+        toward smaller observations."""
+        if max_id_len <= 0:
+            return
+        obs = actual / (max_id_len * ls)
+        self._frames_per_token = (
+            obs if obs > self._frames_per_token
+            else 0.99 * self._frames_per_token + 0.01 * obs
+        )
+
+    def decode_launch_predicted(
+        self,
+        enc_out,
+        g,
+        n: int,
+        max_id_len: int,
+        noise_scale=0.667,
+        length_scale=1.0,
+        seed: typing.Optional[int] = None,
+        batch_index: int = 0,
+        row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
+    ):
+        """Decode without waiting for the lengths' copy -> (mel, z_mask,
+        y_lengths numpy).
+
+        The decode needs only the mel bucket from the host: the rows' masks
+        come from the lengths on the device, correct at any bucket at least
+        the longest row.  So the bucket is predicted from the learned bound,
+        the decode launched, and the lengths read while it runs.  A
+        prediction that falls short decodes again at the exact bucket and
+        counts in ``_bucket_mispredicts``.  A wider bucket draws other latent
+        noise (its shape changes), so explicitly seeded requests (``seed``
+        or ``row_seeds``) take the exact bucket, as in the JAX engine."""
+        ls = self._length_scale_max(length_scale)
+        decoded = None
+        bucket = 0
+        if self._frames_per_token > 0.0 and max_id_len > 0 and row_seeds is None \
+                and seed is None:
+            bucket = self._predict_mel_bucket(max_id_len, ls)
+            decoded = self.decode_launch(
+                enc_out, None, g, n, noise_scale=noise_scale, batch_index=batch_index,
+                mel_bucket_override=bucket,
+            )
+        y_lengths = enc_out.lengths.numpy()
+        actual = int(y_lengths[:n].max())
+        self._observe_frames_per_token(actual, max_id_len, ls)
+        if decoded is not None and actual <= bucket:
+            mel, z_mask = decoded
+        else:
+            if decoded is not None:
+                self._bucket_mispredicts += 1
+            mel, z_mask = self.decode_launch(
+                enc_out, y_lengths, g, n, noise_scale=noise_scale, seed=seed,
+                batch_index=batch_index, row_seeds=row_seeds,
+            )
+        return mel, z_mask, y_lengths
+
+    def encode_decode_launch_predicted(
+        self,
+        id_seqs,
+        length_scale=1.0,
+        speaker_ids=None,
+        noise_scale=0.667,
+        batch_index: int = 0,
+    ):
+        """Encode, then decode at the predicted bucket with no sync between
+        them -> (mel, z_mask, y_lengths numpy, g); None when the gate
+        (:func:`fused_encode_enabled`) is off, the estimator has observed
+        nothing yet or the batch is empty.  The JAX engine fuses the two
+        into one program; eager PyTorch launches them back to back."""
+        max_id_len = max((len(s) for s in id_seqs), default=0)
+        if self._frames_per_token <= 0.0 or max_id_len <= 0 or not fused_encode_enabled():
+            return None
+        enc_out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
+        mel, z_mask, y_lengths = self.decode_launch_predicted(
+            enc_out, g, len(id_seqs), max_id_len, noise_scale=noise_scale,
+            length_scale=length_scale, batch_index=batch_index,
+        )
+        return mel, z_mask, y_lengths, g
 
     @torch.inference_mode()
     def vocode_launch(
         self, mel, z_mask, n_valid: int, denoiser_strength, y_lengths=None,
         seed: typing.Optional[int] = None, batch_index: int = 0,
     ):
-        """Vocode the first ``n_valid`` rows -> [(int16 part, row indices)].
+        """Vocode the first ``n_valid`` rows -> [(int16 part, row indices)];
+        each part is a :class:`HostCopy` whose copy has started.
 
         ``seed`` and ``batch_index`` seed WaveGlow's prior or Griffin-Lim's
         initial phase, on a stream of their own beside the decode noise's.
         Griffin-Lim vocodes every row in one part and takes no denoiser."""
         if self.vocoder_kind == "griffin_lim":
             part = self._vocode_griffin_lim(mel, z_mask, seed, batch_index)
-            return [(part, list(range(mel.shape[0])))]
+            return [(HostCopy(part), list(range(mel.shape[0])))]
         if self.vocoder_kind == "none":
             raise RuntimeError("an engine with vocoder_kind='none' cannot vocode "
                                "(mel-only surface; use phonemes_to_mels)")
@@ -431,7 +649,7 @@ class SynthesisEngine:
         if np.array_equal(order, np.arange(n_valid)) and n_valid == b:
             mel_s, mask_s, z_s = mel, z_mask, z_full
         else:
-            idx = torch.from_numpy(order).to(self.device)
+            idx = to_device(order, self.device)
             mel_s, mask_s = mel.index_select(0, idx), z_mask.index_select(0, idx)
             z_s = None if z_full is None else z_full.index_select(0, idx)
         sorted_lens = lens[order]
@@ -456,7 +674,7 @@ class SynthesisEngine:
                 denoise,
                 z_g,
             )
-            parts.append((part, [int(i) for i in rows]))
+            parts.append((HostCopy(part), [int(i) for i in rows]))
         return parts
 
     def _ragged_group_plan(
@@ -536,10 +754,11 @@ class SynthesisEngine:
 
     @staticmethod
     def vocode_collect(parts, b: int) -> typing.List[np.ndarray]:
-        """Vocode parts -> per-row int16 arrays in original row order."""
+        """Vocode parts -> per-row int16 arrays in original row order; waits
+        on each part's copy."""
         rows: typing.List[typing.Optional[np.ndarray]] = [None] * b
         for part, idxs in parts:
-            arr = part.cpu().numpy()
+            arr = part.numpy()
             for j, i in enumerate(idxs):
                 if i < b:
                     rows[i] = arr[j]
@@ -575,8 +794,9 @@ class SynthesisEngine:
         denoiser_strength=0.0,
         row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
     ) -> typing.Tuple[typing.List[typing.Any], int]:
-        """Decode + vocode of an encoded batch -> (parts, batch rows); the
-        parts are still on the device (:meth:`vocode_collect` copies them)."""
+        """Decode + vocode of an encoded batch at the exact mel bucket ->
+        (parts, batch rows); the parts' copies have started
+        (:meth:`vocode_collect` waits on them)."""
         mel, z_mask = self.decode_launch(
             enc_out, y_lengths, g, n, noise_scale=noise_scale, seed=seed,
             batch_index=batch_index, row_seeds=row_seeds,
@@ -587,6 +807,32 @@ class SynthesisEngine:
         )
         return parts, mel.shape[0]
 
+    @torch.inference_mode()
+    def synthesize_launch_predicted(
+        self,
+        enc_out,
+        g,
+        n: int,
+        max_id_len: int,
+        noise_scale=0.667,
+        length_scale=1.0,
+        seed: typing.Optional[int] = None,
+        batch_index: int = 0,
+        denoiser_strength=0.0,
+        row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
+    ):
+        """Decode at the predicted bucket (:meth:`decode_launch_predicted`)
+        + vocode -> (parts, batch rows, y_lengths numpy)."""
+        mel, z_mask, y_lengths = self.decode_launch_predicted(
+            enc_out, g, n, max_id_len, noise_scale=noise_scale, length_scale=length_scale,
+            seed=seed, batch_index=batch_index, row_seeds=row_seeds,
+        )
+        parts = self.vocode_launch(
+            mel, z_mask, n, denoiser_strength, y_lengths=y_lengths,
+            seed=seed, batch_index=batch_index,
+        )
+        return parts, mel.shape[0], y_lengths
+
     def synthesize_batch(
         self,
         id_seqs: typing.Sequence[np.ndarray],
@@ -595,15 +841,30 @@ class SynthesisEngine:
         seed: typing.Optional[int] = None,
         denoiser_strength: float = 0.0,
         batch_index: int = 0,
+        speaker_ids: typing.Optional[typing.Sequence[int]] = None,
     ) -> typing.List[np.ndarray]:
-        """Synthesize a group of sentences (same text bucket) to int16 audio."""
+        """Synthesize a group of sentences (same text bucket) to int16 audio:
+        the gated encode + decode, else encode then the predicted decode,
+        then vocode."""
         n = len(id_seqs)
-        enc_out, g = self.encode_launch(id_seqs, length_scale)
-        y_lengths = enc_out[4].cpu().numpy()
-        parts, b_rows = self.synthesize_launch(
-            enc_out, y_lengths, g, n, noise_scale=noise_scale, seed=seed,
-            batch_index=batch_index, denoiser_strength=denoiser_strength,
-        )
+        fused = None
+        if seed is None:
+            fused = self.encode_decode_launch_predicted(
+                id_seqs, length_scale, speaker_ids=speaker_ids, noise_scale=noise_scale,
+                batch_index=batch_index,
+            )
+        if fused is not None:
+            mel, z_mask, y_lengths, _g = fused
+            parts = self.vocode_launch(mel, z_mask, n, denoiser_strength, y_lengths=y_lengths,
+                                       batch_index=batch_index)
+            b_rows = mel.shape[0]
+        else:
+            enc_out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
+            parts, b_rows, y_lengths = self.synthesize_launch_predicted(
+                enc_out, g, n, max((len(s) for s in id_seqs), default=0),
+                noise_scale=noise_scale, length_scale=length_scale, seed=seed,
+                batch_index=batch_index, denoiser_strength=denoiser_strength,
+            )
         audio_rows = self.vocode_collect(parts, b_rows)
         return self.crop_rows(audio_rows, y_lengths, n, denoiser_strength)
 
@@ -631,6 +892,7 @@ class SynthesisEngine:
         seed: typing.Optional[int] = None,
         denoiser_strength: float = 0.0,
         chunk_frames: int = 64,
+        speaker_ids: typing.Optional[typing.Sequence[int]] = None,
     ) -> typing.Iterator[np.ndarray]:
         """Chunked synthesis of ONE utterance: yields int16 audio chunks of
         ``chunk_frames`` mel frames each (the last one shorter).
@@ -639,14 +901,16 @@ class SynthesisEngine:
         frames (:func:`stream_halo_frames`, plus the STFT frames that
         straddle a boundary with the denoiser), slid inward at the mel
         bucket's edges, so its samples are those of the one-window run.
-        Chunk i + 1 is launched before chunk i is copied to the host."""
+        Chunk i + 1 is launched before chunk i is copied to the host (a
+        blocking copy).  ``speaker_ids`` ([k]) picks a multi-speaker voice's
+        speaker.  The decode runs at the exact mel bucket."""
         if self.vocoder_kind != "hifi_gan":
             raise ValueError(
                 "streaming synthesis requires a HiFi-GAN vocoder "
                 f"(engine has vocoder_kind={self.vocoder_kind!r})"
             )
-        enc_out, g = self.encode_launch([ids], length_scale)
-        y_lengths = enc_out[4].cpu().numpy()
+        enc_out, g = self.encode_launch([ids], length_scale, speaker_ids=speaker_ids)
+        y_lengths = enc_out.lengths.numpy()
         n_frames = int(y_lengths[0])
         mel, z_mask = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale,
                                          seed=seed)
@@ -676,12 +940,14 @@ class SynthesisEngine:
 
     @torch.inference_mode()
     def phonemes_to_mels(self, ids: np.ndarray, noise_scale=0.667, length_scale=1.0,
-                         seed: typing.Optional[int] = None) -> np.ndarray:
+                         seed: typing.Optional[int] = None,
+                         speaker_id: typing.Optional[int] = None) -> np.ndarray:
         """One id sequence -> its raw (normalised) mel [1, C, frames], float32
         numpy, decoded at its mel bucket with the noise of (seed or the
-        engine's seed, batch 0)."""
-        enc_out, g = self.encode_launch([np.asarray(ids)], length_scale)
-        y_lengths = enc_out[4].cpu().numpy()
+        engine's seed, batch 0); ``speaker_id`` for a multi-speaker voice."""
+        speaker_ids = None if speaker_id is None else [int(speaker_id)]
+        enc_out, y_lengths, g = self.encode_batch([np.asarray(ids)], length_scale,
+                                                  speaker_ids=speaker_ids)
         mel, _ = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale, seed=seed)
         frames = int(y_lengths[0])
         return mel[0:1, :frames].float().transpose(1, 2).cpu().numpy()

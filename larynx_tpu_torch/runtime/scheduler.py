@@ -1,5 +1,6 @@
 # Copied from larynx_tpu/runtime/scheduler.py, driving the port's engine:
-# only the package names, the logger and the launch comments differ.
+# only the package names, the logger and the launch comments differ, and
+# y_lengths is read through the copy that encode_launch started.
 """Request-coalescing batch scheduler.
 
 Concurrent requests enqueue sentence-level jobs into a shared scheduler; a
@@ -171,7 +172,7 @@ class BatchScheduler:
         self._batch_counter += 1
         try:
             enc_out, g = enc
-            y_lengths = enc_out[4].cpu().numpy()
+            y_lengths = enc_out.lengths.numpy()
             strengths = [job.denoiser_strength for job in group]
             deterministic_vocoder = (
                 getattr(engine, "vocoder_kind", "") == "hifi_gan"

@@ -12,9 +12,9 @@ threads or the shared ``BatchScheduler``'s thread, never on the event
 loop's thread.
 
 ``/api/stats`` reports the scheduler's counters, the version and one entry
-per cached engine (its vocoder kind, device and vocoder dtype); the JAX
-route's per-engine predicted-bucket counters have no counterpart here, as
-the port decodes at the measured bucket.
+per cached engine: its predicted mel bucket's state (``frames_per_token``,
+``bucket_mispredicts``) as the JAX route has it, and its vocoder kind,
+device and vocoder dtype.
 """
 
 import asyncio
@@ -572,11 +572,14 @@ def create_app(settings: typing.Optional[ServerSettings] = None) -> web.Applicat
     async def api_stats(request: web.Request) -> web.Response:
         """Operational counters (no reference equivalent): batching
         effectiveness of the cross-request scheduler, and the cached
-        engines."""
+        engines' predicted decode-bucket health (a mispredict costs one
+        discarded decode)."""
         engines = {}
         for key, engine in list(larynx_tpu_torch._ENGINE_CACHE.items()):
             if engine is not None:
                 engines[str(key)] = {
+                    "frames_per_token": round(engine._frames_per_token, 3),
+                    "bucket_mispredicts": engine._bucket_mispredicts,
                     "vocoder_kind": engine.vocoder_kind,
                     "device": str(engine.device),
                     "vocoder_dtype": str(engine.voc_dtype).replace("torch.", ""),

@@ -7,8 +7,10 @@ with per-layer / per-block params stacked on leading axes (WaveGlow keeps
 its per-layer params as lists).  :func:`params_from_jax` transposes once,
 at load, to PyTorch's layout: convs ``[C_out, C_in, k]``, transposed convs
 ``[C_in, C_out, k]`` and 1x1 projections ``[C_out, C_in]`` (leading stack
-axes are kept).  WaveGlow's invertible 1x1s (``convinv.w``/``w_inv``) are
-already ``[C_out, C_in]`` in the native layout and stay as they are.
+axes are kept; a multi-speaker voice's coupling ``cond_w`` [1, gin, 2h * L]
+becomes [1, 2h * L, gin] and its ``emb_g`` [n_speakers, gin] stays).
+WaveGlow's invertible 1x1s (``convinv.w``/``w_inv``) are already
+``[C_out, C_in]`` in the native layout and stay as they are.
 
 :func:`init_params` draws a random native tree with the JAX package's
 shapes and distributions from a ``torch.Generator``, so a machine without
@@ -31,7 +33,7 @@ Params = typing.Dict[str, typing.Any]
 _CONV_KEYS = {"w", "conv1_w", "conv2_w", "in_w"}
 _MAT_KEYS = {
     "q_w", "k_w", "v_w", "o_w", "proj_w", "proj_m_w", "proj_s_w",
-    "start_w", "end_w", "res_skip_w",
+    "start_w", "end_w", "res_skip_w", "cond_w",
 }
 _WAVEGLOW_MAT_KEYS = {"start_w", "cond_w", "res_skip_w", "end_w"}
 
@@ -72,8 +74,6 @@ def params_from_jax(tree: Params, kind: str, device=None) -> Params:
     """
     if kind not in ("glow_tts", "hifi_gan", "waveglow"):
         raise ValueError(f"unknown parameter kind {kind!r}")
-    if kind == "glow_tts" and "emb_g" in tree:
-        raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -158,8 +158,6 @@ def _stack(trees):
 
 
 def _init_glow_tts(gen: torch.Generator, cfg: GlowTTSConfig) -> Params:
-    if cfg.n_speakers > 1:
-        raise NotImplementedError("multi-speaker GlowTTS voices are not ported yet")
     h, dk = cfg.enc_channels, cfg.k_channels
     zeros, ones = np.zeros, np.ones
     encoder: Params = {"emb": _normal(gen, (cfg.num_symbols, h), h**-0.5)}
@@ -223,19 +221,25 @@ def _init_glow_tts(gen: torch.Generator, cfg: GlowTTSConfig) -> Params:
                 rs_w.append(np.concatenate([zeros((hd, hd)), w[0]], axis=-1))
                 rs_b.append(np.concatenate([zeros(hd), b]))
         start_w, start_b = _conv_init(gen, 1, c_sqz // 2, hd)
+        wn = {
+            "in_w": np.stack(in_w), "in_b": np.stack(in_b),
+            "res_skip_w": np.stack(rs_w), "res_skip_b": np.stack(rs_b),
+        }
+        if cfg.n_speakers > 1 and cfg.gin_channels > 0:  # speaker conditioning 1x1
+            wn["cond_w"], wn["cond_b"] = _conv_init(
+                gen, 1, cfg.gin_channels, 2 * hd * cfg.n_block_layers
+            )
         blocks.append({
             "actnorm": {"logs": zeros(c_sqz), "bias": zeros(c_sqz)},
             "invconv": {"weight": q, "weight_inv": np.linalg.inv(q)},
             "coupling": {
                 "start_w": start_w[0], "start_b": start_b,
-                "end_w": zeros((hd, c_sqz)), "end_b": zeros(c_sqz),
-                "wn": {
-                    "in_w": np.stack(in_w), "in_b": np.stack(in_b),
-                    "res_skip_w": np.stack(rs_w), "res_skip_b": np.stack(rs_b),
-                },
+                "end_w": zeros((hd, c_sqz)), "end_b": zeros(c_sqz), "wn": wn,
             },
         })
     tree = {"encoder": encoder, "decoder": _stack(blocks)}
+    if cfg.n_speakers > 1:
+        tree["emb_g"] = _uniform(gen, (cfg.n_speakers, cfg.gin_channels), 0.1)
     return _as_float32(tree)
 
 

@@ -59,12 +59,26 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("call", [
-    lambda: larynx_tpu_torch.text_to_speech("Hello.", device="cpu", interleaved_batching=True),
-], ids=["interleaved"])
+def _interleaved_runs():
+    """Interleaved batching is ported: the call returns its results'
+    iterator, which fails only on the missing voice."""
+    results = larynx_tpu_torch.text_to_speech(
+        "Hello.", device="cpu", interleaved_batching=True, custom_voices_dir="/nonexistent",
+        no_download=True)
+    with pytest.raises(RuntimeError, match="Failed to load voice"):
+        list(results)
+
+
+def _tacotron2_raises():
+    with pytest.raises(NotImplementedError, match="Tacotron2"):
+        larynx_tpu_torch.load_tts_model("tacotron2", "/nonexistent")
+
+
+@pytest.mark.parametrize("call", [_interleaved_runs, _tacotron2_raises],
+                         ids=["interleaved", "tacotron2"])
 def test_unported_options_raise(call):
-    with pytest.raises(NotImplementedError):
-        call()
+    """What is not ported raises NotImplementedError; what is, runs."""
+    call()
 
 
 SLICE_MODULES = ["larynx_tpu_torch.server", "larynx_tpu_torch.server.app",
@@ -72,8 +86,16 @@ SLICE_MODULES = ["larynx_tpu_torch.server", "larynx_tpu_torch.server.app",
                  "larynx_tpu_torch.griffin_lim", "larynx_tpu_torch.models.griffin_lim"]
 
 
-@pytest.mark.parametrize("module", SLICE_MODULES)
-def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
+# the batch path (_run_jobs, pooling, the predicted bucket, the lengths'
+# copy) and multi-speaker GlowTTS
+BATCH_PATH_MODULES = ["larynx_tpu_torch", "larynx_tpu_torch.runtime.engine",
+                      "larynx_tpu_torch.runtime.scheduler", "larynx_tpu_torch.device",
+                      "larynx_tpu_torch.weights", "larynx_tpu_torch.glow_tts",
+                      "larynx_tpu_torch.models.glow_tts.model",
+                      "larynx_tpu_torch.models.glow_tts.flows"]
+
+
+def _loads_neither_jax_nor_larynx_tpu(module):
     """Imported in a fresh interpreter, the module brings in no module of
     jax or of larynx_tpu, directly or through what it imports."""
     code = (f"import sys, {module}; "
@@ -83,6 +105,16 @@ def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
                           cwd=Path(__file__).resolve().parent.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
+    _loads_neither_jax_nor_larynx_tpu(module)
+
+
+@pytest.mark.parametrize("module", BATCH_PATH_MODULES)
+def test_batch_path_and_multispeaker_load_neither_jax_nor_larynx_tpu(module):
+    _loads_neither_jax_nor_larynx_tpu(module)
 
 
 def test_create_app_without_gpu_or_device_raises(monkeypatch):

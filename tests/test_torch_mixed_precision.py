@@ -99,6 +99,24 @@ CORRELATION = 0.999
 LEVEL = 0.01 * 32767
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_model_caches():
+    """Both packages' model and engine caches, emptied around this module:
+    its entry-point tests load the shared test voice and vocoder with
+    ``half=True``, and the JAX package's ``HiFiGanVocoder`` keeps bf16
+    params for as long as it is cached, which would reach the float32
+    comparisons of a later test file in the same worker."""
+    def clear():
+        for module in (larynx_tpu, larynx_tpu_torch):
+            module._TTS_MODEL_CACHE.clear()
+            module._VOCODER_MODEL_CACHE.clear()
+            module._ENGINE_CACHE.clear()
+
+    clear()
+    yield
+    clear()
+
+
 def _bf16_np(a):
     """numpy values rounded to bfloat16, as float32."""
     return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
