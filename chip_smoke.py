@@ -76,7 +76,19 @@ Phases (any failure exits non-zero):
      of 8 speakers against the CPU path, the stream, the per-model
      ``phonemes_to_mels`` and the missing speaker id's ValueError; then both
      kernels at every shape the phase gave them.
-Phases 2-8, 11 and 12 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
+ 13. Tacotron2 and checkpoint import, in float32: a Tacotron2 voice at
+     NVIDIA's hparams (random weights, the gate held off so that every decode
+     runs its 1000 steps) through ``text_to_speech`` with HiFi-GAN
+     universal_large (27 MRF launches) and WaveGlow (96 WN launches), the
+     stream and ``/api/tts``, all through the unfused fallback; the decode's
+     time and kernel launches per step and the card's busy share over it; the
+     CUDA path against the CPU path under the same prenet keep masks (one
+     ``_decoder_step`` from identical states, the whole decode's mel per 100
+     steps, the audio by correlation); the same Tacotron2 and universal_large
+     weights as NVIDIA/HiFi-GAN-named ``generator.pth`` files, loaded with
+     ``backend="pytorch"``: equal trees, 0 LSB from the ``.npz`` voice; then
+     both kernels at every shape the phase gave them.
+Phases 2-8 and 11-13 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
 CUDA default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
 against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
 The MRF rows of phase 2 include the stream path's chunk windows (B=1).
@@ -229,6 +241,29 @@ MULTI_GIN = 256
 # launch (the JAX package's bound, tests/test_pipeline.py): only the padded
 # width it is computed at changes
 POOL_LSB = 1
+# Phase 13: a Tacotron2 voice at NVIDIA's hparams (Tacotron2Config's defaults),
+# random weights from this seed, the harvard voice's phonemes
+T2_VOICE = "en-us_harvard-tacotron2"
+T2_SEED = 20
+# With random weights the gate's logit sits near 0, so where it first
+# crosses the threshold is left to chance; at bias -50 no row stops and every
+# decode runs all its steps (the pangram's 151 ids: text bucket 192, 1000)
+T2_GATE_BIAS = -50.0
+# _decoder_step, CUDA against the CPU path from identical states and inputs,
+# TF32 off: the products sum up to 1536 float32 terms in other orders
+# (~1e-7 relative on values of O(1)), and the softmax over 192 positions
+# and the cell's nonlinearities keep that scale; 1e-5 catches any gate
+# order, mask or layout fault, which is O(0.1)
+T2_STEP_TOLERANCE = 1e-5
+# The whole 1000-step decode's mel, CUDA against CPU, under the same keep
+# masks: measured on the H100 (PERF.md, PR 9), the largest error per 100
+# steps stays at 2.0e-8 to 2.2e-8 from the first block to the last, on mels
+# of |0.062|: the random LSTMs contract, so the error does not grow.  1e-6
+# is 45 times that; a mask, gate or layout fault moves the mel by O(1e-2).
+T2_DECODE_TOLERANCE = 1e-6
+# The audio of those mels (the CUDA text_to_speech against the CPU mel
+# vocoded on the CPU): measured 1 - 1.5e-9, 1 LSB.
+T2_AUDIO_CORRELATION = 0.9999
 
 
 def log(*args):
@@ -1622,11 +1657,14 @@ def counting_vocode_launches(calls: list):
         SynthesisEngine.vocode_launch = launch
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, counts=None):
     """(fn's result, host wall ms, the card's busy ms) of one traced run:
     the union of the device intervals (kernels, copies, memsets) in
     torch.profiler's trace, so that a copy that overlaps a kernel counts
-    once; None when the trace holds no device activity."""
+    once; None when the trace holds no device activity.  ``counts`` (a
+    Counter), when given, gets the number of intervals of each kind and, as
+    ``host_sync``, of the host's waits for the card (synchronisations and
+    blocking copies)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1641,6 +1679,11 @@ def device_busy_ms(fn):
         events = json.loads(trace.read_text())["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if counts is not None:
+        counts.update(e["cat"] for e in events
+                      if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        counts["host_sync"] += sum(1 for e in events if e.get("cat") == "cuda_runtime" and (
+            "Synchronize" in e.get("name", "") or e.get("name") == "cudaMemcpy"))
     busy, end = 0.0, float("-inf")
     for s0, s1 in spans:
         if s1 > end:
@@ -2487,6 +2530,347 @@ def daemon_path(root: Path, text, quiet, strength, served) -> str:
     return msg
 
 
+def tacotron2_state_dict(tree) -> dict:
+    """The NVIDIA/tacotron2 state dict whose conversion
+    (``convert/torch_import.py::tacotron2_params_from_state_dict``) is the
+    native ``tree``: the converter's names and layouts, inverted.  Each LSTM
+    keeps its fused bias as ``bias_ih`` beside a zero ``bias_hh``."""
+    sd = {}
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+    def linear(prefix, p):
+        sd[f"{prefix}.weight"] = tensor(np.asarray(p["w"]).T)
+        if "b" in p:
+            sd[f"{prefix}.bias"] = tensor(p["b"])
+
+    def lstm(prefix, p, suffix=""):
+        sd[f"{prefix}.weight_ih{suffix}"] = tensor(np.asarray(p["w_ih"]).T)
+        sd[f"{prefix}.weight_hh{suffix}"] = tensor(np.asarray(p["w_hh"]).T)
+        sd[f"{prefix}.bias_ih{suffix}"] = tensor(p["b"])
+        sd[f"{prefix}.bias_hh{suffix}"] = tensor(np.zeros_like(p["b"]))
+
+    def conv_bn(prefix, p):
+        sd[f"{prefix}.0.conv.weight"] = tensor(np.transpose(p["w"], (2, 1, 0)))
+        sd[f"{prefix}.0.conv.bias"] = tensor(p["b"])
+        for name, key in (("weight", "gamma"), ("bias", "beta"), ("running_mean", "mean"),
+                          ("running_var", "var")):
+            sd[f"{prefix}.1.{name}"] = tensor(p["bn"][key])
+
+    sd["embedding.weight"] = tensor(tree["embedding"])
+    for i, conv in enumerate(tree["encoder"]["convs"]):
+        conv_bn(f"encoder.convolutions.{i}", conv)
+    lstm("encoder.lstm", tree["encoder"]["lstm_fw"], "_l0")
+    lstm("encoder.lstm", tree["encoder"]["lstm_bw"], "_l0_reverse")
+    dec = tree["decoder"]
+    for i, layer in enumerate(dec["prenet"]):
+        linear(f"decoder.prenet.layers.{i}.linear_layer", layer)
+    lstm("decoder.attention_rnn", dec["attention_rnn"])
+    att, ap = dec["attention"], "decoder.attention_layer"
+    for key, module in (("query", "query_layer"), ("memory", "memory_layer"), ("v", "v")):
+        linear(f"{ap}.{module}.linear_layer", att[key])
+    sd[f"{ap}.location_layer.location_conv.conv.weight"] = tensor(
+        np.transpose(att["location_conv"], (2, 1, 0)))
+    linear(f"{ap}.location_layer.location_dense.linear_layer", att["location_dense"])
+    lstm("decoder.decoder_rnn", dec["decoder_rnn"])
+    linear("decoder.linear_projection.linear_layer", dec["projection"])
+    linear("decoder.gate_layer.linear_layer", dec["gate"])
+    for i, conv in enumerate(tree["postnet"]["convs"]):
+        conv_bn(f"postnet.convolutions.{i}", conv)
+    return sd
+
+
+def hifi_gan_state_dict(tree) -> dict:
+    """The HiFi-GAN Generator state dict whose conversion
+    (``convert/torch_import.py::hifi_gan_params_from_state_dict``) is the
+    native ``tree``."""
+    sd = {}
+
+    def conv(prefix, p, perm=(2, 1, 0)):
+        sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(np.transpose(p["w"], perm)))
+        sd[f"{prefix}.bias"] = torch.from_numpy(np.ascontiguousarray(p["b"]))
+
+    conv("conv_pre", tree["conv_pre"])
+    for i, up in enumerate(tree["ups"]):  # ConvTranspose1d weights are [C_in, C_out, k]
+        conv(f"ups.{i}", up, perm=(1, 2, 0))
+    for i, block in enumerate(tree["resblocks"]):
+        for name, convs in block.items():
+            for j, p in enumerate(convs):
+                conv(f"resblocks.{i}.{name}.{j}", p)
+    conv("conv_post", tree["conv_post"])
+    return sd
+
+
+def stage_tacotron2_voices(root: Path):
+    """Phase 13's voices beside stage_voices' ones: ``T2_VOICE`` (Tacotron2Config's
+    defaults, random weights from ``T2_SEED``, gate bias ``T2_GATE_BIAS``) with
+    a ``generator.npz``, and the same weights as NVIDIA-named ``generator.pth``
+    files of that voice and of universal_large, in dirs of their own."""
+    import dataclasses
+    import shutil
+
+    from larynx_tpu_torch.convert.native import load_params, save_params
+    from larynx_tpu_torch.models.tacotron2 import Tacotron2Config
+    from larynx_tpu_torch.weights import init_params
+
+    cfg = Tacotron2Config()
+    tree = init_params(torch.Generator().manual_seed(T2_SEED), cfg)
+    tree["decoder"]["gate"]["b"][:] = T2_GATE_BIAS
+    config = json.dumps({"audio": AUDIO, "model": dataclasses.asdict(cfg)})
+    phonemes = "".join(f"{i} {p}\n" for i, p in enumerate(PHONEMES))
+    for name, write in (("harvard-tacotron2", lambda d: save_params(d / "generator.npz", tree)),
+                        ("harvard_pth-tacotron2", lambda d: torch.save(
+                            {"state_dict": tacotron2_state_dict(tree), "iteration": 0},
+                            d / "generator.pth"))):
+        voice_dir = root / "en-us" / name
+        voice_dir.mkdir(parents=True)
+        (voice_dir / "config.json").write_text(config)
+        (voice_dir / "phonemes.txt").write_text(phonemes)
+        write(voice_dir)
+    voc_dir = root / "hifi_gan" / "universal_large"
+    pth_dir = root / "hifi_gan" / "universal_large_pth"
+    pth_dir.mkdir(parents=True)
+    shutil.copy(voc_dir / "config.json", pth_dir / "config.json")
+    torch.save({"generator": hifi_gan_state_dict(load_params(voc_dir / "generator.npz"))},
+               pth_dir / "generator.pth")
+
+
+def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: set):
+    """Phase 13, float32: a Tacotron2 voice at full width through
+    ``text_to_speech`` (HiFi-GAN universal_large and WaveGlow), the stream and
+    ``/api/tts``, all through the unfused fallback; the decode's time and
+    launches per step and the card's busy share over it; the CUDA path against
+    the CPU path under the same prenet keep masks (dropout on, p = 0.5); the
+    same weights from NVIDIA-named ``.pth`` files.  Adds the shapes that the
+    CUDA runs give the kernels to ``mrf_shapes`` and ``wn_shapes``; returns
+    launches and measurements."""
+    import collections
+
+    import larynx_tpu_torch
+    from larynx_tpu_torch.models.tacotron2 import model as t2_model
+    from larynx_tpu_torch.server.app import ServerSettings
+    from larynx_tpu_torch.tacotron2 import _DEFAULT_SEED, _MAX_FRAMES_PER_TOKEN, text_bucket
+
+    cuda = torch.device("cuda")
+    out = {"launches": {}, "ms": {}}
+    kwargs = dict(voice_or_lang=T2_VOICE, custom_voices_dir=root, no_download=True)
+    job = larynx_tpu_torch._build_jobs(PANGRAM, T2_VOICE, "high", custom_voices_dir=root,
+                                       no_download=True)[0]
+    model, vocoder, ids = job["tts_model"], job["vocoder_model"], job["ids"]
+    cfg = model.model_config
+    t_bucket = text_bucket(len(ids))
+    steps = min(cfg.max_decoder_steps, _MAX_FRAMES_PER_TOKEN * t_bucket)
+    n_samples = steps * 256
+    per_call = mrf_launches_per_call(vocoder.model_config)
+
+    def tts(text=PANGRAM, device="cuda", **extra):
+        return [r.audio for r in larynx_tpu_torch.text_to_speech(text, device=device,
+                                                                 **dict(kwargs, **extra))]
+
+    def check_audio(audio, label):
+        if audio.dtype != np.int16 or audio.shape != (n_samples,):
+            raise AssertionError(f"tacotron2 {label}: audio {audio.dtype} {audio.shape}, "
+                                 f"expected ({n_samples},): no gate fires")
+        if np.abs(audio.astype(np.int32)).max() < 1000 or audio.astype(np.float64).std() < 10:
+            raise AssertionError(f"tacotron2 {label}: silent audio")
+
+    with recording_mrf_shapes(mrf_shapes), recording_wn_shapes(wn_shapes):
+        tts()  # warm-up: cuDNN plans, the voice's params on the card
+        mrf_block.mrf_section.launches = 0
+        (audio,), wall = timed_once(tts)
+        n_mrf = mrf_block.mrf_section.launches
+        check_audio(audio, "text_to_speech")
+        if n_mrf != per_call:
+            raise AssertionError(f"tacotron2 text_to_speech: {n_mrf} MRF launches, "
+                                 f"expected {per_call}")
+        out["launches"]["tacotron2 text_to_speech, pangram"] = n_mrf
+        mels, t_acoustic = timed_once(lambda: model.phonemes_to_mels(ids, device="cuda"))
+        if mels.shape != (1, cfg.mel_channels, steps) or not np.isfinite(mels).all():
+            raise AssertionError(f"tacotron2 phonemes_to_mels: {mels.shape}")
+        settings = job["audio_settings"]
+        mels_pp = settings.dynamic_range_compression(settings.db_to_amp(settings.denormalize(mels)))
+        _, t_vocode = timed_once(lambda: vocoder.mels_to_audio(mels_pp, device="cuda"))
+        out["ms"].update({"tacotron2 text_to_speech": wall, "tacotron2 phonemes_to_mels":
+                          t_acoustic, "tacotron2 HiFi-GAN mels_to_audio": t_vocode})
+        log(f"tacotron2 text_to_speech, pangram ({len(ids)} ids, text bucket {t_bucket}, "
+            f"{steps} decoder steps, {n_samples / 22050:.2f} s of audio), HiFi-GAN "
+            f"universal_large, f32: wall {wall:.3f} ms, RTF {wall / 1e3 / (n_samples / 22050):.6f}; "
+            f"phonemes_to_mels {t_acoustic:.3f} ms, mels_to_audio {t_vocode:.3f} ms; MRF launches "
+            f"{n_mrf}")
+
+        # the decode alone, on the voice's device params and the model's masks
+        params = model._device_params.get(cuda, torch.float32)
+        ids_t = torch.zeros((1, t_bucket), dtype=torch.long)
+        ids_t[0, : len(ids)] = torch.from_numpy(ids)
+        len_t = torch.tensor([len(ids)], dtype=torch.int32)
+        keep = t2_model.draw_keep_masks(cfg, steps, 1, _DEFAULT_SEED)  # the model's masks
+
+        def decode():
+            return t2_model.decode_inference(params, cfg, memory, mask, steps, keep.cuda())
+
+        with torch.inference_mode():
+            (memory, mask), t_encode = timed_once(
+                lambda: t2_model.encode(params, cfg, ids_t.cuda(), len_t.cuda()))
+            decode()
+            (mel_gpu, _, lengths), t_decode = timed_once(decode)
+            _, t_postnet = timed_once(lambda: t2_model.postnet(params, cfg, mel_gpu))
+            events = collections.Counter()
+            _, traced, busy = device_busy_ms(decode, events)
+        if lengths.tolist() != [steps]:
+            raise AssertionError(f"tacotron2 decode: lengths {lengths.tolist()}, expected [{steps}]")
+        busy_share = None if busy is None else busy / traced
+        out["ms"].update({"tacotron2 encode": t_encode, "tacotron2 decode": t_decode,
+                          "tacotron2 decode per step": t_decode / steps,
+                          "tacotron2 postnet": t_postnet})
+        out["decode"] = {"steps": steps, "ms": t_decode, "traced_ms": traced, "busy_ms": busy,
+                         "kernels": events["kernel"], "memcpy": events["gpu_memcpy"],
+                         "memset": events["gpu_memset"], "host_syncs": events["host_sync"]}
+        log(f"tacotron2 encode (B=1, T={t_bucket}, BiLSTM step by step) {t_encode:.3f} ms, "
+            f"postnet {t_postnet:.3f} ms (host clock)")
+        log(f"tacotron2 decode, {steps} steps, B=1, T={t_bucket}: {t_decode:.3f} ms "
+            f"({t_decode / steps:.4f} ms per step, host clock); traced {traced:.3f} ms, the card "
+            f"busy {busy if busy is None else round(busy, 3)} ms "
+            f"({'not measured' if busy_share is None else f'{busy_share:.1%}'}); "
+            f"{events['kernel']} kernel launches ({events['kernel'] / steps:.1f} per step), "
+            f"{events['gpu_memcpy']} copies, {events['gpu_memset']} memsets, "
+            f"{events['host_sync']} host waits for the card (the trace's closing one included)")
+
+        # WaveGlow through the fallback: one bucketed call of the 1000-frame mel
+        tts(vocoder_or_quality="waveglow")
+        wn_layer.fused_wn_layer_state.launches = 0
+        (wg_audio,), t_wg = timed_once(lambda: tts(vocoder_or_quality="waveglow"))
+        n_wn = wn_layer.fused_wn_layer_state.launches
+        check_audio(wg_audio, "waveglow")
+        wg_cfg = larynx_tpu_torch.get_vocoder_model("waveglow", custom_voices_dir=root,
+                                                    no_download=True).model_config
+        if n_wn != wg_cfg.flows * wg_cfg.wn_layers:  # one group call of the 1000-frame mel
+            raise AssertionError(f"tacotron2 waveglow: {n_wn} WN launches, expected "
+                                 f"{wg_cfg.flows * wg_cfg.wn_layers}")
+        out["launches"]["tacotron2 text_to_speech, pangram, waveglow"] = n_wn
+        out["ms"]["tacotron2 text_to_speech waveglow"] = t_wg
+        log(f"tacotron2 text_to_speech, pangram, WaveGlow wn_256: wall {t_wg:.3f} ms, WN launches "
+            f"{n_wn}")
+
+        # the stream: one chunk per sentence through the fallback
+        mrf_block.mrf_section.launches = 0
+        chunks, t_stream = timed_once(lambda: list(larynx_tpu_torch.stream_text_to_speech(
+            PANGRAM, device="cuda", **kwargs)))
+        n_stream = mrf_block.mrf_section.launches
+        if len(chunks) != 1 or lsb(chunks[0], audio) > AUDIO_TOLERANCE_LSB or n_stream != per_call:
+            raise AssertionError(f"tacotron2 stream: {len(chunks)} chunks, {n_stream} MRF "
+                                 "launches, or not the text_to_speech audio")
+        out["launches"]["tacotron2 stream_text_to_speech, pangram"] = n_stream
+        out["ms"]["tacotron2 stream"] = t_stream
+        log(f"tacotron2 stream_text_to_speech: 1 chunk in {t_stream:.3f} ms, "
+            f"{lsb(chunks[0], audio)} LSB from text_to_speech, MRF launches {n_stream}")
+
+        # one /api/tts request
+        server = ServedApp(ServerSettings(voices_dir=str(root), quality="high",
+                                          denoiser_strength=0.0, device="cuda"))
+        try:
+            server.wav("/api/tts", voice=T2_VOICE, text=PANGRAM)
+            mrf_block.mrf_section.launches = 0
+            served, t_served = timed_once(lambda: server.wav("/api/tts", voice=T2_VOICE,
+                                                             text=PANGRAM))
+            n_served = mrf_block.mrf_section.launches
+        finally:
+            server.close()
+        if served.shape != audio.shape or lsb(served, audio) > AUDIO_TOLERANCE_LSB or \
+                n_served != per_call:
+            raise AssertionError(f"tacotron2 /api/tts: {served.shape}, {n_served} MRF launches")
+        out["launches"]["tacotron2 server /api/tts"] = n_served
+        out["ms"]["tacotron2 server /api/tts"] = t_served
+        log(f"tacotron2 server /api/tts: {t_served:.3f} ms, {lsb(served, audio)} LSB from "
+            f"text_to_speech, MRF launches {n_served}")
+
+        # the same weights from NVIDIA-named .pth files, backend "pytorch"
+        pth = larynx_tpu_torch.get_tts_model("en-us_harvard_pth-tacotron2", backend="pytorch",
+                                              custom_voices_dir=root, no_download=True)
+        pth_voc = larynx_tpu_torch.get_vocoder_model("hifi_gan/universal_large_pth",
+                                                     backend="pytorch", custom_voices_dir=root,
+                                                     no_download=True)
+        for label, a, b in (("tacotron2", pth.params, model.params),
+                            ("universal_large", pth_voc.params, vocoder.params)):
+            flat_a, flat_b = dict(flat_tree(a)), dict(flat_tree(b))
+            if flat_a.keys() != flat_b.keys() or not all(
+                    torch.equal(flat_a[k], flat_b[k]) for k in flat_a):
+                raise AssertionError(f"{label} from generator.pth: another tree than the .npz's")
+        prior = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            (pth_audio,) = tts(voice_or_lang="en-us_harvard_pth-tacotron2", backend="pytorch",
+                               vocoder_or_quality="hifi_gan/universal_large_pth")
+            (npz_audio,) = tts()
+        finally:
+            torch.backends.cudnn.deterministic = prior
+        if pth_audio.shape != npz_audio.shape or lsb(pth_audio, npz_audio) != 0:
+            raise AssertionError("tacotron2 .pth voice: not the .npz voice's audio")
+        log(f"checkpoint import: Tacotron2 ({len(flat_tree(model.params))} tensors) and "
+            f"universal_large ({len(flat_tree(vocoder.params))}) from NVIDIA/HiFi-GAN-named "
+            f"generator.pth files equal the .npz trees; the .pth voice's audio is 0 LSB from the "
+            f".npz voice's")
+
+    # CUDA against the CPU path under the same keep masks: one step from
+    # identical states, then the whole decode and the audio
+    cpu_params = model.params
+    memory_cpu, mask_cpu = memory.cpu(), mask.cpu()
+    processed = torch.nn.functional.linear(memory_cpu,
+                                           cpu_params["decoder"]["attention"]["memory"]["w"])
+    gen = torch.Generator().manual_seed(T2_SEED + 1)
+    state = {k: torch.randn(v.shape, generator=gen) * (0.1 if k.startswith("attn_w") else 0.5)
+             for k, v in t2_model._decoder_state0(cfg, 1, t_bucket, memory_cpu).items()}
+    pre = torch.relu(torch.randn((1, cfg.prenet_dim), generator=gen))
+    with torch.inference_mode():
+        step_gpu = t2_model._decoder_step(params, cfg, {k: v.cuda() for k, v in state.items()},
+                                          pre.cuda(), memory, processed.cuda(), mask)
+        step_cpu = t2_model._decoder_step(cpu_params, cfg, state, pre, memory_cpu, processed,
+                                          mask_cpu)
+    step_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                   zip([*step_gpu[0].values(), *step_gpu[1:]], [*step_cpu[0].values(), *step_cpu[1:]]))
+    if not step_err <= T2_STEP_TOLERANCE:
+        raise AssertionError(f"tacotron2 _decoder_step CUDA vs CPU: {step_err:.3g} "
+                             f"(tol {T2_STEP_TOLERANCE})")
+    start = time.perf_counter()
+    with torch.inference_mode():
+        mel_cpu, _, lengths_cpu = t2_model.decode_inference(
+            cpu_params, cfg, *t2_model.encode(cpu_params, cfg, ids_t, len_t), steps, keep)
+        t_cpu_decode = 1e3 * (time.perf_counter() - start)
+        post_cpu = (mel_cpu + t2_model.postnet(cpu_params, cfg, mel_cpu)).transpose(1, 2)
+    err = (mel_gpu.cpu() - mel_cpu).abs()[0].amax(dim=-1)  # [steps]
+    per_100 = [float(err[i : i + 100].max()) for i in range(0, steps, 100)]
+    scale = float(mel_cpu.abs().max())
+    if lengths_cpu.tolist() != [steps] or not max(per_100) <= T2_DECODE_TOLERANCE:
+        raise AssertionError(f"tacotron2 decode CUDA vs CPU: largest error per 100 steps "
+                             f"{per_100} (tol {T2_DECODE_TOLERANCE})")
+    # the CPU mel through the fallback's chain and the vocoder on the CPU,
+    # against the CUDA text_to_speech audio (the same masks: the model's seed)
+    post_pp = settings.dynamic_range_compression(settings.db_to_amp(settings.denormalize(
+        post_cpu.numpy())))
+    cpu_audio, t_cpu = timed_once(lambda: vocoder.mels_to_audio(post_pp, device="cpu"))
+    corr = correlation(audio, cpu_audio)
+    if cpu_audio.shape != audio.shape or not corr > T2_AUDIO_CORRELATION:
+        raise AssertionError(f"tacotron2 audio CUDA vs CPU: {cpu_audio.shape}, correlation {corr}")
+    out["cuda_vs_cpu"] = {"step": step_err, "decode_per_100": per_100, "mel_scale": scale,
+                          "audio_correlation": corr, "audio_lsb": lsb(audio, cpu_audio)}
+    log(f"tacotron2 CUDA vs CPU (same keep masks, dropout p {cfg.p_prenet_dropout}): "
+        f"_decoder_step {step_err:.3g} (tol {T2_STEP_TOLERANCE}); the {steps}-step decode's mel "
+        f"(|mel| <= {scale:.4f}), largest error per 100 steps "
+        f"{', '.join(f'{e:.3g}' for e in per_100)} (tol {T2_DECODE_TOLERANCE}; CPU decode "
+        f"{t_cpu_decode / 1e3:.1f} s); audio correlation {corr:.6f} (bar {T2_AUDIO_CORRELATION}), "
+        f"{lsb(audio, cpu_audio)} LSB (CPU vocode {t_cpu / 1e3:.1f} s)")
+    return out
+
+
+def flat_tree(tree, prefix=""):
+    """[(path, leaf)] of a parameter tree."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in flat_tree(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in flat_tree(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
 def kernel_entry(name, source, replaces, launches, by_path, rows, main_rows, scale=1):
     """One entry of the kernels line: times summed over the main path's rows
     (times ``scale``), the bound from their summed operations and bytes."""
@@ -2614,8 +2998,8 @@ def main() -> int:
         run_mrf, run_wn = set(), set()
         run = run_jobs_path(Path(tmp), mrf_block, wn_layer, run_mrf, run_wn)
         t_path = time.perf_counter() - start12
-        rows += check_mrf(mrf_block, path_mrf_cases(mrf_cases + phase8_cases + server_cases,
-                                                    {"run_jobs": run_mrf}))
+        run_cases = path_mrf_cases(mrf_cases + phase8_cases + server_cases, {"run_jobs": run_mrf})
+        rows += check_mrf(mrf_block, run_cases)
         checked_wn = set(wg_shapes) | server_wn
         for shape in sorted(run_wn & checked_wn):
             log(f"wn_layer run_jobs, B={shape[0]} T={shape[1]}: checked by an earlier stack")
@@ -2624,6 +3008,23 @@ def main() -> int:
                                    "run_jobs paths, 8-layer WN stack")
         log(f"phase 12 times: paths {t_path:.1f} s, kernels at its shapes "
             f"{time.perf_counter() - start12 - t_path:.1f} s")
+        # phase 13: Tacotron2 and checkpoint import in float32, then both
+        # kernels at the shapes it gave them
+        start13 = time.perf_counter()
+        stage_tacotron2_voices(Path(tmp))
+        t2_mrf, t2_wn = set(), set()
+        t2 = tacotron2_path(Path(tmp), mrf_block, wn_layer, t2_mrf, t2_wn)
+        t_path = time.perf_counter() - start13
+        rows += check_mrf(mrf_block, path_mrf_cases(
+            mrf_cases + phase8_cases + server_cases + run_cases, {"tacotron2": t2_mrf}))
+        checked_wn |= run_wn
+        for shape in sorted(t2_wn & checked_wn):
+            log(f"wn_layer tacotron2, B={shape[0]} T={shape[1]}: checked by an earlier stack")
+        wn_stacks += wn_stack_rows(wn_layer, sorted(t2_wn - checked_wn, reverse=True),
+                                   torch.Generator().manual_seed(6), torch.float32,
+                                   "tacotron2 paths, 8-layer WN stack")
+        log(f"phase 13 times: paths {t_path:.1f} s, kernels at its shapes "
+            f"{time.perf_counter() - start13 - t_path:.1f} s")
         pin_precision(None)
 
     main_rows = [r for r in rows if r["main_path"]]
@@ -2641,7 +3042,8 @@ def main() -> int:
                              "cli --stream, pangram": cli_launches["--stream"],
                              **{k: v for k, v in served["launches"].items()
                                 if "Glow" not in k and "waveglow" not in k},
-                             **{k: v for k, v in run["launches"].items() if "waveglow" not in k}},
+                             **{k: v for k, v in run["launches"].items() if "waveglow" not in k},
+                             **{k: v for k, v in t2["launches"].items() if "waveglow" not in k}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),
@@ -2671,7 +3073,8 @@ def main() -> int:
         "launches_by_path": {"text_to_speech, pangram x8, waveglow": wn_launches,
                              **{k: v for k, v in served["launches"].items()
                                 if "Glow" in k or "waveglow" in k},
-                             **{k: v for k, v in run["launches"].items() if "waveglow" in k}},
+                             **{k: v for k, v in run["launches"].items() if "waveglow" in k},
+                             **{k: v for k, v in t2["launches"].items() if "waveglow" in k}},
         "max_abs_err": max(r["max_abs_err"] for r in wn_rows + wn_stacks),
         "ms": sum(cfg.flows * r["ms"] for r in group_stacks),
         "plain_ms": sum(cfg.flows * r["plain_ms"] for r in group_stacks),

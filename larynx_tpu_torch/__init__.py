@@ -9,20 +9,22 @@ argument: entry points run on ``cuda`` unless the caller names another
 device, and raise when no GPU is present and none is named.
 
 Ported so far: GlowTTS voices (multi-speaker ones through the engine's
-``speaker_ids``), HiFi-GAN and WaveGlow vocoders from ``.npz`` voice dirs
-and Griffin-Lim; ``text_to_speech``'s pipelined batch path as ``larynx_tpu``
-runs it (consecutive or interleaved same-voice batching, every unit's encode
-launched first, decodes on a predicted mel bucket, one unit launched ahead
-of the one collected, units that share a vocoder vocoded as one pooled
-batch); the cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
+``speaker_ids``) and Tacotron2 voices (through the unfused fallback, as in
+``larynx_tpu``), HiFi-GAN and WaveGlow vocoders and Griffin-Lim, from voice
+dirs with a native ``.npz``, an NVIDIA/reference ``.pth`` or (GlowTTS,
+HiFi-GAN) an ``.onnx`` checkpoint; ``text_to_speech``'s pipelined batch
+path as ``larynx_tpu`` runs it (consecutive or interleaved same-voice
+batching, every unit's encode launched first, decodes on a predicted mel
+bucket, one unit launched ahead of the one collected, units that share a
+vocoder vocoded as one pooled batch); the cross-request ``BatchScheduler`` (``scheduler=``), chunked streaming
 (``stream_text_to_speech``: HiFi-GAN in chunks, other vocoders one chunk per
 sentence through the models' own ``phonemes_to_mels`` / ``mels_to_audio``,
 the unfused fallback), the CLI (``python -m larynx_tpu_torch``) and the HTTP
 server (``python -m larynx_tpu_torch.server``).  Precision as in
 ``larynx_tpu``: the vocoder runs in bfloat16 on a CUDA device and in
 float32 on the CPU (``LARYNX_TPU_VOCODER_PRECISION={bf16,f32}`` overrides;
-Griffin-Lim stays float32), and ``half=True`` runs GlowTTS in bfloat16 too.
-Tacotron2 raises ``NotImplementedError``.  ``text_to_speech`` passes no
+Griffin-Lim stays float32), and ``half=True`` runs GlowTTS in bfloat16 too
+(Tacotron2 stays float32, as in ``larynx_tpu``).  ``text_to_speech`` passes no
 speaker id, as ``larynx_tpu``'s does, so on a multi-speaker voice it raises
 the engine's ``ValueError``.
 """
@@ -707,7 +709,9 @@ def load_tts_model(
 
         return GlowTextToSpeech(model_path, backend=backend, half=half)
     if model_type == TextToSpeechType.TACOTRON2:
-        raise NotImplementedError("Tacotron2 is not ported yet")
+        from larynx_tpu_torch.tacotron2 import Tacotron2TextToSpeech
+
+        return Tacotron2TextToSpeech(model_path, backend=backend, half=half)
     raise ValueError(f"Unknown text to speech model type: {model_type}")
 
 

@@ -1,4 +1,5 @@
-# Copied from larynx_tpu/constants.py; only the package name in its imports differs.
+# Copied from larynx_tpu/constants.py; the package name in its imports and the
+# InferenceBackend docstring differ.
 """Public enums, config dataclasses, and abstract model interfaces.
 
 TPU-native re-design of the reference interfaces in
@@ -45,9 +46,10 @@ class VocoderQuality(str, Enum):
 class InferenceBackend(str, Enum):
     """Checkpoint format preference.
 
-    The compute engine is always JAX/XLA on TPU; this only selects which
-    artifact in a voice directory gets converted to a parameter pytree
-    (the reference used it to pick the runtime: larynx/constants.py:43-45).
+    In the port the models always run in PyTorch; this only selects which
+    artifact in a voice directory is converted to the parameter tree
+    (``.npz``, ``.pth`` or ``.onnx``; the reference used it to pick the
+    runtime: larynx/constants.py:43-45).
     """
 
     ONNX = "onnx"

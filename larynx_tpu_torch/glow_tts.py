@@ -1,38 +1,50 @@
-"""GlowTTS voice: a voice dir's ``config.json`` + ``generator.npz``, and the
+"""GlowTTS voice: a voice dir's ``config.json`` + checkpoint, and the
 per-model ``phonemes_to_mels`` surface.
 
 Counterpart of ``larynx_tpu/glow_tts.py``.  Batched synthesis runs in
 ``larynx_tpu_torch.runtime.engine``; :meth:`GlowTextToSpeech.phonemes_to_mels`
 runs one sentence through a mel-only engine (vocoder kind ``"none"``) on the
-caller's device, for the unfused fallback.  Only native ``.npz`` checkpoints
-load: ``.pth`` / ``.onnx`` import is not ported.
+caller's device, for the unfused fallback.  Checkpoint preference, as in
+``larynx_tpu``: native ``generator.npz`` > ``generator.pth`` (converted) >
+``generator.onnx`` (converted).
 """
 
-import json
 import typing
 from pathlib import Path
 
 import numpy as np
 
 from larynx_tpu_torch.constants import InferenceBackend
-from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.convert import read_config, resolve_checkpoint
 from larynx_tpu_torch.convert.native import load_params
+from larynx_tpu_torch.device import resolve_device
 from larynx_tpu_torch.models.glow_tts.config import config_from_voice_json
 from larynx_tpu_torch.weights import PerDevice, params_from_jax
 
 
-def load_npz_checkpoint(model_dir: Path, backend: typing.Optional[InferenceBackend]):
-    """(native param tree, raw config dict) of a voice or vocoder dir."""
-    if backend not in (None, InferenceBackend.JAX):
-        raise NotImplementedError(f"backend {backend!r}: only .npz checkpoints load")
-    with open(model_dir / "config.json", "r", encoding="utf-8") as f:
-        raw_config = json.load(f)
-    npz_path = model_dir / "generator.npz"
-    if not npz_path.is_file():
-        raise NotImplementedError(
-            f"{model_dir} has no generator.npz; .pth/.onnx import is not ported"
+def load_glow_tts_artifacts(model_dir: Path, backend: typing.Optional[InferenceBackend] = None):
+    """(native param tree, GlowTTSConfig, raw config dict) of a voice dir
+    (``larynx_tpu/glow_tts.py::load_glow_tts_artifacts``)."""
+    raw_config = read_config(model_dir)
+    cfg = config_from_voice_json(raw_config)
+    path = resolve_checkpoint(model_dir, backend, {
+        InferenceBackend.JAX: [model_dir / "generator.npz"],
+        InferenceBackend.PYTORCH: [model_dir / "generator.pth"],
+        InferenceBackend.ONNX: [model_dir / "generator.onnx"],
+    }, "No loadable checkpoint (generator.npz/.pth/.onnx)")
+    if path.suffix == ".npz":
+        return load_params(path), cfg, raw_config
+    if path.suffix == ".pth":
+        from larynx_tpu_torch.convert.torch_import import (
+            glow_tts_params_from_state_dict,
+            load_torch_state_dict,
         )
-    return load_params(npz_path), raw_config
+
+        sd = load_torch_state_dict(path, key="model")
+        return glow_tts_params_from_state_dict(sd, cfg), cfg, raw_config
+    from larynx_tpu_torch.convert.onnx_import import glow_tts_params_from_onnx
+
+    return glow_tts_params_from_onnx(path, cfg), cfg, raw_config
 
 
 class GlowTextToSpeech:
@@ -41,8 +53,8 @@ class GlowTextToSpeech:
     the JAX model's config sets it; its noise comes from the engine's seed."""
 
     def __init__(self, model_path: typing.Union[str, Path], backend=None, half: bool = False):
-        tree, self.raw_config = load_npz_checkpoint(Path(model_path), backend)
-        self.model_config = config_from_voice_json(self.raw_config)
+        tree, self.model_config, self.raw_config = load_glow_tts_artifacts(
+            Path(model_path), backend)
         self.params = params_from_jax(tree, "glow_tts")
         self.half = half
         self.noise_scale = 0.667

@@ -1,5 +1,6 @@
-"""HiFi-GAN vocoder: a vocoder dir's ``config.json`` + ``generator.npz``, and
-the per-model ``mels_to_audio`` surface.
+"""HiFi-GAN vocoder: a vocoder dir's ``config.json`` + checkpoint (``.npz`` >
+``.pth`` > ``.onnx``, as in ``larynx_tpu``), and the per-model
+``mels_to_audio`` surface.
 
 Counterpart of ``larynx_tpu/hifi_gan.py``.  The batched path runs in
 ``larynx_tpu_torch.runtime.engine``; :meth:`HiFiGanVocoder.mels_to_audio`
@@ -15,14 +16,43 @@ import numpy as np
 import torch
 
 from larynx_tpu_torch.audio import audio_float_to_int16
+from larynx_tpu_torch.constants import InferenceBackend
+from larynx_tpu_torch.convert import read_config, resolve_checkpoint
+from larynx_tpu_torch.convert.native import load_params
 from larynx_tpu_torch.device import resolve_device
-from larynx_tpu_torch.glow_tts import load_npz_checkpoint
 from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
 from larynx_tpu_torch.models.hifi_gan import model as hifi_model
-from larynx_tpu_torch.models.hifi_gan.config import hifi_gan_config_from_json
+from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig, hifi_gan_config_from_json
 from larynx_tpu_torch.runtime.buckets import BucketPolicy
 from larynx_tpu_torch.runtime.engine import SILENCE_LOG_MEL, default_vocoder_half
 from larynx_tpu_torch.weights import PerDevice, cast, params_from_jax, tree_to
+
+
+def load_hifi_gan_artifacts(
+    model_dir: Path, backend: typing.Optional[InferenceBackend] = None
+) -> typing.Tuple[typing.Any, HiFiGanConfig]:
+    """(native param tree, HiFiGanConfig) of a vocoder dir
+    (``larynx_tpu/hifi_gan.py::load_hifi_gan_artifacts``)."""
+    cfg = hifi_gan_config_from_json(read_config(model_dir))
+    path = resolve_checkpoint(model_dir, backend, {
+        InferenceBackend.JAX: [model_dir / "generator.npz"],
+        InferenceBackend.PYTORCH: [model_dir / "generator.pth"],
+        InferenceBackend.ONNX: [model_dir / "generator.onnx"],
+    }, "No loadable checkpoint (generator.npz/.pth/.onnx)")
+    if path.suffix == ".npz":
+        return load_params(path), cfg
+    if path.suffix == ".pth":
+        from larynx_tpu_torch.convert.torch_import import (
+            hifi_gan_params_from_state_dict,
+            load_torch_state_dict,
+        )
+
+        sd = load_torch_state_dict(path, key="generator")
+        return hifi_gan_params_from_state_dict(
+            sd, cfg.upsample_rates, cfg.resblock_kernel_sizes, resblock=cfg.resblock), cfg
+    from larynx_tpu_torch.convert.onnx_import import hifi_gan_params_from_onnx
+
+    return hifi_gan_params_from_onnx(path, cfg), cfg
 
 
 def vocoder_dtype(half: bool, device: torch.device) -> torch.dtype:
@@ -48,8 +78,7 @@ class HiFiGanVocoder:
 
     def __init__(self, model_path: typing.Union[str, Path], backend=None, half: bool = False,
                  denoiser_strength: float = 0.0):
-        tree, raw_config = load_npz_checkpoint(Path(model_path), backend)
-        self.model_config = hifi_gan_config_from_json(raw_config)
+        tree, self.model_config = load_hifi_gan_artifacts(Path(model_path), backend)
         self.params = params_from_jax(tree, "hifi_gan")
         self.mel_channels = self.model_config.num_mels
         self.half = half

@@ -1,14 +1,14 @@
-"""WaveGlow vocoder: a vocoder dir's ``config.json`` + ``generator.npz``, and
-the per-model ``mels_to_audio`` surface with chunked long-utterance
-vocoding.
+"""WaveGlow vocoder: a vocoder dir's ``config.json`` + checkpoint
+(``generator.npz`` > every ``*.pth`` then ``*.pt``, sorted, as in
+``larynx_tpu``; no ``.onnx``), and the per-model ``mels_to_audio`` surface
+with chunked long-utterance vocoding.
 
 Counterpart of ``larynx_tpu/waveglow.py``.  The batched path runs in
 ``larynx_tpu_torch.runtime.engine``; :meth:`WaveGlowVocoder.mels_to_audio`
 vocodes one post-processed mel outside it (the unfused fallback, which is
 how WaveGlow streams) through the same ``infer``, so a CUDA call launches
 the WN kernel.  ``config.json`` holds the ``WaveGlowConfig`` fields at its
-top level, the sampling ``sigma`` among them.  Only native ``.npz``
-checkpoints load.
+top level, the sampling ``sigma`` among them.
 """
 
 import itertools
@@ -19,12 +19,14 @@ import numpy as np
 import torch
 
 from larynx_tpu_torch.audio import audio_float_to_int16
+from larynx_tpu_torch.constants import InferenceBackend
+from larynx_tpu_torch.convert import read_config, resolve_checkpoint
+from larynx_tpu_torch.convert.native import load_params
 from larynx_tpu_torch.device import resolve_device
-from larynx_tpu_torch.glow_tts import load_npz_checkpoint
 from larynx_tpu_torch.hifi_gan import pad_to_bucket, vocoder_dtype
 from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
 from larynx_tpu_torch.models.waveglow import model as wg_model
-from larynx_tpu_torch.models.waveglow.config import waveglow_config_from_json
+from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig, waveglow_config_from_json
 from larynx_tpu_torch.runtime.buckets import BucketPolicy
 from larynx_tpu_torch.weights import PerDevice, cast, params_from_jax, tree_to
 
@@ -40,6 +42,28 @@ def _refresh_inverses(tree):
     return tree
 
 
+def load_waveglow_artifacts(
+    model_dir: Path, backend: typing.Optional[InferenceBackend] = None
+) -> typing.Tuple[typing.Any, WaveGlowConfig]:
+    """(native param tree, WaveGlowConfig) of a vocoder dir
+    (``larynx_tpu/waveglow.py::load_waveglow_artifacts``): an ``.npz`` gets
+    its inverses recomputed; a state dict (key ``"model"``) converts with
+    them."""
+    cfg = waveglow_config_from_json(read_config(model_dir))
+    path = resolve_checkpoint(model_dir, backend, {
+        InferenceBackend.JAX: [model_dir / "generator.npz"],
+        InferenceBackend.PYTORCH: sorted(model_dir.glob("*.pth")) + sorted(model_dir.glob("*.pt")),
+    }, "No loadable WaveGlow checkpoint (generator.npz/*.pth)")
+    if path.suffix == ".npz":
+        return _refresh_inverses(load_params(path)), cfg
+    from larynx_tpu_torch.convert.torch_import import (
+        load_torch_state_dict,
+        waveglow_params_from_state_dict,
+    )
+
+    return waveglow_params_from_state_dict(load_torch_state_dict(path, key="model"), cfg), cfg
+
+
 class WaveGlowVocoder:
     """Vocoder: params (CPU tensors), config and sampling sigma, and, per
     (device, dtype) that a ``mels_to_audio`` call used, the packed params
@@ -50,11 +74,10 @@ class WaveGlowVocoder:
 
     def __init__(self, model_path: typing.Union[str, Path], backend=None, half: bool = False,
                  denoiser_strength: float = 0.0, sigma: typing.Optional[float] = None):
-        tree, raw_config = load_npz_checkpoint(Path(model_path), backend)
-        self.model_config = waveglow_config_from_json(raw_config)
+        tree, self.model_config = load_waveglow_artifacts(Path(model_path), backend)
         # the model dir's config records the sampling sigma
         self.sigma = self.model_config.sigma if sigma is None else sigma
-        self.params = params_from_jax(_refresh_inverses(tree), "waveglow")
+        self.params = params_from_jax(tree, "waveglow")
         self.half = half
         self.denoiser_strength = denoiser_strength
         self.policy = BucketPolicy()

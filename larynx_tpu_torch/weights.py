@@ -10,7 +10,10 @@ at load, to PyTorch's layout: convs ``[C_out, C_in, k]``, transposed convs
 axes are kept; a multi-speaker voice's coupling ``cond_w`` [1, gin, 2h * L]
 becomes [1, 2h * L, gin] and its ``emb_g`` [n_speakers, gin] stays).
 WaveGlow's invertible 1x1s (``convinv.w``/``w_inv``) are already
-``[C_out, C_in]`` in the native layout and stay as they are.
+``[C_out, C_in]`` in the native layout and stay as they are.  Tacotron2's
+linears and LSTM gates ``[in, out]`` become ``[out, in]`` (the fused LSTM
+bias ``b`` stays), its convs, ``location_conv`` ``[k, 2, F]`` among them,
+``[C_out, C_in, k]``; its embedding and BatchNorm vectors stay.
 
 :func:`init_params` draws a random native tree with the JAX package's
 shapes and distributions from a ``torch.Generator``, so a machine without
@@ -26,6 +29,7 @@ import torch
 
 from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+from larynx_tpu_torch.models.tacotron2.config import Tacotron2Config
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 
 Params = typing.Dict[str, typing.Any]
@@ -53,9 +57,22 @@ def _convert_waveglow(path: typing.Tuple[str, ...], arr: np.ndarray) -> np.ndarr
     return arr
 
 
+def _convert_tacotron2(path: typing.Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
+    """Convs (``w`` [k, Ci, Co], ``location_conv`` [k, 2, F]) -> [Co, Ci, k];
+    linears and LSTM gates [in, out] -> [out, in]."""
+    key = path[-1]
+    if key == "location_conv" or (key == "w" and arr.ndim == 3):
+        return np.swapaxes(arr, -3, -1)
+    if key in ("w", "w_ih", "w_hh"):
+        return np.swapaxes(arr, -2, -1)
+    return arr
+
+
 def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "waveglow":
         return _convert_waveglow(path, arr)
+    if kind == "tacotron2":
+        return _convert_tacotron2(path, arr)
     key = path[-1]
     if kind == "hifi_gan" and path[0] == "ups" and key == "w":
         return np.moveaxis(arr, -3, -1)  # [k, Ci, Co] -> [Ci, Co, k]
@@ -69,10 +86,11 @@ def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str) -> np.nda
 def params_from_jax(tree: Params, kind: str, device=None) -> Params:
     """Native parameter tree (numpy) -> the port's tensors.
 
-    ``kind`` is ``"glow_tts"``, ``"hifi_gan"`` or ``"waveglow"``.  Floating
-    leaves become float32; integer leaves keep their type.
+    ``kind`` is ``"glow_tts"``, ``"hifi_gan"``, ``"waveglow"`` or
+    ``"tacotron2"``.  Floating leaves become float32; integer leaves keep
+    their type.
     """
-    if kind not in ("glow_tts", "hifi_gan", "waveglow"):
+    if kind not in ("glow_tts", "hifi_gan", "waveglow", "tacotron2"):
         raise ValueError(f"unknown parameter kind {kind!r}")
 
     def walk(node, path):
@@ -310,6 +328,70 @@ def _init_waveglow(gen: torch.Generator, cfg: WaveGlowConfig) -> Params:
     return _as_float32(params)
 
 
+def _init_tacotron2(gen: torch.Generator, cfg: Tacotron2Config) -> Params:
+    """The JAX init: xavier-uniform linears (uniform 1/sqrt(in) biases),
+    uniform 1/sqrt(H) LSTM gates with one fused bias, xavier-over-taps convs
+    with zero biases and identity BatchNorm statistics."""
+    e = cfg.encoder_embedding_dim
+
+    def linear(c_in, c_out, bias=True):
+        p = {"w": _xavier(gen, (c_in, c_out), c_in, c_out)}
+        if bias:
+            p["b"] = _uniform(gen, (c_out,), 1.0 / math.sqrt(c_in))
+        return p
+
+    def conv_bn(k, c_in, c_out):
+        return {
+            "w": _uniform(gen, (k, c_in, c_out), math.sqrt(6.0 / (k * (c_in + c_out)))),
+            "b": np.zeros(c_out),
+            "bn": {"gamma": np.ones(c_out), "beta": np.zeros(c_out),
+                   "mean": np.zeros(c_out), "var": np.ones(c_out)},
+        }
+
+    def lstm(c_in, hidden):
+        bound = 1.0 / math.sqrt(hidden)
+        return {"w_ih": _uniform(gen, (c_in, 4 * hidden), bound),
+                "w_hh": _uniform(gen, (hidden, 4 * hidden), bound),
+                "b": _uniform(gen, (4 * hidden,), bound)}
+
+    post_convs = []
+    for i in range(cfg.postnet_n_convolutions):
+        c_in = cfg.mel_channels if i == 0 else cfg.postnet_embedding_dim
+        last = i == cfg.postnet_n_convolutions - 1
+        c_out = cfg.mel_channels if last else cfg.postnet_embedding_dim
+        post_convs.append(conv_bn(cfg.postnet_kernel_size, c_in, c_out))
+    std = math.sqrt(2.0 / (cfg.num_symbols + cfg.symbols_embedding_dim))
+    k_loc = cfg.attention_location_kernel_size
+    return _as_float32({
+        "embedding": _uniform(gen, (cfg.num_symbols, cfg.symbols_embedding_dim),
+                              math.sqrt(3.0) * std),
+        "encoder": {
+            "convs": [conv_bn(cfg.encoder_kernel_size, e, e)
+                      for _ in range(cfg.encoder_n_convolutions)],
+            "lstm_fw": lstm(e, cfg.encoder_lstm_dim),
+            "lstm_bw": lstm(e, cfg.encoder_lstm_dim),
+        },
+        "decoder": {
+            "prenet": [linear(cfg.mel_channels, cfg.prenet_dim, bias=False),
+                       linear(cfg.prenet_dim, cfg.prenet_dim, bias=False)],
+            "attention_rnn": lstm(cfg.prenet_dim + e, cfg.attention_rnn_dim),
+            "attention": {
+                "query": linear(cfg.attention_rnn_dim, cfg.attention_dim, bias=False),
+                "memory": linear(e, cfg.attention_dim, bias=False),
+                "v": linear(cfg.attention_dim, 1, bias=False),
+                "location_conv": _uniform(gen, (k_loc, 2, cfg.attention_location_n_filters),
+                                          math.sqrt(6.0 / (k_loc * 2 + 2))),
+                "location_dense": linear(cfg.attention_location_n_filters, cfg.attention_dim,
+                                         bias=False),
+            },
+            "decoder_rnn": lstm(cfg.attention_rnn_dim + e, cfg.decoder_rnn_dim),
+            "projection": linear(cfg.decoder_rnn_dim + e, cfg.mel_channels),
+            "gate": linear(cfg.decoder_rnn_dim + e, 1),
+        },
+        "postnet": {"convs": post_convs},
+    })
+
+
 def _as_float32(tree):
     if isinstance(tree, dict):
         return {k: _as_float32(v) for k, v in tree.items()}
@@ -319,12 +401,14 @@ def _as_float32(tree):
 
 
 def init_params(generator: torch.Generator, cfg) -> Params:
-    """Random native-layout (numpy) params for a GlowTTS, HiFi-GAN or
-    WaveGlow config."""
+    """Random native-layout (numpy) params for a GlowTTS, HiFi-GAN, WaveGlow
+    or Tacotron2 config."""
     if isinstance(cfg, GlowTTSConfig):
         return _init_glow_tts(generator, cfg)
     if isinstance(cfg, HiFiGanConfig):
         return _init_hifi_gan(generator, cfg)
     if isinstance(cfg, WaveGlowConfig):
         return _init_waveglow(generator, cfg)
+    if isinstance(cfg, Tacotron2Config):
+        return _init_tacotron2(generator, cfg)
     raise TypeError(f"no init for {type(cfg).__name__}")

@@ -69,12 +69,42 @@ def _interleaved_runs():
         list(results)
 
 
-def _tacotron2_raises():
-    with pytest.raises(NotImplementedError, match="Tacotron2"):
-        larynx_tpu_torch.load_tts_model("tacotron2", "/nonexistent")
+T2_CONFIG = dict(
+    num_symbols=12, symbols_embedding_dim=16, encoder_embedding_dim=16, encoder_n_convolutions=1,
+    prenet_dim=8, attention_rnn_dim=16, decoder_rnn_dim=16, attention_dim=8,
+    attention_location_n_filters=4, attention_location_kernel_size=5, postnet_embedding_dim=16,
+    postnet_n_convolutions=2, mel_channels=10, max_decoder_steps=12,
+)
 
 
-@pytest.mark.parametrize("call", [_interleaved_runs, _tacotron2_raises],
+def _stage_tacotron2(model_dir: Path) -> Path:
+    """A small Tacotron2 voice dir (random weights, gate off, so every
+    decode runs its max_decoder_steps)."""
+    import json
+
+    from larynx_tpu_torch.convert.native import save_params
+    from larynx_tpu_torch.models.tacotron2 import Tacotron2Config
+    from larynx_tpu_torch.weights import init_params
+
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.json").write_text(json.dumps({"audio": {}, "model": T2_CONFIG}))
+    tree = init_params(torch.Generator().manual_seed(0), Tacotron2Config(**T2_CONFIG))
+    tree["decoder"]["gate"]["b"][:] = -50.0
+    save_params(model_dir / "generator.npz", tree)
+    return model_dir
+
+
+def _tacotron2_runs():
+    """Tacotron2 is ported: a voice dir loads and decodes on the CPU."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = larynx_tpu_torch.load_tts_model("tacotron2", _stage_tacotron2(Path(tmp)))
+    mels = model.phonemes_to_mels(np.array([1, 2, 3, 4]), device="cpu")
+    assert mels.shape == (1, 10, 12) and np.isfinite(mels).all()
+
+
+@pytest.mark.parametrize("call", [_interleaved_runs, _tacotron2_runs],
                          ids=["interleaved", "tacotron2"])
 def test_unported_options_raise(call):
     """What is not ported raises NotImplementedError; what is, runs."""
@@ -107,6 +137,12 @@ def _loads_neither_jax_nor_larynx_tpu(module):
     assert proc.stdout.strip() == "[]"
 
 
+# Tacotron2 and checkpoint import
+TACOTRON2_IMPORT_MODULES = ["larynx_tpu_torch.tacotron2", "larynx_tpu_torch.models.tacotron2",
+                            "larynx_tpu_torch.convert.torch_import",
+                            "larynx_tpu_torch.convert.onnx_import"]
+
+
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
     _loads_neither_jax_nor_larynx_tpu(module)
@@ -115,6 +151,18 @@ def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
 @pytest.mark.parametrize("module", BATCH_PATH_MODULES)
 def test_batch_path_and_multispeaker_load_neither_jax_nor_larynx_tpu(module):
     _loads_neither_jax_nor_larynx_tpu(module)
+
+
+@pytest.mark.parametrize("module", TACOTRON2_IMPORT_MODULES)
+def test_tacotron2_and_import_load_neither_jax_nor_larynx_tpu(module):
+    _loads_neither_jax_nor_larynx_tpu(module)
+
+
+def test_tacotron2_phonemes_to_mels_without_gpu_or_device_raises(monkeypatch, tmp_path):
+    model = larynx_tpu_torch.load_tts_model("tacotron2", _stage_tacotron2(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.phonemes_to_mels(np.array([1, 2, 3]))
 
 
 def test_create_app_without_gpu_or_device_raises(monkeypatch):
