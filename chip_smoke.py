@@ -88,7 +88,18 @@ Phases (any failure exits non-zero):
      weights as NVIDIA/HiFi-GAN-named ``generator.pth`` files, loaded with
      ``backend="pytorch"``: equal trees, 0 LSB from the ``.npz`` voice; then
      both kernels at every shape the phase gave them.
-Phases 2-8 and 11-13 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
+ 14. training, in float32: ``python -m larynx_tpu_torch.train`` (``main``) at
+     the harvard dimensions on 96 wavs that the port's ``text_to_speech``
+     writes (batch 32, ids padded to 192, mels to 1024 x 80, ``--ddi``, 3
+     steps) and ``train_vocoder`` at ``--quality high`` (batch 16, 8192-sample
+     segments, 5 steps), with finite losses, peak memory and step times split
+     into MAS, forward, backward and optimizer and into generator, D and G;
+     one step's losses and gradients on CUDA against the CPU path (GlowTTS
+     B=4 at the card's MAS path, which the CPU's search reproduces on the
+     card's inputs; HiFi-GAN B=2); the written voice and vocoder dirs through
+     ``text_to_speech`` (27 MRF launches) and the saved voice's
+     reverse(forward(mel)); then the MRF kernel at the shapes it gave.
+Phases 2-8 and 11-14 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
 CUDA default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
 against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
 The MRF rows of phase 2 include the stream path's chunk windows (B=1).
@@ -2862,6 +2873,395 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
     return out
 
 
+# Phase 14: training on the card.  The corpus: the chapter's 16 pangram rows
+# through the port's own text_to_speech (harvard voice, universal_large) at
+# six length scales, 96 wavs of up to ~900 frames (under the 1024-frame
+# padding), all with the pangram's text
+TRAIN_SCALES = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0)
+TRAIN_VOICE = "en-us_trained-glow_tts"
+TRAIN_VOCODER = "hifi_gan/trained"
+# CUDA against the CPU path in float64 from the same params and batch, TF32
+# off, cuDNN deterministic: float32 sums in other orders, ~1e-6 relative.
+# Losses to 1e-5 relative; each GlowTTS gradient leaf to 1e-4 of its scale,
+# the scale floored at 1e-4 of the net's largest gradient (a leaf whose true
+# gradient is zero, as the attention's key bias, holds rounding noise only);
+# a float64 run on the card to 1e-8
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# HiFi-GAN's float32 gradients: cuDNN's convolution algorithms (TF32 off)
+# sit up to 2.0e-3 of a leaf's scale from float64 on the generator's
+# resblock convs and 1e-3 on the discriminators (measured on an H100):
+# sums of 8192 to 65536 terms that cancel; XLA's float32 CPU convs sit 1.3e-3
+# from float64 on the same discriminators.  5e-3 bounds that; a layout or
+# indexing fault moves a gradient by O(1) of its scale.  The float64 run on
+# the card holds the port's code to float64 rounding
+TRAIN_GAN_GRAD_RTOL = 5e-3
+TRAIN_F64_RTOL = 1e-8
+# the saved voice's reverse flow undoes its forward flow: float32 rounding
+# through 12 blocks, with the recomputed weight_inv
+FLOW_ROUND_TRIP = 1e-4
+
+
+def stage_training_corpus(root: Path) -> Path:
+    """96 wavs and an LJSpeech-style metadata.csv, written by the port's own
+    text_to_speech on the card, and the harvard phoneme table."""
+    import larynx_tpu_torch
+    from larynx_tpu_torch.io import wavfile
+
+    corpus = root / "train_corpus"
+    (corpus / "wavs").mkdir(parents=True)
+    rows = []
+    for s_i, scale in enumerate(TRAIN_SCALES):
+        results = larynx_tpu_torch.text_to_speech(
+            BOOK, voice_or_lang=VOICE, vocoder_or_quality="high", custom_voices_dir=root,
+            no_download=True, device="cuda", tts_settings={"length_scale": scale}, seed=s_i)
+        for r_i, result in enumerate(results):
+            name = f"pangram_{s_i}_{r_i:02d}"
+            wavfile.write(corpus / "wavs" / f"{name}.wav", result.sample_rate, result.audio)
+            rows.append(f"{name}|{result.text}")
+    (corpus / "metadata.csv").write_text("\n".join(rows) + "\n", encoding="utf-8")
+    (corpus / "phonemes.txt").write_text("".join(f"{i} {p}\n" for i, p in enumerate(PHONEMES)))
+    (corpus / "config.json").write_text(json.dumps({"audio": AUDIO, "model": {}}))
+    return corpus
+
+
+def grad_errors(got, want):
+    """{leaf path: max |got's .grad - want's .grad| as a share of the leaf's
+    scale, max |want's .grad|, floored at TRAIN_GRAD_RTOL of the net's
+    largest gradient (a leaf whose true gradient is zero holds rounding
+    noise only)}."""
+    want_leaves = dict(flat_tree(want))
+    floor = TRAIN_GRAD_RTOL * max(g.grad.abs().max().item() for _, g in flat_tree(want)
+                                  if g.grad is not None)
+    errors = {}
+    for path, leaf in flat_tree(got):
+        ref = want_leaves[path].grad
+        if (leaf.grad is None) != (ref is None):
+            raise AssertionError(f"{path}: a gradient on one side only")
+        if ref is not None:
+            ref = ref.double().cpu()
+            scale = max(ref.abs().max().item(), floor)
+            errors[path] = (leaf.grad.double().cpu() - ref).abs().max().item() / scale
+    return errors
+
+
+def against_float64(label, runs, f32_bound):
+    """Each run {name: (params with .grad, metrics)} against "CPU f64": the
+    losses within TRAIN_LOSS_RTOL (float32) or TRAIN_F64_RTOL (CUDA f64),
+    every gradient within ``f32_bound`` (CUDA f32) or TRAIN_F64_RTOL (CUDA
+    f64) of its leaf's scale; the CPU's float32 is reported.  Returns the
+    largest gradient error of each run."""
+    ref_params, ref_metrics = runs["CPU f64"]
+    worst = {}
+    for name, (params, metrics) in runs.items():
+        if name == "CPU f64":
+            continue
+        errors = grad_errors(params, ref_params)
+        path = max(errors, key=errors.get)
+        worst[name] = errors[path]
+        log(f"{label}, {name} against the CPU in float64: losses "
+            + ", ".join(f"{k} {float(v):.9g} / {float(ref_metrics[k]):.9g}"
+                        for k, v in metrics.items())
+            + "; worst gradient leaves: " + ", ".join(
+                f"{p} {e:.3g}" for p, e in sorted(errors.items(), key=lambda kv: -kv[1])[:3]))
+        if name == "CPU f32":
+            continue
+        bound = TRAIN_F64_RTOL if name == "CUDA f64" else f32_bound
+        for k, v in metrics.items():
+            err = abs(float(v) - float(ref_metrics[k])) / abs(float(ref_metrics[k]))
+            if not err <= (TRAIN_F64_RTOL if name == "CUDA f64" else TRAIN_LOSS_RTOL):
+                raise AssertionError(f"{label} {k}: {name} {float(v)} against the CPU's float64 "
+                                     f"{float(ref_metrics[k])}")
+        if worst[name] > bound:
+            raise AssertionError(f"{label} {path}: {name} gradient {worst[name]:.3g} of its scale "
+                                 f"from the CPU's float64 (bound {bound})")
+    return worst
+
+
+def training_path(root: Path, mrf_block, mrf_shapes: set):
+    """Phase 14, float32: GlowTTS (python -m larynx_tpu_torch.train, harvard
+    dims, batch 32 x 1024 frames, --ddi, 3 steps) and HiFi-GAN
+    (train_vocoder --quality high, batch 16, 5 steps) at full width on the
+    card; step times split into MAS, forward, backward and optimizer
+    (GlowTTS) and into generator, D and G (HiFi-GAN); peak memory; one
+    step's losses and gradients on CUDA against the CPU path (GlowTTS B=4,
+    HiFi-GAN B=2); the written dirs through text_to_speech (27 MRF launches)
+    and the saved voice's flow round trip.  Adds the MRF shapes of the
+    trained vocoder's run to ``mrf_shapes``; returns launches and
+    measurements."""
+    import larynx_tpu_torch
+    from larynx_tpu_torch import train, train_vocoder
+    from larynx_tpu_torch.audio import AudioSettings
+    from larynx_tpu_torch.convert.native import load_params
+    from larynx_tpu_torch.device import to_device
+    from larynx_tpu_torch.models.glow_tts import flows
+    from larynx_tpu_torch.models.glow_tts import training as glow_training
+    from larynx_tpu_torch.models.glow_tts.config import config_from_voice_json
+    from larynx_tpu_torch.models.glow_tts.data import Dataset, mel_basis_tensor
+    from larynx_tpu_torch.models.hifi_gan import model as hifi_model
+    from larynx_tpu_torch.models.hifi_gan import training as gan_training
+    from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+    from larynx_tpu_torch.parallel import train as ptrain
+    from larynx_tpu_torch.text.ids import load_phoneme_ids
+    from larynx_tpu_torch.weights import cast, params_from_jax, tree_to
+
+    out = {"launches": {}, "ms": {}, "mb": {}, "loss": {}}
+    t0 = time.perf_counter()
+    corpus = stage_training_corpus(root)
+    log(f"training corpus: {len(TRAIN_SCALES) * 16} wavs from text_to_speech on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lang, name = TRAIN_VOICE.split("_", 1)
+    voice_dir = root / lang / name
+    argv = ["--metadata", str(corpus / "metadata.csv"), "--wav-dir", str(corpus / "wavs"),
+            "--output-dir", str(voice_dir), "--config", str(corpus / "config.json"),
+            "--phonemes", str(corpus / "phonemes.txt"), "--batch-size", "32", "--epochs", "1",
+            "--ddi", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the earlier phases' cached engines
+    (state, history), wall = timed_once(lambda: train.main(argv))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    losses = [{k: float(v) for k, v in m.items()} for m in history]
+    if len(losses) != 3 or not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"train: {len(losses)} steps, losses {losses}")
+    out["ms"]["train wall (3 steps, DDI, data)"] = wall
+    out["mb"]["train peak"] = peak
+    out["loss"]["train"] = losses
+    log(f"train (GlowTTS harvard dims, batch 32, ids 192, mels 1024 x 80, --ddi, 3 steps): wall "
+        f"{wall:.1f} ms with data and DDI, peak memory {peak:.0f} MiB above what was allocated "
+        "before; losses "
+        + "; ".join(f"step {i + 1} loss {m['loss']:.4f} (mle {m['mle_loss']:.4f} dur "
+                    f"{m['duration_loss']:.4f})" for i, m in enumerate(losses)))
+
+    # GlowTTS step times at batch 32: plain steps, then one split by phase
+    cfg = config_from_voice_json(json.loads((corpus / "config.json").read_text()))
+    with open(corpus / "phonemes.txt", encoding="utf-8") as f:
+        table = load_phoneme_ids(f)
+    dataset = Dataset(corpus / "metadata.csv", corpus / "wavs", table, AudioSettings(**AUDIO),
+                      device="cuda")
+    batches, t_data = timed_once(lambda: list(dataset.batches(32, shuffle_seed=0)))
+    batch = batches[0]
+    out["ms"]["train data, one epoch (96 wavs, 3 batches)"] = t_data
+    optimizer = ptrain.make_optimizer(cfg)
+    step = ptrain.make_train_step(cfg, optimizer)
+    step(state, batch)
+    _, t_step = timed(lambda: step(state, batch))
+    mas_ms = []
+    mas = glow_training.maximum_path
+
+    def timed_mas(value, mask):
+        path, ms = timed_once(lambda: mas(value, mask))
+        mas_ms.append(ms)
+        return path
+
+    b = ptrain.batch_to(batch, "cuda")
+    glow_training.maximum_path = timed_mas
+    try:
+        ptrain.zero_grads(state.opt_state)
+        (loss, _), t_fwd = timed_once(lambda: glow_training.training_forward(
+            state.params, cfg, b["ids"], b["id_lengths"], b["mels"], b["mel_lengths"]))
+    finally:
+        glow_training.maximum_path = mas
+    _, t_bwd = timed_once(loss.backward)
+    _, t_opt = timed_once(lambda: optimizer.update(state.opt_state))
+    split = {"MAS": mas_ms[0], "forward without MAS": t_fwd - mas_ms[0], "backward": t_bwd,
+             "optimizer": t_opt}
+    out["ms"]["train step, batch 32"] = t_step
+    out["ms"].update({f"train step, {k}": v for k, v in split.items()})
+    log(f"train data: one epoch's {len(batches)} batches (wav read, frontend, mel targets on the "
+        f"card, padding) {t_data:.1f} ms")
+    log(f"train step, batch 32 x 1024 frames: {t_step:.3f} ms (host clock, 3 steps); one step "
+        "split with a synchronisation between phases: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; MAS over {b['mels'].shape[1]} frames {mas_ms[0] / b['mels'].shape[1]:.4f} ms a frame")
+
+    # one GlowTTS forward and backward on CUDA against the CPU path in
+    # float64, B=4, all at the card's MAS path
+    tree = load_params(voice_dir / "generator.npz")
+    small = {k: v[:4] for k, v in batch.items()}
+    searched = {}
+
+    def grads_on(device, dtype=torch.float32, path=None):
+        """Params with their gradients and the metrics of one training
+        forward on ``device`` in ``dtype``; MAS's inputs and its own path are
+        kept in ``searched``, and ``path`` (if given) is the one the forward
+        uses."""
+        params = ptrain.trainable(cast(params_from_jax(tree, "glow_tts", device), dtype))
+        bb = ptrain.batch_to(small, device)
+        bb["mels"] = bb["mels"].to(dtype)
+
+        def recorded(value, mask):
+            own = mas(value, mask)
+            searched[device.type, dtype] = (value.cpu(), mask.cpu(), own.cpu())
+            return own if path is None else path.to(device, value.dtype)
+
+        glow_training.maximum_path = recorded
+        try:
+            loss, metrics = glow_training.training_forward(
+                params, cfg, bb["ids"], bb["id_lengths"], bb["mels"], bb["mel_lengths"])
+        finally:
+            glow_training.maximum_path = mas
+        loss.backward()
+        return params, metrics
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {"CUDA f32": grads_on(torch.device("cuda"))}
+        cuda_logp, cuda_mask, cuda_path = searched["cuda", torch.float32]
+        # MAS on the card is exact: the CPU's, on the card's inputs, gives its path
+        if not torch.equal(mas(cuda_logp, cuda_mask), cuda_path):
+            raise AssertionError("maximum_path on the card differs from the CPU's on its inputs")
+        for name, device, dtype in (("CUDA f64", "cuda", torch.float64),
+                                    ("CPU f32", "cpu", torch.float32),
+                                    ("CPU f64", "cpu", torch.float64)):
+            runs[name] = grads_on(torch.device(device), dtype, path=cuda_path)
+        differ = int((searched["cpu", torch.float32][2] != cuda_path).any(dim=1).sum())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = against_float64("train", runs, TRAIN_GRAD_RTOL)
+    out["loss"]["train CUDA vs CPU"] = {name: {k: float(v) for k, v in m.items()}
+                                        for name, (_, m) in runs.items()}
+    log(f"train, one step at B=4 (TF32 off, cuDNN deterministic): CUDA float32 gradients within "
+        f"{worst['CUDA f32']:.3g} of their scale from the CPU in float64 (bound "
+        f"{TRAIN_GRAD_RTOL}), CUDA float64 within {worst['CUDA f64']:.3g} (bound "
+        f"{TRAIN_F64_RTOL}), the CPU's float32 within {worst['CPU f32']:.3g}; MAS on the card "
+        f"equal to the CPU's on the card's inputs; the CPU's own float32 inputs give a path that "
+        f"differs in {differ} of {4 * small['mels'].shape[1]} frames (near-ties of float32 sums; "
+        "every run took the card's path)")
+
+    # HiFi-GAN at --quality high, batch 16, 5 steps
+    argv = ["--wav-dir", str(corpus / "wavs"), "--out-dir", str(root / TRAIN_VOCODER),
+            "--quality", "high", "--batch-size", "16", "--steps", "5", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    (gan_state, history), wall = timed_once(lambda: train_vocoder.main(argv))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    losses = [{k: float(v) for k, v in m.items()} for m in history]
+    if len(losses) != 5 or not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"train_vocoder: {len(losses)} steps, losses {losses}")
+    out["ms"]["train_vocoder wall (5 steps)"] = wall
+    out["mb"]["train_vocoder peak"] = peak
+    out["loss"]["train_vocoder"] = losses
+    log(f"train_vocoder (HiFi-GAN universal_large, batch 16 x 8192 samples, 5 steps): wall "
+        f"{wall:.1f} ms, peak memory {peak:.0f} MiB above what was allocated before; losses "
+        + "; ".join(f"step {i + 1} d {m['d_loss']:.4f} g {m['g_loss']:.4f} (mel_l1 "
+                    f"{m['mel_l1']:.4f} fm {m['fm_loss']:.4f} adv {m['adv_loss']:.4f})"
+                    for i, m in enumerate(losses)))
+
+    voc_cfg = HiFiGanConfig(**train_vocoder.GEOMETRY["high"])
+    settings = AudioSettings()
+    corpus_audio = train_vocoder._load_corpus(corpus / "wavs", 32 * 256 + 256)
+    rng = np.random.default_rng(0)
+    make_mels = train_vocoder._make_mel_fn(settings, 32, "cuda")
+    audio = to_device(train_vocoder._sample_batch(rng, corpus_audio, 16, 32 * 256, 256), "cuda")
+    gan_batch = {"mels": make_mels(audio), "audio": audio}
+    gen_opt = ptrain.Optimizer(lambda k: 2e-4, betas=(0.8, 0.99))
+    gan_step = gan_training.make_gan_train_step(voc_cfg, settings, gen_opt, gen_opt)
+    gan_step(gan_state, gan_batch)
+    _, t_gan = timed(lambda: gan_step(gan_state, gan_batch))
+    basis = mel_basis_tensor(settings, "cuda")
+    fake, t_gen = timed_once(lambda: hifi_model.generator(gan_state.gen_params, voc_cfg,
+                                                          gan_batch["mels"]))
+
+    def d_phase():
+        ptrain.zero_grads(gan_state.disc_opt)
+        gan_training.discriminator_loss_fn(gan_state.disc_params, audio, fake.detach()).backward()
+        gen_opt.update(gan_state.disc_opt)
+
+    def g_phase():
+        ptrain.zero_grads(gan_state.gen_opt)
+        gan_training.generator_loss_fn(gan_state.disc_params, audio, fake, settings,
+                                       basis)[0].backward()
+        gen_opt.update(gan_state.gen_opt)
+
+    _, t_d = timed_once(d_phase)
+    _, t_g = timed_once(g_phase)
+    out["ms"].update({"train_vocoder step, batch 16": t_gan, "train_vocoder step, generator":
+                      t_gen, "train_vocoder step, D": t_d, "train_vocoder step, G": t_g})
+    log(f"train_vocoder step, batch 16: {t_gan:.3f} ms (host clock, 3 steps); one step split: "
+        f"generator forward {t_gen:.3f} ms, D (loss, backward, Adam) {t_d:.3f} ms, G (loss, "
+        f"backward through the discriminators and the generator, Adam) {t_g:.3f} ms")
+
+    # one GAN step's losses and gradients, CUDA against the CPU path, B=2,
+    # both at the same (trained) params, before any update
+    gen_tree = load_params(root / TRAIN_VOCODER / "generator.npz")
+    pair = {k: v[:2].cpu() for k, v in gan_batch.items()}
+
+    def gan_grads_on(device, dtype=torch.float32):
+        """Both nets with one step's gradients (the discriminators' on the
+        detached fake, the generator's against the same discriminators) and
+        the losses, on ``device`` in ``dtype``."""
+        device = torch.device(device)
+        gen = ptrain.trainable(cast(params_from_jax(gen_tree, "hifi_gan", device), dtype))
+        dis = ptrain.trainable(cast(tree_to(gan_state.disc_params, device), dtype))
+        real, mels = pair["audio"].to(device, dtype), pair["mels"].to(device, dtype)
+        fake = hifi_model.generator(gen, voc_cfg, mels)
+        d_loss = gan_training.discriminator_loss_fn(dis, real, fake.detach())
+        d_loss.backward()
+        g_loss, parts = gan_training.generator_loss_fn(dis, real, fake, settings,
+                                                       basis.to(device, dtype))
+        d_grads = [p.grad for _, p in flat_tree(dis)]
+        for _, p in flat_tree(dis):
+            p.grad = None
+        g_loss.backward()
+        for (_, p), g in zip(flat_tree(dis), d_grads):
+            p.grad = g
+        return {"generator": gen, "discriminators": dis}, {
+            k: v.detach() for k, v in dict(parts, d_loss=d_loss, g_loss=g_loss).items()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: gan_grads_on(device, dtype) for name, device, dtype in (
+            ("CUDA f32", "cuda", torch.float32), ("CUDA f64", "cuda", torch.float64),
+            ("CPU f32", "cpu", torch.float32), ("CPU f64", "cpu", torch.float64))}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = against_float64("train_vocoder", runs, TRAIN_GAN_GRAD_RTOL)
+    out["loss"]["train_vocoder CUDA vs CPU"] = {name: {k: float(v) for k, v in m.items()}
+                                                for name, (_, m) in runs.items()}
+    log(f"train_vocoder, one step at B=2 (TF32 off, cuDNN deterministic): CUDA float32 gradients "
+        f"within {worst['CUDA f32']:.3g} of their scale from the CPU in float64 (bound "
+        f"{TRAIN_GAN_GRAD_RTOL}), CUDA float64 within {worst['CUDA f64']:.3g} (bound "
+        f"{TRAIN_F64_RTOL}), the CPU's float32 within {worst['CPU f32']:.3g}")
+
+    # the written dirs through text_to_speech: the trained vocoder runs the
+    # MRF kernel, 27 launches per generator call
+    per_call = mrf_launches_per_call(voc_cfg)
+    kwargs = dict(voice_or_lang=TRAIN_VOICE, vocoder_or_quality=TRAIN_VOCODER,
+                  custom_voices_dir=root, no_download=True, device="cuda")
+    with recording_mrf_shapes(mrf_shapes):
+        list(larynx_tpu_torch.text_to_speech(PANGRAM, **kwargs))  # warm-up
+        mrf_block.mrf_section.launches = 0
+        results, t_tts = timed_once(lambda: list(larynx_tpu_torch.text_to_speech(PANGRAM,
+                                                                                 **kwargs)))
+        n_mrf = mrf_block.mrf_section.launches
+    if n_mrf != per_call:
+        raise AssertionError(f"trained dirs: {n_mrf} MRF launches, expected {per_call}")
+    audio_out = results[0].audio
+    if audio_out.dtype != np.int16 or np.abs(audio_out.astype(np.int32)).max() < 1000:
+        raise AssertionError(f"trained dirs: audio {audio_out.dtype}, silent or empty")
+    out["launches"]["train: trained dirs, text_to_speech, pangram"] = n_mrf
+    out["ms"]["trained dirs text_to_speech"] = t_tts
+
+    # the saved voice's flow: reverse(forward(mel)) is the mel
+    params = params_from_jax(tree, "glow_tts", "cuda")
+    bb = ptrain.batch_to(small, "cuda")
+    lengths = (bb["mel_lengths"] // cfg.n_sqz) * cfg.n_sqz
+    y_mask = (torch.arange(bb["mels"].shape[1], device="cuda")[None] < lengths[:, None]).float()
+    mels = bb["mels"] * y_mask[..., None]
+    with torch.no_grad():
+        z, _ = flows.decoder(params["decoder"], mels, y_mask, cfg, reverse=False)
+        back, _ = flows.decoder(params["decoder"], z, y_mask, cfg, reverse=True)
+    round_trip = (back - mels).abs().max().item()
+    if not round_trip <= FLOW_ROUND_TRIP:
+        raise AssertionError(f"saved voice: reverse(forward(mel)) off by {round_trip}")
+    log(f"trained dirs through text_to_speech, pangram: {t_tts:.3f} ms, {len(audio_out)} samples, "
+        f"MRF launches {n_mrf} (expected {per_call}); the saved voice's reverse(forward(mel)) "
+        f"within {round_trip:.3g} of the mel (bound {FLOW_ROUND_TRIP}) over 12 blocks at "
+        f"B=4 x 1024 frames")
+    log("phase 14 times: " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["ms"].items()))
+    return out
+
+
 def flat_tree(tree, prefix=""):
     """[(path, leaf)] of a parameter tree."""
     if isinstance(tree, dict):
@@ -3025,6 +3425,16 @@ def main() -> int:
                                    "tacotron2 paths, 8-layer WN stack")
         log(f"phase 13 times: paths {t_path:.1f} s, kernels at its shapes "
             f"{time.perf_counter() - start13 - t_path:.1f} s")
+        # phase 14: training in float32, then the MRF kernel at the shapes
+        # that the trained vocoder gave it
+        start14 = time.perf_counter()
+        train_mrf = set()
+        trained = training_path(Path(tmp), mrf_block, train_mrf)
+        t_path = time.perf_counter() - start14
+        rows += check_mrf(mrf_block, path_mrf_cases(
+            mrf_cases + phase8_cases + server_cases + run_cases, {"trained vocoder": train_mrf}))
+        log(f"phase 14 times: paths {t_path:.1f} s, kernel at its shapes "
+            f"{time.perf_counter() - start14 - t_path:.1f} s")
         pin_precision(None)
 
     main_rows = [r for r in rows if r["main_path"]]
@@ -3043,7 +3453,8 @@ def main() -> int:
                              **{k: v for k, v in served["launches"].items()
                                 if "Glow" not in k and "waveglow" not in k},
                              **{k: v for k, v in run["launches"].items() if "waveglow" not in k},
-                             **{k: v for k, v in t2["launches"].items() if "waveglow" not in k}},
+                             **{k: v for k, v in t2["launches"].items() if "waveglow" not in k},
+                             **trained["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),

@@ -1,4 +1,4 @@
-"""GlowTTS acoustic model, PyTorch port (inference)."""
+"""GlowTTS acoustic model, PyTorch port (inference and training)."""
 
 from larynx_tpu_torch.models.glow_tts.config import (  # noqa: F401
     GlowTTSConfig,

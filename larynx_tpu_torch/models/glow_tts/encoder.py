@@ -73,11 +73,12 @@ def multi_head_attention(
         scale = 1.0 / (dk**0.5)
     else:  # JAX's 1 / sqrt(dk), both steps in the compute dtype
         scale = float(1.0 / torch.sqrt(torch.tensor(float(dk), dtype=x.dtype)))
-    q = q.float()
-    scores = torch.matmul(q, k.float().transpose(-1, -2)) * scale
+    wide = torch.promote_types(x.dtype, torch.float32)
+    q = q.to(wide)
+    scores = torch.matmul(q, k.to(wide).transpose(-1, -2)) * scale
     if window_size is not None:
         rel_k = _pad_relative_embeddings(p["emb_rel_k"], t, window_size)
-        rel_logits = torch.matmul(q, rel_k.float().t())  # [B, H, T, 2T-1]
+        rel_logits = torch.matmul(q, rel_k.to(wide).t())  # [B, H, T, 2T-1]
         scores = scores + _relative_to_absolute(rel_logits) * scale
 
     scores = torch.where(attn_mask, scores, torch.full_like(scores, ATTN_MASK_VALUE))
@@ -87,10 +88,10 @@ def multi_head_attention(
         scores = torch.where(band, scores, torch.full_like(scores, ATTN_MASK_VALUE))
 
     probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs, v.float())
+    out = torch.matmul(probs, v.to(wide))
     if window_size is not None:
         rel_v = _pad_relative_embeddings(p["emb_rel_v"], t, window_size)
-        out = out + torch.matmul(_absolute_to_relative(probs), rel_v.float())
+        out = out + torch.matmul(_absolute_to_relative(probs), rel_v.to(wide))
 
     out = out.to(x.dtype).transpose(1, 2).reshape(b, t, c)
     return matmul1x1(out, p["o_w"], p["o_b"])

@@ -1,14 +1,17 @@
-"""GlowTTS normalizing-flow decoder, inference (reverse) direction.
+"""GlowTTS normalizing-flow decoder, in both directions: forward (training,
+mel -> latent with its log-determinant) and reverse (inference).
 
 Counterpart of ``larynx_tpu/models/glow_tts/flows.py``, channels-last
 [B, T, C].  Block params are stacked on a leading axis (as in the native
-checkpoint) and the reverse pass walks the blocks last to first.  The WN
+checkpoint); the forward pass walks the blocks first to last, the reverse
+pass last to first.  The WN
 last layer's res half is zero-padded in the params, so every layer has the
 same shape; 1x1 invertible-conv inverses come precomputed in the params.
 A multi-speaker voice's couplings carry a cond 1x1 (``cond_w`` [1, 2h * L,
 gin], ``cond_b``) that maps the speaker embedding into every WaveNet layer.
 Every step runs in the tensors' dtype; in bfloat16 (``half``) the grouped
-invertible 1x1 is computed in float32 and cast back, as in the JAX package.
+invertible 1x1 is computed in float32 and cast back, as in the JAX package;
+float32 and float64 stay as they are.
 """
 
 import typing
@@ -42,9 +45,12 @@ def unsqueeze(x: torch.Tensor, mask: torch.Tensor, n_sqz: int):
     return x * full_mask[..., None], full_mask
 
 
-def actnorm_reverse(p: Params, x, mask):
-    """Inverse per-channel affine."""
-    return (x - p["bias"]) * torch.exp(-p["logs"]) * mask[..., None]
+def actnorm(p: Params, x, mask, reverse: bool):
+    """Per-channel affine -> (z, logdet [B] forward, None reverse)."""
+    if reverse:
+        return (x - p["bias"]) * torch.exp(-p["logs"]) * mask[..., None], None
+    z = (p["bias"] + torch.exp(p["logs"]) * x) * mask[..., None]
+    return z, torch.sum(p["logs"]) * mask.sum(dim=1)
 
 
 def _group_split(x: torch.Tensor, n_split: int):
@@ -62,12 +68,21 @@ def _group_merge(x: torch.Tensor, c: int):
     return x.reshape(b, t, c)
 
 
-def inv_conv_near_reverse(p: Params, x, mask, n_split: int):
-    """Inverse of the invertible 1x1 conv over channel groups."""
+def inv_conv_near(p: Params, x, mask, n_split: int, reverse: bool):
+    """Invertible 1x1 conv over channel groups -> (z, logdet [B] forward,
+    None reverse); the reverse direction takes the stored ``weight_inv``.
+    The forward logdet is slogdet(weight) * (C / n_split) * length."""
     c = x.shape[-1]
     grouped = _group_split(x, n_split)  # [B, T, S, C/S]
-    mixed = torch.einsum("sk,btkc->btsc", p["weight_inv"].float(), grouped.float()).to(x.dtype)
-    return _group_merge(mixed, c) * mask[..., None]
+    weight = p["weight_inv"] if reverse else p["weight"]
+    at_least_f32 = torch.promote_types(x.dtype, torch.float32)
+    mixed = torch.einsum("sk,btkc->btsc", weight.to(at_least_f32),
+                         grouped.to(at_least_f32)).to(x.dtype)
+    z = _group_merge(mixed, c) * mask[..., None]
+    if reverse:
+        return z, None
+    logabsdet = torch.linalg.slogdet(p["weight"])[1]
+    return z, logabsdet * (c / n_split) * mask.sum(dim=1)
 
 
 def wavenet(p: Params, x, mask, dilation_rate: int = 1, g=None):
@@ -90,10 +105,10 @@ def wavenet(p: Params, x, mask, dilation_rate: int = 1, g=None):
     return output * mask1
 
 
-def coupling_reverse(p: Params, x, mask, cfg: GlowTTSConfig, g=None):
-    """Inverse affine coupling block; ``g`` [B, gin] is the normalised
-    speaker embedding, which a multi-speaker voice's cond 1x1 maps to the
-    WaveNet's conditioning."""
+def coupling(p: Params, x, mask, cfg: GlowTTSConfig, reverse: bool, g=None):
+    """Affine coupling block -> (z, logdet [B] forward, None reverse);
+    ``g`` [B, gin] is the normalised speaker embedding, which a
+    multi-speaker voice's cond 1x1 maps to the WaveNet's conditioning."""
     half = x.shape[-1] // 2
     x0, x1 = x[..., :half], x[..., half:]
     g_cond = None
@@ -105,8 +120,27 @@ def coupling_reverse(p: Params, x, mask, cfg: GlowTTSConfig, g=None):
     m, logs = out[..., :half], out[..., half:]
     if cfg.sigmoid_scale:
         logs = torch.log(1e-6 + torch.sigmoid(logs + 2))
-    z1 = (x1 - m) * torch.exp(-logs) * mask[..., None]
-    return torch.cat([x0, z1], dim=-1)
+    if reverse:
+        z1 = (x1 - m) * torch.exp(-logs) * mask[..., None]
+        logdet = None
+    else:
+        z1 = (m + torch.exp(logs) * x1) * mask[..., None]
+        logdet = torch.sum(logs * mask[..., None], dim=(1, 2))
+    return torch.cat([x0, z1], dim=-1), logdet
+
+
+def flow_step(p: Params, x, mask, cfg: GlowTTSConfig, reverse: bool, g=None):
+    """One block: ActNorm -> InvConvNear -> Coupling, or the reverse order
+    -> (x, logdet [B] forward, None reverse)."""
+    if not reverse:
+        x, ld1 = actnorm(p["actnorm"], x, mask, reverse=False)
+        x, ld2 = inv_conv_near(p["invconv"], x, mask, cfg.n_split, reverse=False)
+        x, ld3 = coupling(p["coupling"], x, mask, cfg, reverse=False, g=g)
+        return x, ld1 + ld2 + ld3
+    x, _ = coupling(p["coupling"], x, mask, cfg, reverse=True, g=g)
+    x, _ = inv_conv_near(p["invconv"], x, mask, cfg.n_split, reverse=True)
+    x, _ = actnorm(p["actnorm"], x, mask, reverse=True)
+    return x, None
 
 
 def _block(stacked: Params, i: int) -> Params:
@@ -116,21 +150,23 @@ def _block(stacked: Params, i: int) -> Params:
     return stacked[i]
 
 
-def decoder_reverse(
-    stacked_blocks: Params, x: torch.Tensor, mask: torch.Tensor, cfg: GlowTTSConfig, g=None
-) -> torch.Tensor:
-    """Reverse flow: latent [B, T, C] -> mel [B, T, C]; ``g`` as in
-    :func:`coupling_reverse`."""
+def decoder(
+    stacked_blocks: Params, x: torch.Tensor, mask: torch.Tensor, cfg: GlowTTSConfig,
+    reverse: bool, g=None,
+):
+    """The whole flow, ``g`` as in :func:`coupling`.  Forward (training):
+    mel [B, T, C] -> (latent z, logdet [B]), blocks first to last.  Reverse
+    (inference): latent -> (mel, None), blocks last to first."""
     if cfg.n_sqz > 1:
         x, sq_mask = squeeze(x, mask, cfg.n_sqz)
     else:
         sq_mask = mask
     n_blocks = stacked_blocks["actnorm"]["logs"].shape[0]
-    for i in reversed(range(n_blocks)):
-        p = _block(stacked_blocks, i)
-        x = coupling_reverse(p["coupling"], x, sq_mask, cfg, g=g)
-        x = inv_conv_near_reverse(p["invconv"], x, sq_mask, cfg.n_split)
-        x = actnorm_reverse(p["actnorm"], x, sq_mask)
+    logdet = None if reverse else x.new_zeros(x.shape[0], dtype=torch.float32)
+    for i in reversed(range(n_blocks)) if reverse else range(n_blocks):
+        x, ld = flow_step(_block(stacked_blocks, i), x, sq_mask, cfg, reverse, g=g)
+        if not reverse:
+            logdet = logdet + ld
     if cfg.n_sqz > 1:
         x, _ = unsqueeze(x, sq_mask, cfg.n_sqz)
-    return x
+    return x, logdet

@@ -57,9 +57,10 @@ def encode(
     else:
         x_logs = matmul1x1(x, p["proj_s_w"], p["proj_s_b"]) * mask1
 
-    x_dp = x
+    # the duration loss trains the duration predictor alone, not the encoder
+    x_dp = x.detach()
     if g is not None:
-        x_dp = torch.cat([x, g[:, None, :].expand(x.shape[0], t, g.shape[-1])], dim=-1)
+        x_dp = torch.cat([x_dp, g[:, None, :].expand(x.shape[0], t, g.shape[-1])], dim=-1)
     logw = enc.duration_predictor(p["dp"], x_dp, mask1)[..., 0]  # [B, T]
     w = torch.exp(logw.float()) * mask.float() * length_scale
     w_ceil = torch.ceil(w)
@@ -113,13 +114,13 @@ def expand_and_decode(
     noise = noise.to(x_m.dtype)
     noise_scale = torch.as_tensor(noise_scale, dtype=x_m.dtype, device=x_m.device)
     z = (z_m + torch.exp(z_logs) * noise * noise_scale) * z_mask[..., None]
-    mel = flows.decoder_reverse(params["decoder"], z, z_mask, cfg, g=g)
+    mel, _ = flows.decoder(params["decoder"], z, z_mask, cfg, reverse=True, g=g)
     return mel, z_mask
 
 
 def decode_reverse(params: Params, cfg: GlowTTSConfig, z, z_mask, g=None):
     """Raw reverse flow: latent [B, M, C] -> mel [B, M, C]."""
-    return flows.decoder_reverse(params["decoder"], z, z_mask, cfg, g=g)
+    return flows.decoder(params["decoder"], z, z_mask, cfg, reverse=True, g=g)[0]
 
 
 def speaker_embedding(params: Params, speaker_id: torch.Tensor) -> torch.Tensor:

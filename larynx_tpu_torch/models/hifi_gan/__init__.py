@@ -1,4 +1,4 @@
-"""HiFi-GAN vocoder, PyTorch port (inference)."""
+"""HiFi-GAN vocoder, PyTorch port (inference and training)."""
 
 from larynx_tpu_torch.models.hifi_gan.config import (  # noqa: F401
     HiFiGanConfig,

@@ -11,6 +11,9 @@ Pallas kernels; :func:`pack_params` packs
 their weights once, at load.  Wider stages use plain
 torch convs, as the JAX package uses XLA there.  The upsample is a plain
 transposed conv: the JAX package's packed upsample only fills TPU lanes.
+Params without ``"mrf"`` (unpacked: the GAN trainer's) run every stage as
+torch convs under autograd, as the JAX package trains the generator
+without its Pallas kernels; no loader reaches that path.
 
 The generator runs in its params' dtype: float32, or bfloat16 (the JAX
 engine's vocoder precision on an accelerator), where stage 1 and the
@@ -70,7 +73,8 @@ def pack_params(params: Params, cfg: HiFiGanConfig) -> Params:
 
 def generator(params: Params, cfg: HiFiGanConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel [B, T, num_mels] -> audio [B, T * total_upsample]; ``params``
-    from :func:`pack_params`, mel in their dtype."""
+    from :func:`pack_params` (or unpacked, for training), mel in their
+    dtype."""
     x = conv1d(mel, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
     nk = cfg.num_kernels
     dilations = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
@@ -78,7 +82,7 @@ def generator(params: Params, cfg: HiFiGanConfig, mel: torch.Tensor) -> torch.Te
         x = leaky_relu(x, LRELU_SLOPE)
         up = params["ups"][i]
         x = conv_transpose1d(x, up["w"], up["b"], stride=u, padding=(k - u) // 2)
-        stage = params["mrf"][i]
+        stage = params["mrf"][i] if "mrf" in params else None
         if stage is not None:
             x = mrf_section(x.contiguous(), stage)
         else:

@@ -13,7 +13,11 @@ WaveGlow's invertible 1x1s (``convinv.w``/``w_inv``) are already
 ``[C_out, C_in]`` in the native layout and stay as they are.  Tacotron2's
 linears and LSTM gates ``[in, out]`` become ``[out, in]`` (the fused LSTM
 bias ``b`` stays), its convs, ``location_conv`` ``[k, 2, F]`` among them,
-``[C_out, C_in, k]``; its embedding and BatchNorm vectors stay.
+``[C_out, C_in, k]``; its embedding and BatchNorm vectors stay.  HiFi-GAN's
+discriminators (training only) take their period convs ``[kh, kw, C_in,
+C_out]`` to ``[C_out, C_in, kh, kw]`` and their scale convs as convs.
+:func:`params_to_jax` writes the port's GlowTTS, HiFi-GAN and discriminator
+tensors back in the native layout, as the trainers save them.
 
 :func:`init_params` draws a random native tree with the JAX package's
 shapes and distributions from a ``torch.Generator``, so a machine without
@@ -68,29 +72,46 @@ def _convert_tacotron2(path: typing.Tuple[str, ...], arr: np.ndarray) -> np.ndar
     return arr
 
 
-def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str) -> np.ndarray:
+def _convert_discriminators(path: typing.Tuple[str, ...], arr: np.ndarray,
+                            inverse: bool) -> np.ndarray:
+    """MPD conv2d ``w`` [kh, kw, Ci, Co] <-> [Co, Ci, kh, kw]; MSD (grouped)
+    conv1d ``w`` [k, Ci/g, Co] <-> [Co, Ci/g, k]."""
+    if path[-1] != "w":
+        return arr
+    if arr.ndim == 4:
+        return arr.transpose((2, 3, 1, 0) if inverse else (3, 2, 0, 1))
+    return np.swapaxes(arr, -3, -1)
+
+
+def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str,
+             inverse: bool = False) -> np.ndarray:
+    """One leaf from the native layout to the port's, or back (``inverse``;
+    every other conversion is its own inverse)."""
     if kind == "waveglow":
         return _convert_waveglow(path, arr)
     if kind == "tacotron2":
         return _convert_tacotron2(path, arr)
+    if kind == "discriminators":
+        return _convert_discriminators(path, arr, inverse)
     key = path[-1]
     if kind == "hifi_gan" and path[0] == "ups" and key == "w":
-        return np.moveaxis(arr, -3, -1)  # [k, Ci, Co] -> [Ci, Co, k]
+        # [k, Ci, Co] <-> [Ci, Co, k]
+        return np.moveaxis(arr, -1, -3) if inverse else np.moveaxis(arr, -3, -1)
     if key in _CONV_KEYS:
-        return np.swapaxes(arr, -3, -1)  # [..., k, Ci, Co] -> [..., Co, Ci, k]
+        return np.swapaxes(arr, -3, -1)  # [..., k, Ci, Co] <-> [..., Co, Ci, k]
     if kind == "glow_tts" and key in _MAT_KEYS:
-        return np.swapaxes(arr, -2, -1)  # [..., Ci, Co] -> [..., Co, Ci]
+        return np.swapaxes(arr, -2, -1)  # [..., Ci, Co] <-> [..., Co, Ci]
     return arr
 
 
 def params_from_jax(tree: Params, kind: str, device=None) -> Params:
     """Native parameter tree (numpy) -> the port's tensors.
 
-    ``kind`` is ``"glow_tts"``, ``"hifi_gan"``, ``"waveglow"`` or
-    ``"tacotron2"``.  Floating leaves become float32; integer leaves keep
-    their type.
+    ``kind`` is ``"glow_tts"``, ``"hifi_gan"``, ``"waveglow"``,
+    ``"tacotron2"`` or ``"discriminators"`` (HiFi-GAN's, for training).
+    Floating leaves become float32; integer leaves keep their type.
     """
-    if kind not in ("glow_tts", "hifi_gan", "waveglow", "tacotron2"):
+    if kind not in ("glow_tts", "hifi_gan", "waveglow", "tacotron2", "discriminators"):
         raise ValueError(f"unknown parameter kind {kind!r}")
 
     def walk(node, path):
@@ -102,6 +123,26 @@ def params_from_jax(tree: Params, kind: str, device=None) -> Params:
         if np.issubdtype(arr.dtype, np.floating):
             arr = arr.astype(np.float32)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    return walk(tree, ())
+
+
+def params_to_jax(tree: Params, kind: str) -> Params:
+    """The port's tensors -> a native (numpy, float32) tree, the inverse of
+    :func:`params_from_jax`, for ``kind`` ``"glow_tts"``, ``"hifi_gan"`` or
+    ``"discriminators"``: what the trainers save as ``generator.npz``."""
+    if kind not in ("glow_tts", "hifi_gan", "discriminators"):
+        raise ValueError(f"no native layout writer for {kind!r}")
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+        arr = _convert(path, node.detach().cpu().numpy(), kind, inverse=True)
+        if np.issubdtype(arr.dtype, np.floating):
+            arr = arr.astype(np.float32)
+        return np.ascontiguousarray(arr)
 
     return walk(tree, ())
 
@@ -392,6 +433,29 @@ def _init_tacotron2(gen: torch.Generator, cfg: Tacotron2Config) -> Params:
     })
 
 
+def init_discriminators(gen: torch.Generator) -> Params:
+    """HiFi-GAN's multi-period and multi-scale discriminators in the native
+    layout: uniform 1/sqrt(fan_in) weights and biases, fan_in counting the
+    per-group inputs, as the JAX package's init."""
+    from larynx_tpu_torch.models.hifi_gan.discriminators import P_CHANNELS, PERIODS, S_LAYERS
+
+    def conv(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        return {"w": _uniform(gen, shape, bound), "b": _uniform(gen, (shape[-1],), bound)}
+
+    periods = [{
+        "convs": [conv((5, 1, c_in, c_out), c_in * 5) for c_in, c_out in P_CHANNELS]
+        + [conv((5, 1, 1024, 1024), 1024 * 5)],
+        "post": conv((3, 1, 1024, 1), 1024 * 3),
+    } for _ in PERIODS]
+    scales = [{
+        "convs": [conv((k, c_in // groups, c_out), (c_in // groups) * k)
+                  for c_in, c_out, k, _stride, groups in S_LAYERS],
+        "post": conv((3, 1024, 1), 1024 * 3),
+    } for _ in range(3)]
+    return _as_float32({"periods": periods, "scales": scales})
+
+
 def _as_float32(tree):
     if isinstance(tree, dict):
         return {k: _as_float32(v) for k, v in tree.items()}
@@ -402,7 +466,9 @@ def _as_float32(tree):
 
 def init_params(generator: torch.Generator, cfg) -> Params:
     """Random native-layout (numpy) params for a GlowTTS, HiFi-GAN, WaveGlow
-    or Tacotron2 config."""
+    or Tacotron2 config, or for ``"discriminators"`` (HiFi-GAN's)."""
+    if cfg == "discriminators":
+        return init_discriminators(generator)
     if isinstance(cfg, GlowTTSConfig):
         return _init_glow_tts(generator, cfg)
     if isinstance(cfg, HiFiGanConfig):

@@ -104,11 +104,98 @@ def _tacotron2_runs():
     assert mels.shape == (1, 10, 12) and np.isfinite(mels).all()
 
 
-@pytest.mark.parametrize("call", [_interleaved_runs, _tacotron2_runs],
-                         ids=["interleaved", "tacotron2"])
+# required arguments of the training CLIs; an unported option raises before
+# any of them is read
+TRAIN_ARGV = ["--metadata", "/nonexistent/metadata.csv", "--wav-dir", "/nonexistent",
+              "--output-dir", "/nonexistent/voice", "--phonemes", "/nonexistent/phonemes.txt",
+              "--device", "cpu"]
+VOCODER_ARGV = ["--wav-dir", "/nonexistent", "--out-dir", "/nonexistent/vocoder",
+                "--device", "cpu"]
+
+
+def _train_family_tacotron2_raises():
+    from larynx_tpu_torch import train
+
+    with pytest.raises(NotImplementedError, match="Tacotron2 training"):
+        train.main(TRAIN_ARGV + ["--family", "tacotron2"])
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train.main(TRAIN_ARGV + ["--model-parallel", "2"])
+
+
+def _train_vocoder_family_waveglow_raises():
+    from larynx_tpu_torch import train_vocoder
+
+    with pytest.raises(NotImplementedError, match="WaveGlow training"):
+        train_vocoder.main(VOCODER_ARGV + ["--family", "waveglow"])
+
+
+@pytest.mark.parametrize("call", [_interleaved_runs, _tacotron2_runs,
+                                  _train_family_tacotron2_raises,
+                                  _train_vocoder_family_waveglow_raises],
+                         ids=["interleaved", "tacotron2", "train --family tacotron2",
+                              "train_vocoder --family waveglow"])
 def test_unported_options_raise(call):
     """What is not ported raises NotImplementedError; what is, runs."""
     call()
+
+
+# the training path: GlowTTS and HiFi-GAN training and their CLIs
+TRAINING_MODULES = ["larynx_tpu_torch.train", "larynx_tpu_torch.train_vocoder",
+                    "larynx_tpu_torch.parallel.train", "larynx_tpu_torch.models.glow_tts.training",
+                    "larynx_tpu_torch.models.glow_tts.data",
+                    "larynx_tpu_torch.models.hifi_gan.training",
+                    "larynx_tpu_torch.models.hifi_gan.discriminators"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_loads_neither_jax_nor_larynx_tpu(module):
+    _loads_neither_jax_nor_larynx_tpu(module)
+
+
+@pytest.mark.parametrize("cli_name", ["train", "train_vocoder"])
+def test_training_clis_without_gpu_or_device_raise(monkeypatch, cli_name):
+    """With no GPU and no ``--device cpu`` both CLIs raise before reading
+    their data."""
+    import importlib
+
+    module = importlib.import_module(f"larynx_tpu_torch.{cli_name}")
+    argv = [a for a in (TRAIN_ARGV if cli_name == "train" else VOCODER_ARGV)
+            if a not in ("--device", "cpu")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.main(argv + extra)
+
+
+def test_hifi_gan_vocoder_on_cuda_runs_the_mrf_kernel_not_the_training_path(
+        voices_dir, monkeypatch):  # noqa: F811
+    """The loader's params for a CUDA device (built on the CPU here) carry a
+    packed MRF stage for every stage of C <= 128, so its generator calls
+    ``mrf_section`` (the kernel's wrapper, one launch per unit on CUDA) and
+    never the unfused resblocks that the GAN trainer's unpacked params run."""
+    from larynx_tpu_torch import hifi_gan
+    from larynx_tpu_torch.models.hifi_gan import model as hifi_model
+
+    vocoder = larynx_tpu_torch.load_vocoder_model(larynx_tpu_torch.VocoderType.HIFI_GAN,
+                                                  voices_dir / VOCODER)
+    monkeypatch.setattr(hifi_gan, "tree_to", lambda tree, device: tree)
+    packed = vocoder._packed.get(torch.device("cuda"), torch.float32)
+    channels = [up["w"].shape[1] for up in packed["ups"]]
+    assert [stage is not None for stage in packed["mrf"]] == [c <= 128 for c in channels]
+
+    calls = []
+    real = hifi_model.mrf_section
+    monkeypatch.setattr(hifi_model, "mrf_section",
+                        lambda x, stage: calls.append(x.shape[-1]) or real(x, stage))
+
+    def unfused(*args, **kwargs):
+        raise AssertionError("the vocoder reached the unfused training path")
+
+    monkeypatch.setattr(hifi_model, "_resblock1", unfused)
+    monkeypatch.setattr(hifi_model, "_resblock2", unfused)
+    audio = hifi_model.generator(packed, vocoder.model_config, torch.zeros((1, 8, 80)))
+    assert audio.shape == (1, 8 * vocoder.model_config.total_upsample)
+    assert calls == channels
 
 
 SLICE_MODULES = ["larynx_tpu_torch.server", "larynx_tpu_torch.server.app",
