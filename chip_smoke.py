@@ -99,7 +99,20 @@ Phases (any failure exits non-zero):
      card's inputs; HiFi-GAN B=2); the written voice and vocoder dirs through
      ``text_to_speech`` (27 MRF launches) and the saved voice's
      reverse(forward(mel)); then the MRF kernel at the shapes it gave.
-Phases 2-8 and 11-14 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
+ 15. training, part 2, in float32 on phase 14's corpus: ``train_vocoder
+     --family waveglow`` at wn_256 (batch 16, 8192-sample segments, 5 steps)
+     and ``train --family tacotron2`` at NVIDIA's hparams (batch 32, ids 192,
+     mels 1024 x 80, 3 steps), with finite host-float histories, peak memory
+     and step times split into forward, backward and Adam (WaveGlow) and into
+     masks, encode, teacher decode, postnet + loss, backward and optimizer
+     (Tacotron2, with the teacher decode's launches per step and the card's
+     busy share); one step's losses and gradients on CUDA against the CPU
+     path in float64 (WaveGlow B=1 x 8 frames with perturbed end convs;
+     Tacotron2 B=2, 32 ids, 64 frames, injected masks); the BatchNorm running
+     statistics moved; the written dirs through ``text_to_speech`` (96 WN
+     launches per group call, 27 MRF per sentence); then both kernels at the
+     shapes they gave.
+Phases 2-8 and 11-15 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
 CUDA default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
 against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
 The MRF rows of phase 2 include the stream path's chunk windows (B=1).
@@ -2925,14 +2938,14 @@ def stage_training_corpus(root: Path) -> Path:
     return corpus
 
 
-def grad_errors(got, want):
+def grad_errors(got, want, floor_share=TRAIN_GRAD_RTOL):
     """{leaf path: max |got's .grad - want's .grad| as a share of the leaf's
-    scale, max |want's .grad|, floored at TRAIN_GRAD_RTOL of the net's
+    scale, max |want's .grad|, floored at ``floor_share`` of the net's
     largest gradient (a leaf whose true gradient is zero holds rounding
     noise only)}."""
     want_leaves = dict(flat_tree(want))
-    floor = TRAIN_GRAD_RTOL * max(g.grad.abs().max().item() for _, g in flat_tree(want)
-                                  if g.grad is not None)
+    floor = floor_share * max(g.grad.abs().max().item() for _, g in flat_tree(want)
+                              if g.grad is not None)
     errors = {}
     for path, leaf in flat_tree(got):
         ref = want_leaves[path].grad
@@ -2945,18 +2958,19 @@ def grad_errors(got, want):
     return errors
 
 
-def against_float64(label, runs, f32_bound):
+def against_float64(label, runs, f32_bound, floor_share=TRAIN_GRAD_RTOL):
     """Each run {name: (params with .grad, metrics)} against "CPU f64": the
     losses within TRAIN_LOSS_RTOL (float32) or TRAIN_F64_RTOL (CUDA f64),
     every gradient within ``f32_bound`` (CUDA f32) or TRAIN_F64_RTOL (CUDA
-    f64) of its leaf's scale; the CPU's float32 is reported.  Returns the
-    largest gradient error of each run."""
+    f64) of its leaf's scale (``grad_errors`` with ``floor_share``); the
+    CPU's float32 is reported.  Returns the largest gradient error of each
+    run."""
     ref_params, ref_metrics = runs["CPU f64"]
     worst = {}
     for name, (params, metrics) in runs.items():
         if name == "CPU f64":
             continue
-        errors = grad_errors(params, ref_params)
+        errors = grad_errors(params, ref_params, floor_share)
         path = max(errors, key=errors.get)
         worst[name] = errors[path]
         log(f"{label}, {name} against the CPU in float64: losses "
@@ -3262,6 +3276,319 @@ def training_path(root: Path, mrf_block, mrf_shapes: set):
     return out
 
 
+# Phase 15: training, part 2, on phase 14's corpus: WaveGlow wn_256
+# (train_vocoder --family waveglow) and Tacotron2 at NVIDIA's hparams
+# (train --family tacotron2), widths not cut
+TRAIN_WG_VOCODER = "waveglow/trained"
+TRAIN_T2_VOICE = "en-us_trained-tacotron2"
+# WaveGlow, one step at B=1 x 8 frames (256 blocks), float32 on the card
+# against the CPU in float64: each gradient is a sum of at most 256 x 3
+# products per weight, so float32 in another order sits ~1e-6 of a leaf's
+# scale; 1e-4, GlowTTS's bound, catches a layout or indexing fault (O(1))
+WG_GRAD_RTOL = 1e-4
+# Tacotron2, one step at B=2, 32 ids, 64 frames: the gradients flow back
+# through 64 recurrent steps of 1024-wide LSTMs, whose float32 rounding
+# compounds; 1e-3 of each leaf's scale, the scale floored at 1e-2 of the
+# net's largest gradient: a conv bias before a BatchNorm, which removes it,
+# has a true gradient of 0 and holds rounding noise only
+T2_GRAD_RTOL = 1e-3
+T2_GRAD_FLOOR = 1e-2
+T2_TRAIN_SEED = 1234  # train.py's --seed default: its masks are seeded by seed + 1
+
+
+def training_path_2(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: set):
+    """Phase 15, float32: WaveGlow (python -m larynx_tpu_torch.train_vocoder
+    --family waveglow, wn_256, batch 16 x 8192 samples, 5 steps) and
+    Tacotron2 (python -m larynx_tpu_torch.train --family tacotron2, NVIDIA's
+    hparams, batch 32 x 1024 frames, 3 steps) at full width on the card, on
+    phase 14's corpus; step times split (WaveGlow: forward, backward, Adam;
+    Tacotron2: masks, encode, teacher decode, postnet + loss, backward,
+    optimizer), Tacotron2's launches per decoder step and busy share, peak
+    memory; one step's losses and gradients on CUDA against the CPU path in
+    float64; the BatchNorm running statistics moved; the written dirs through
+    text_to_speech (96 WN launches per group call, 27 MRF per sentence).
+    Adds the kernels' shapes to ``mrf_shapes`` and ``wn_shapes``; returns
+    launches and measurements."""
+    import collections
+
+    import larynx_tpu_torch
+    from larynx_tpu_torch import train, train_vocoder
+    from larynx_tpu_torch.audio import AudioSettings
+    from larynx_tpu_torch.convert.native import load_params
+    from larynx_tpu_torch.device import to_device
+    from larynx_tpu_torch.models.glow_tts.data import Dataset
+    from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+    from larynx_tpu_torch.models.tacotron2 import model as t2_model
+    from larynx_tpu_torch.models.tacotron2 import training as t2_training
+    from larynx_tpu_torch.models.tacotron2.config import tacotron2_config_from_voice_json
+    from larynx_tpu_torch.models.waveglow import model as wg_model
+    from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
+    from larynx_tpu_torch.parallel import train as ptrain
+    from larynx_tpu_torch.text.ids import load_phoneme_ids
+    from larynx_tpu_torch.weights import cast, params_from_jax
+
+    out = {"launches": {}, "ms": {}, "mb": {}, "loss": {}}
+    corpus = root / "train_corpus"
+
+    def run_cli(label, fn, n_steps):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        (state, history), wall = timed_once(fn)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        if len(history) != n_steps or not all(type(v) is float and np.isfinite(v)
+                                              for m in history for v in m.values()):
+            raise AssertionError(f"{label}: {len(history)} steps, history {history}")
+        out["ms"][f"{label} wall ({n_steps} steps)"] = wall
+        out["mb"][f"{label} peak"] = peak
+        out["loss"][label] = history
+        log(f"{label}: wall {wall:.1f} ms for {n_steps} steps with data, peak memory {peak:.0f} "
+            f"MiB above what was allocated before; history (host floats): "
+            + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in m.items()) for m in history))
+        return state
+
+    # WaveGlow wn_256 at batch 16 x 32 frames, 5 steps
+    wg_cfg = WaveGlowConfig()
+    wg_state = run_cli("train_vocoder --family waveglow", lambda: train_vocoder.main([
+        "--family", "waveglow", "--wav-dir", str(corpus / "wavs"),
+        "--out-dir", str(root / TRAIN_WG_VOCODER), "--batch-size", "16", "--steps", "5",
+        "--device", "cuda"]), 5)
+    up = wg_cfg.upsample_stride
+    settings = AudioSettings(mel_channels=wg_cfg.mel_channels, sample_rate=wg_cfg.sampling_rate,
+                             hop_length=up)
+    corpus_audio = train_vocoder._load_corpus(corpus / "wavs", 32 * up + up)
+    audio = to_device(train_vocoder._sample_batch(np.random.default_rng(0), corpus_audio, 16,
+                                                  32 * up, up), "cuda")
+    mels = train_vocoder._make_mel_fn(settings, 32, "cuda")(audio)
+    wg_opt = ptrain.Optimizer(ptrain.exponential_decay(2e-4, 1000, 0.999))
+
+    def wg_step():
+        ptrain.zero_grads(wg_state.opt_state)
+        loss = wg_model.loss_fn(wg_state.params, wg_cfg, audio, mels, 1.0)
+        loss.backward()
+        wg_opt.update(wg_state.opt_state)
+
+    wg_step()
+    _, t_step = timed(wg_step)
+    ptrain.zero_grads(wg_state.opt_state)
+    loss, t_fwd = timed_once(lambda: wg_model.loss_fn(wg_state.params, wg_cfg, audio, mels, 1.0))
+    _, t_bwd = timed_once(loss.backward)
+    _, t_opt = timed_once(lambda: wg_opt.update(wg_state.opt_state))
+    split = {"forward": t_fwd, "backward": t_bwd, "Adam": t_opt}
+    out["ms"]["waveglow train step, batch 16"] = t_step
+    out["ms"].update({f"waveglow train step, {k}": v for k, v in split.items()})
+    log(f"waveglow train step, batch 16 x 8192 samples (wn_256, unfused WN stacks, f32): "
+        f"{t_step:.3f} ms (host clock, 3 steps); one step split with a synchronisation between "
+        "phases: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+    # one WaveGlow step, CUDA against the CPU path in float64, B=1 x 8
+    # frames, the trained dir's weights with the end convs perturbed as the
+    # inference phases perturb them
+    tree = load_params(root / TRAIN_WG_VOCODER / "generator.npz")
+    gen = torch.Generator().manual_seed(7)
+    for flow in tree["flows"]:
+        flow["wn"]["end_w"] = (torch.randn(flow["wn"]["end_w"].shape, generator=gen)
+                               * WG_END_SCALE).numpy()
+    pair = audio[:1, : 8 * up].cpu(), mels[:1, :8].cpu()
+
+    def wg_grads_on(device, dtype):
+        device = torch.device(device)
+        params = ptrain.trainable(cast(params_from_jax(tree, "waveglow", device), dtype),
+                                  frozen=("w_inv",))
+        loss = wg_model.loss_fn(params, wg_cfg, pair[0].to(device, dtype),
+                                pair[1].to(device, dtype), 1.0)
+        loss.backward()
+        return params, {"nll": loss.detach()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: wg_grads_on(device, dtype) for name, device, dtype in (
+            ("CUDA f32", "cuda", torch.float32), ("CUDA f64", "cuda", torch.float64),
+            ("CPU f32", "cpu", torch.float32), ("CPU f64", "cpu", torch.float64))}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = against_float64("train_vocoder waveglow", runs, WG_GRAD_RTOL)
+    out["loss"]["waveglow CUDA vs CPU"] = {name: {k: float(v) for k, v in m.items()}
+                                           for name, (_, m) in runs.items()}
+    log(f"waveglow, one step at B=1 x 8 frames (end convs at scale {WG_END_SCALE}; TF32 off, cuDNN "
+        f"deterministic): CUDA float32 gradients within {worst['CUDA f32']:.3g} of their scale "
+        f"from the CPU in float64 (bound {WG_GRAD_RTOL}), CUDA float64 within "
+        f"{worst['CUDA f64']:.3g} (bound {TRAIN_F64_RTOL}), the CPU's float32 within "
+        f"{worst['CPU f32']:.3g}")
+
+    # the trained WaveGlow through text_to_speech: 96 WN launches per group call
+    per_group = wg_cfg.flows * wg_cfg.wn_layers
+    saved = load_params(root / TRAIN_WG_VOCODER / "generator.npz")
+    inv_err = max(np.abs(f["convinv"]["w"].astype(np.float64) @ f["convinv"]["w_inv"]
+                         - np.eye(f["convinv"]["w"].shape[0])).max() for f in saved["flows"])
+    if not inv_err <= 1e-5:
+        raise AssertionError(f"trained waveglow: w @ w_inv off the identity by {inv_err}")
+    kwargs = dict(voice_or_lang=VOICE, vocoder_or_quality=TRAIN_WG_VOCODER,
+                  custom_voices_dir=root, no_download=True, device="cuda")
+    with recording_wn_shapes(wn_shapes):
+        list(larynx_tpu_torch.text_to_speech(PANGRAM, **kwargs))  # warm-up
+        wn_layer.fused_wn_layer_state.launches = 0
+        results, t_tts = timed_once(lambda: list(larynx_tpu_torch.text_to_speech(PANGRAM,
+                                                                                 **kwargs)))
+        n_wn = wn_layer.fused_wn_layer_state.launches
+    wg_audio = results[0].audio
+    if n_wn != per_group:
+        raise AssertionError(f"trained waveglow: {n_wn} WN launches, expected {per_group}")
+    if wg_audio.dtype != np.int16 or np.abs(wg_audio.astype(np.int32)).max() < 1000:
+        raise AssertionError(f"trained waveglow: audio {wg_audio.dtype}, silent or empty")
+    out["launches"]["train: trained waveglow, text_to_speech, pangram"] = n_wn
+    out["ms"]["trained waveglow text_to_speech"] = t_tts
+    log(f"trained waveglow through text_to_speech, pangram: {t_tts:.3f} ms, {len(wg_audio)} "
+        f"samples, WN launches {n_wn} (expected {per_group}, one group call); the saved w @ w_inv "
+        f"within {inv_err:.3g} of the identity")
+
+    # Tacotron2 at NVIDIA's hparams, batch 32, ids 192, mels 1024 x 80, 3 steps
+    lang, name = TRAIN_T2_VOICE.split("_", 1)
+    voice_dir = root / lang / name
+    t2_state = run_cli("train --family tacotron2", lambda: train.main([
+        "--family", "tacotron2", "--metadata", str(corpus / "metadata.csv"),
+        "--wav-dir", str(corpus / "wavs"), "--output-dir", str(voice_dir),
+        "--config", str(corpus / "config.json"), "--phonemes", str(corpus / "phonemes.txt"),
+        "--batch-size", "32", "--epochs", "1", "--device", "cuda"]), 3)
+    t2_cfg = tacotron2_config_from_voice_json(json.loads((voice_dir / "config.json").read_text()))
+    with open(corpus / "phonemes.txt", encoding="utf-8") as f:
+        table = load_phoneme_ids(f)
+    batch = next(Dataset(corpus / "metadata.csv", corpus / "wavs", table, AudioSettings(**AUDIO),
+                         device="cuda").batches(32, shuffle_seed=0))
+    bsz, t_ids = batch["ids"].shape
+    frames = batch["mels"].shape[1]
+    t2_opt = ptrain.Optimizer(ptrain.linear_schedule(0.0, 1e-3, 4000), grad_clip=5.0,
+                              clip="global_norm", weight_decay=1e-6)
+    t2_step = t2_training.make_train_step(t2_cfg, t2_opt)
+
+    def masks_for(k):
+        return t2_training.draw_train_masks(t2_cfg, bsz, t_ids, frames, T2_TRAIN_SEED + 1, k,
+                                            "cuda")
+
+    def step():
+        return t2_step(t2_state, batch, masks_for(t2_state.step))
+
+    step()
+    _, t_step = timed(step)
+    b = ptrain.batch_to(batch, "cuda")
+    masks, t_masks = timed_once(lambda: masks_for(t2_state.step))
+    parts = {}
+
+    def timing(label, fn):
+        def wrapped(*args, **kwargs):
+            result, parts[label] = timed_once(lambda: fn(*args, **kwargs))
+            return result
+        return wrapped
+
+    encode, decode = t2_model.encode, t2_model.decode_teacher
+    t2_model.encode, t2_model.decode_teacher = timing("encode", encode), timing("teacher decode",
+                                                                                decode)
+    try:
+        ptrain.zero_grads(t2_state.opt_state)
+        stats = []
+        (loss, _), t_fwd = timed_once(lambda: t2_training.loss_fn(t2_state.params, t2_cfg, b,
+                                                                  *masks, stats))
+    finally:
+        t2_model.encode, t2_model.decode_teacher = encode, decode
+    _, t_bwd = timed_once(loss.backward)
+    _, t_opt = timed_once(lambda: (t2_opt.update(t2_state.opt_state),
+                                   t2_training.update_bn_running(stats)))
+    split = {"masks (host draw, one copy)": t_masks, "encode": parts["encode"],
+             "teacher decode": parts["teacher decode"],
+             "postnet + loss": t_fwd - parts["encode"] - parts["teacher decode"],
+             "backward": t_bwd, "optimizer + BN EMA": t_opt}
+    out["ms"]["tacotron2 train step, batch 32"] = t_step
+    out["ms"].update({f"tacotron2 train step, {k}": v for k, v in split.items()})
+    # the card's busy share: the teacher decode's forward alone (phase 13's
+    # measure), then a whole step
+    decode_events, step_events = collections.Counter(), collections.Counter()
+    memory, mask = t2_model.encode(t2_state.params, t2_cfg, b["ids"], b["id_lengths"], train=True,
+                                   keep=masks[0])
+    _, dec_traced, dec_busy = device_busy_ms(lambda: t2_model.decode_teacher(
+        t2_state.params, t2_cfg, memory, mask, b["mels"], keep=masks[1]), decode_events)
+    del memory, mask
+    _, step_traced, step_busy = device_busy_ms(step, step_events)
+    out["decode"] = {"frames": frames, "traced_ms": dec_traced, "busy_ms": dec_busy,
+                     "kernels": decode_events["kernel"], "step_traced_ms": step_traced,
+                     "step_busy_ms": step_busy, "step_kernels": step_events["kernel"],
+                     "step_memcpy": step_events["gpu_memcpy"],
+                     "step_host_syncs": step_events["host_sync"]}
+
+    def share(busy, traced):
+        return "not measured" if busy is None else f"{busy:.3f} ms, {busy / traced:.1%}"
+
+    log(f"tacotron2 train step, batch 32 x {t_ids} ids x {frames} frames (f32): {t_step:.3f} ms "
+        "(host clock, 3 steps); one step split with a synchronisation between phases: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; teacher decode {parts['teacher decode'] / frames:.4f} ms a frame")
+    log(f"tacotron2 teacher decode forward, traced: {dec_traced:.3f} ms, the card busy "
+        f"{share(dec_busy, dec_traced)}; {decode_events['kernel']} kernel launches "
+        f"({decode_events['kernel'] / frames:.1f} per decoder step); a whole step traced: "
+        f"{step_traced:.3f} ms, the card busy {share(step_busy, step_traced)}; "
+        f"{step_events['kernel']} kernel launches ({step_events['kernel'] / frames:.1f} per "
+        f"frame), {step_events['gpu_memcpy']} copies, {step_events['host_sync']} host waits")
+
+    # one Tacotron2 step, CUDA against the CPU path in float64, B=2, 32 ids,
+    # 64 frames, ragged, with injected masks
+    tree = load_params(voice_dir / "generator.npz")
+    bns = [c["bn"] for c in tree["encoder"]["convs"] + tree["postnet"]["convs"]]
+    if not all(np.abs(bn["mean"]).max() > 0 and np.abs(bn["var"] - 1).max() > 0 for bn in bns):
+        raise AssertionError("trained tacotron2: BatchNorm running statistics at the init's")
+    small = {"ids": batch["ids"][:2, :32], "id_lengths": np.array([32, 25], np.int32),
+             "mels": batch["mels"][:2, :64], "mel_lengths": np.array([64, 50], np.int32)}
+    keep = t2_training.draw_train_masks(t2_cfg, 2, 32, 64, T2_TRAIN_SEED + 1, 0, "cpu")
+
+    def t2_grads_on(device, dtype):
+        device = torch.device(device)
+        params = ptrain.trainable(cast(params_from_jax(tree, "tacotron2", device), dtype),
+                                  frozen=t2_training.BN_RUNNING)
+        bb = ptrain.batch_to(small, device)
+        bb["mels"] = bb["mels"].to(dtype)
+        loss, parts = t2_training.loss_fn(params, t2_cfg, bb, keep[0].to(device),
+                                          keep[1].to(device))
+        loss.backward()
+        return params, {k: v.detach() for k, v in dict(parts, loss=loss).items()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: t2_grads_on(device, dtype) for name, device, dtype in (
+            ("CUDA f32", "cuda", torch.float32), ("CUDA f64", "cuda", torch.float64),
+            ("CPU f32", "cpu", torch.float32), ("CPU f64", "cpu", torch.float64))}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = against_float64("train tacotron2", runs, T2_GRAD_RTOL, T2_GRAD_FLOOR)
+    out["loss"]["tacotron2 CUDA vs CPU"] = {name: {k: float(v) for k, v in m.items()}
+                                            for name, (_, m) in runs.items()}
+    log(f"tacotron2, one step at B=2, 32 ids, 64 frames (injected masks; TF32 off, cuDNN "
+        f"deterministic): CUDA float32 gradients within {worst['CUDA f32']:.3g} of their scale "
+        f"from the CPU in float64 (bound {T2_GRAD_RTOL}, scale floored at {T2_GRAD_FLOOR} of the "
+        f"largest), CUDA float64 within {worst['CUDA f64']:.3g} (bound {TRAIN_F64_RTOL}), the "
+        f"CPU's float32 within {worst['CPU f32']:.3g}; the saved BatchNorm running statistics "
+        f"moved from the init's 0 and 1 in all {len(bns)} layers (largest |mean| "
+        f"{max(np.abs(bn['mean']).max() for bn in bns):.4g})")
+
+    # the trained voice through text_to_speech with universal_large: 27 MRF launches
+    per_call = mrf_launches_per_call(HiFiGanConfig())
+    kwargs = dict(voice_or_lang=TRAIN_T2_VOICE, vocoder_or_quality="high", custom_voices_dir=root,
+                  no_download=True, device="cuda")
+    with recording_mrf_shapes(mrf_shapes):
+        list(larynx_tpu_torch.text_to_speech(PANGRAM, **kwargs))  # warm-up
+        mrf_block.mrf_section.launches = 0
+        results, t_tts = timed_once(lambda: list(larynx_tpu_torch.text_to_speech(PANGRAM,
+                                                                                 **kwargs)))
+        n_mrf = mrf_block.mrf_section.launches
+    t2_audio = results[0].audio
+    if n_mrf != per_call:
+        raise AssertionError(f"trained tacotron2: {n_mrf} MRF launches, expected {per_call}")
+    if t2_audio.dtype != np.int16 or not len(t2_audio):
+        raise AssertionError(f"trained tacotron2: audio {t2_audio.dtype} {t2_audio.shape}")
+    out["launches"]["train: trained tacotron2, text_to_speech, pangram"] = n_mrf
+    out["ms"]["trained tacotron2 text_to_speech"] = t_tts
+    log(f"trained tacotron2 through text_to_speech with universal_large, pangram: {t_tts:.3f} ms, "
+        f"{len(t2_audio)} samples, MRF launches {n_mrf} (expected {per_call})")
+    log("phase 15 times: " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["ms"].items()))
+    return out
+
+
 def flat_tree(tree, prefix=""):
     """[(path, leaf)] of a parameter tree."""
     if isinstance(tree, dict):
@@ -3431,10 +3758,35 @@ def main() -> int:
         train_mrf = set()
         trained = training_path(Path(tmp), mrf_block, train_mrf)
         t_path = time.perf_counter() - start14
-        rows += check_mrf(mrf_block, path_mrf_cases(
-            mrf_cases + phase8_cases + server_cases + run_cases, {"trained vocoder": train_mrf}))
+        train_cases = path_mrf_cases(mrf_cases + phase8_cases + server_cases + run_cases,
+                                     {"trained vocoder": train_mrf})
+        rows += check_mrf(mrf_block, train_cases)
         log(f"phase 14 times: paths {t_path:.1f} s, kernel at its shapes "
             f"{time.perf_counter() - start14 - t_path:.1f} s")
+        # phase 15: WaveGlow and Tacotron2 training in float32, then both
+        # kernels at the shapes that the trained dirs gave them
+        start15 = time.perf_counter()
+        train2_mrf, train2_wn = set(), set()
+        trained2 = training_path_2(Path(tmp), mrf_block, wn_layer, train2_mrf, train2_wn)
+        t_path = time.perf_counter() - start15
+        rows += check_mrf(mrf_block, path_mrf_cases(
+            mrf_cases + phase8_cases + server_cases + run_cases + train_cases,
+            {"trained tacotron2": train2_mrf}))
+        checked_wn |= t2_wn
+        for shape in sorted(train2_wn & checked_wn):
+            log(f"wn_layer trained waveglow, B={shape[0]} T={shape[1]}: checked by an earlier "
+                "stack")
+        wn_stacks += wn_stack_rows(wn_layer, sorted(train2_wn - checked_wn, reverse=True),
+                                   torch.Generator().manual_seed(7), torch.float32,
+                                   "trained waveglow, 8-layer WN stack")
+        log(f"phase 15 times: paths {t_path:.1f} s, kernels at its shapes "
+            f"{time.perf_counter() - start15 - t_path:.1f} s")
+        log("training step times, this run (host clock, mean of 3, f32, TF32 off): GlowTTS "
+            f"{trained['ms']['train step, batch 32']:.3f} ms, HiFi-GAN "
+            f"{trained['ms']['train_vocoder step, batch 16']:.3f} ms (earlier runs on an H100 at "
+            "700 W: 220-339 and 209-210 ms), WaveGlow "
+            f"{trained2['ms']['waveglow train step, batch 16']:.3f} ms, Tacotron2 "
+            f"{trained2['ms']['tacotron2 train step, batch 32']:.3f} ms")
         pin_precision(None)
 
     main_rows = [r for r in rows if r["main_path"]]
@@ -3454,7 +3806,9 @@ def main() -> int:
                                 if "Glow" not in k and "waveglow" not in k},
                              **{k: v for k, v in run["launches"].items() if "waveglow" not in k},
                              **{k: v for k, v in t2["launches"].items() if "waveglow" not in k},
-                             **trained["launches"]},
+                             **trained["launches"],
+                             **{k: v for k, v in trained2["launches"].items()
+                                if "waveglow" not in k}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),
@@ -3485,7 +3839,9 @@ def main() -> int:
                              **{k: v for k, v in served["launches"].items()
                                 if "Glow" in k or "waveglow" in k},
                              **{k: v for k, v in run["launches"].items() if "waveglow" in k},
-                             **{k: v for k, v in t2["launches"].items() if "waveglow" in k}},
+                             **{k: v for k, v in t2["launches"].items() if "waveglow" in k},
+                             **{k: v for k, v in trained2["launches"].items()
+                                if "waveglow" in k}},
         "max_abs_err": max(r["max_abs_err"] for r in wn_rows + wn_stacks),
         "ms": sum(cfg.flows * r["ms"] for r in group_stacks),
         "plain_ms": sum(cfg.flows * r["plain_ms"] for r in group_stacks),

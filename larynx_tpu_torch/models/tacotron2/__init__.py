@@ -1,4 +1,4 @@
-"""Tacotron2 acoustic model, PyTorch port (inference)."""
+"""Tacotron2 acoustic model, PyTorch port (inference and training)."""
 
 from larynx_tpu_torch.models.tacotron2.config import (  # noqa: F401
     Tacotron2Config,

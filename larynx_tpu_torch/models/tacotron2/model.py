@@ -1,4 +1,5 @@
-"""Tacotron2 inference, as in ``larynx_tpu/models/tacotron2/model.py``.
+"""Tacotron2, as in ``larynx_tpu/models/tacotron2/model.py``: inference and
+the teacher-forced training forward.
 
 Plain functions on the port's parameter tree (``weights.params_from_jax``):
 linears and LSTM gates ``[out, in]``, convs ``[C_out, C_in, k]``; the
@@ -16,12 +17,20 @@ as PyTorch ops.
                         ``finished`` mask and the lengths come back as a
                         tensor, as the JAX scan's do.
   ``postnet``           the 5-conv residual refiner.
+  ``forward_teacher``   training: ``encode`` and ``postnet`` in train mode
+                        (BatchNorm over the batch, encoder dropout) around
+                        ``decode_teacher``, the decoder fed the right-shifted
+                        targets.
 
 The NVIDIA quirk of prenet dropout at inference is kept.  The JAX package
 draws its masks per step from ``fold_in`` keys, whose bits torch cannot
 reproduce; the port takes the whole decode's keep masks as one tensor
 (:func:`draw_keep_masks`, or injected by a caller), so the decode has no
 per-step random launch and the CUDA and CPU runs use the same masks.
+Training's dropout masks (encoder and prenet) enter the same way, drawn per
+step by ``models/tacotron2/training.py::draw_train_masks``.  Train mode
+only applies the two dropouts the JAX package applies: the config's
+attention and decoder dropout rates are declared there and never used.
 """
 
 import typing
@@ -85,9 +94,24 @@ def _lstm_scan(
     return torch.stack(hs, dim=1)
 
 
-def _bn(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """BatchNorm over the channel axis with the running statistics."""
-    return (x - p["mean"]) * torch.rsqrt(p["var"] + eps) * p["gamma"] + p["beta"]
+def _bn(p: Params, x: torch.Tensor, train: bool = False, eps: float = 1e-5):
+    """BatchNorm over the channel axis: with the running statistics, or in
+    ``train`` mode with the batch's mean and biased variance over (B, T),
+    padded positions included, as JAX.  Returns (y, (mean, var) in train
+    mode, else None)."""
+    if train:
+        var, mean = torch.var_mean(x, dim=(0, 1), correction=0)
+    else:
+        mean, var = p["mean"], p["var"]
+    y = (x - mean) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]
+    return y, ((mean, var) if train else None)
+
+
+def _collect(bn_stats: typing.Optional[list], p: Params, stats, y: torch.Tensor) -> None:
+    """Append a train-mode BatchNorm's (params, mean, var, n) to
+    ``bn_stats``, n = B * T of its output ``y``: the values per channel."""
+    if bn_stats is not None and stats is not None:
+        bn_stats.append((p, *stats, y.shape[0] * y.shape[1]))
 
 
 # -----------------------------------------------------------------------------
@@ -99,11 +123,18 @@ def encode(
     cfg: Tacotron2Config,
     ids: torch.Tensor,
     lengths: typing.Optional[torch.Tensor] = None,
+    train: bool = False,
+    keep: typing.Optional[torch.Tensor] = None,
+    bn_stats: typing.Optional[list] = None,
 ):
     """ids [B, T] -> (memory [B, T, E], mask [B, T] float {0, 1}).
 
     Padded positions are zeroed between stages and excluded from attention
-    by the mask, so a padded row matches the same row run alone."""
+    by the mask, so a padded row matches the same row run alone.  In
+    ``train`` mode the BatchNorms take the batch's statistics, each
+    appended as (bn params, mean, var, n) to ``bn_stats`` if given, and with
+    ``keep`` [n_conv, B, T, E] (bool) each conv's ReLU output goes through
+    dropout 0.5: ``where(keep, x / 0.5, 0)``."""
     bsz, t = ids.shape
     if lengths is None:
         lengths = torch.full((bsz,), t, dtype=torch.int32, device=ids.device)
@@ -111,8 +142,12 @@ def encode(
     mask1 = mask[..., None]
 
     x = params["embedding"][ids]  # [B, T, E]
-    for conv in params["encoder"]["convs"]:
-        x = torch.relu(_bn(conv["bn"], conv1d(x * mask1, conv["w"], conv["b"])))
+    for i, conv in enumerate(params["encoder"]["convs"]):
+        x, stats = _bn(conv["bn"], conv1d(x * mask1, conv["w"], conv["b"]), train)
+        _collect(bn_stats, conv["bn"], stats, x)
+        x = torch.relu(x)
+        if train and keep is not None:
+            x = torch.where(keep[i], x / 0.5, 0.0)
     x = x * mask1
     fw = _lstm_scan(params["encoder"]["lstm_fw"], x, mask=mask)
     bw = _lstm_scan(params["encoder"]["lstm_bw"], x, reverse=True, mask=mask)
@@ -135,7 +170,9 @@ def draw_keep_masks(cfg: Tacotron2Config, max_steps: int, bsz: int, seed: int) -
 
 def _prenet(p, x: torch.Tensor, keep: typing.Optional[torch.Tensor], p_dropout: float):
     """Two ReLU linears with always-on dropout (the NVIDIA quirk); ``keep``
-    [2, B, prenet_dim] holds this step's masks."""
+    [2, *x.shape[:-1], prenet_dim] holds the masks of x's rows (one step's
+    [2, B, P] at inference, the whole teacher input's [2, B, S, P] in
+    training)."""
     for i, layer in enumerate(p):
         x = torch.relu(F.linear(x, layer["w"]))
         if p_dropout > 0.0 and keep is not None:
@@ -249,16 +286,50 @@ def decode_inference(
     return torch.stack(mels, dim=1), torch.stack(gates, dim=1), lengths
 
 
+def decode_teacher(
+    params: Params,
+    cfg: Tacotron2Config,
+    memory: torch.Tensor,
+    mask: torch.Tensor,
+    mel_targets: torch.Tensor,
+    keep: typing.Optional[torch.Tensor] = None,
+):
+    """Teacher-forced decode for training: the decoder's inputs are the go
+    frame, then the targets [B, S, M] shifted right by one frame.  The
+    prenet runs over all S inputs at once (it has no state across steps),
+    with ``keep`` [2, B, S, prenet_dim] (bool) as its dropout masks; then
+    one ``_decoder_step`` per frame.  Returns (mels [B, S, M], gate_logits
+    [B, S])."""
+    dec = params["decoder"]
+    bsz, t, _ = memory.shape
+    processed_memory = F.linear(memory, dec["attention"]["memory"]["w"])
+    state = _decoder_state0(cfg, bsz, t, memory)
+    go = mel_targets.new_zeros((bsz, 1, cfg.mel_channels))
+    inputs = torch.cat([go, mel_targets[:, :-1]], dim=1)
+    pre = _prenet(dec["prenet"], inputs, keep, cfg.p_prenet_dropout)  # [B, S, P]
+    mels, gates = [], []
+    for i in range(pre.shape[1]):
+        state, mel, gate = _decoder_step(
+            params, cfg, state, pre[:, i], memory, processed_memory, mask
+        )
+        mels.append(mel)
+        gates.append(gate)
+    return torch.stack(mels, dim=1), torch.stack(gates, dim=1)
+
+
 # -----------------------------------------------------------------------------
 # Postnet + top level
 
 
-def postnet(params: Params, cfg: Tacotron2Config, mels: torch.Tensor) -> torch.Tensor:
-    """5-conv residual refiner: mels [B, S, M] -> residual [B, S, M]."""
+def postnet(params: Params, cfg: Tacotron2Config, mels: torch.Tensor, train: bool = False,
+            bn_stats: typing.Optional[list] = None) -> torch.Tensor:
+    """5-conv residual refiner: mels [B, S, M] -> residual [B, S, M]; in
+    ``train`` mode with batch statistics, as :func:`encode`."""
     x = mels
     convs = params["postnet"]["convs"]
     for i, conv in enumerate(convs):
-        x = _bn(conv["bn"], conv1d(x, conv["w"], conv["b"]))
+        x, stats = _bn(conv["bn"], conv1d(x, conv["w"], conv["b"]), train)
+        _collect(bn_stats, conv["bn"], stats, x)
         if i < len(convs) - 1:
             x = torch.tanh(x)
     return x
@@ -278,3 +349,23 @@ def infer(
     memory, mask = encode(params, cfg, ids, lengths)
     mels, _, out_lengths = decode_inference(params, cfg, memory, mask, max_steps, keep_masks)
     return mels + postnet(params, cfg, mels), out_lengths
+
+
+def forward_teacher(
+    params: Params,
+    cfg: Tacotron2Config,
+    ids: torch.Tensor,
+    id_lengths: torch.Tensor,
+    mel_targets: torch.Tensor,
+    train: bool = True,
+    encoder_keep: typing.Optional[torch.Tensor] = None,
+    prenet_keep: typing.Optional[torch.Tensor] = None,
+    bn_stats: typing.Optional[list] = None,
+):
+    """Training forward: (mel_pre, mel_post, gate_logits).  The keep masks
+    ([n_conv, B, T, E] and [2, B, S, prenet_dim], bool) switch the two
+    dropouts on; ``bn_stats`` collects the BatchNorms' batch statistics."""
+    memory, mask = encode(params, cfg, ids, id_lengths, train=train, keep=encoder_keep,
+                          bn_stats=bn_stats)
+    mels, gates = decode_teacher(params, cfg, memory, mask, mel_targets, keep=prenet_keep)
+    return mels, mels + postnet(params, cfg, mels, train=train, bn_stats=bn_stats), gates

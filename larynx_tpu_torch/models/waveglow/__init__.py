@@ -1,4 +1,4 @@
-"""WaveGlow vocoder, PyTorch port (inference)."""
+"""WaveGlow vocoder, PyTorch port (inference and training)."""
 
 from larynx_tpu_torch.models.waveglow.config import (  # noqa: F401
     WaveGlowConfig,

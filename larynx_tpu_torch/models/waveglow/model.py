@@ -1,8 +1,7 @@
-"""WaveGlow vocoder, inference: mel [B, M, n_mels] -> waveform [B, M * stride].
+"""WaveGlow vocoder: mel [B, M, n_mels] -> waveform [B, M * stride], and the
+training direction.
 
-Counterpart of ``larynx_tpu/models/waveglow/model.py`` (``infer`` and the
-pieces it runs; ``forward`` and ``loss_fn`` are training and not ported).
-Audio samples fold into ``groups`` channels per time block; the mel is
+Counterpart of ``larynx_tpu/models/waveglow/model.py``.  Audio samples fold into ``groups`` channels per time block; the mel is
 upsampled by a transposed conv and folded the same way as conditioning.
 Inference walks the flows backwards: per flow, the WN stack conditioned on
 the mel gives the affine coupling's (b, log_s), the coupling is inverted and
@@ -21,6 +20,11 @@ vocoder precision on an accelerator), with the mel, the prior, the WN
 layers (the kernel's bfloat16 instantiation), the coupling's exp(-log_s)
 and the invertible 1x1s' inverses, cast from the float32 ones at load, all
 bfloat16.
+
+``forward`` (audio -> z and the log-determinants) and ``loss_fn`` (the
+negative log-likelihood) train on the unpacked params: their WN stacks run
+unfused (:func:`_wn_unfused`, torch ops under autograd), as the JAX package
+trains without its Pallas kernel; the kernel has no backward.
 """
 
 import typing
@@ -28,6 +32,7 @@ import typing
 import torch
 import torch.nn.functional as F
 
+from larynx_tpu_torch.models.nn import conv1d
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 from larynx_tpu_torch.ops.wn_layer import fused_wn_layer_state, pack_wn_layer
 
@@ -84,10 +89,72 @@ def _wn(p: Params, cfg: WaveGlowConfig, x0: torch.Tensor, spect_g: torch.Tensor)
     return F.linear(skip, p["end_w"], p["end_b"])
 
 
+def _wn_unfused(p: Params, cfg: WaveGlowConfig, x0: torch.Tensor,
+                spect_g: torch.Tensor) -> torch.Tensor:
+    """:func:`_wn` as torch ops on the unpacked weights, differentiable: per
+    layer the dilated conv plus layer i's slice of the conditioning 1x1, the
+    tanh-sigmoid gate, and the res/skip 1x1."""
+    ch = p["in_w"][0].shape[0] // 2
+    h = F.linear(x0, p["start_w"], p["start_b"])
+    skip = None
+    for i in range(cfg.wn_layers):
+        rows = slice(2 * ch * i, 2 * ch * (i + 1))
+        a = (conv1d(h, p["in_w"][i], p["in_b"][i], dilation=2**i)
+             + F.linear(spect_g, p["cond_w"][rows], p["cond_b"][rows]))
+        acts = torch.tanh(a[..., :ch]) * torch.sigmoid(a[..., ch:])
+        rs = F.linear(acts, p["res_skip_w"][i], p["res_skip_b"][i])
+        if i < cfg.wn_layers - 1:
+            h = h + rs[..., :ch]
+            s = rs[..., ch:]
+        else:
+            s = rs
+        skip = s if skip is None else skip + s
+    return F.linear(skip, p["end_w"], p["end_b"])
+
+
 def _group_audio(audio: torch.Tensor, groups: int) -> torch.Tensor:
     """[B, T] -> [B, T//groups, groups] (consecutive samples as channels)."""
     b, t = audio.shape
     return audio[:, : (t // groups) * groups].reshape(b, t // groups, groups)
+
+
+def forward(
+    params: Params, cfg: WaveGlowConfig, audio: torch.Tensor, mel: torch.Tensor
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training direction: audio [B, T] (T == M * upsample_stride), mel
+    [B, M, n_mels] -> (z [B, blocks, groups], log_s_total [B],
+    logdet_w_total [B]); unpacked params, unfused WN stacks."""
+    cond = _upsample_cond(params, cfg, mel)
+    x = _group_audio(audio, cfg.groups)
+    blocks = x.shape[1]
+    outputs = []
+    log_s_total = x.new_zeros(x.shape[0])
+    logdet_w_total = x.new_zeros(x.shape[0])
+    for k, flow in enumerate(params["flows"]):
+        if k % cfg.early_every == 0 and k > 0:
+            outputs.append(x[..., : cfg.early_size])
+            x = x[..., cfg.early_size :]
+        w = flow["convinv"]["w"]
+        x = F.linear(x, w)  # einsum("btc,dc->btd")
+        logdet_w_total = logdet_w_total + blocks * torch.linalg.slogdet(w)[1]
+        n_half = x.shape[-1] // 2
+        x0, x1 = x[..., :n_half], x[..., n_half:]
+        out = _wn_unfused(flow["wn"], cfg, x0, cond)
+        b_t, log_s = out[..., :n_half], out[..., n_half:]
+        x1 = x1 * torch.exp(log_s) + b_t
+        log_s_total = log_s_total + log_s.sum(dim=(1, 2))
+        x = torch.cat([x0, x1], dim=-1)
+    outputs.append(x)
+    return torch.cat(outputs, dim=-1), log_s_total, logdet_w_total
+
+
+def loss_fn(params: Params, cfg: WaveGlowConfig, audio: torch.Tensor, mel: torch.Tensor,
+            sigma: float = 1.0) -> torch.Tensor:
+    """WaveGlow's negative log-likelihood (the paper's eq. 6), per element:
+    (sum(z^2) / (2 sigma^2) - sum(log_s) - sum(log|det W|)) / z.numel()."""
+    z, log_s_total, logdet_w_total = forward(params, cfg, audio, mel)
+    return (torch.sum(z * z) / (2.0 * sigma * sigma) - torch.sum(log_s_total)
+            - torch.sum(logdet_w_total)) / z.numel()
 
 
 def infer(

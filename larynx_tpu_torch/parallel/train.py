@@ -1,12 +1,13 @@
-"""The GlowTTS training step and the optimizers of both trainers, on one
-device.
+"""The GlowTTS training step, the optimizer of every trainer and the
+trainers' metric history, on one device.
 
 Counterpart of ``larynx_tpu/parallel/train.py`` without the mesh: data
 parallelism and the encoder's tensor parallelism wait for ROADMAP's
-multi-GPU item.  The optimizer is the JAX package's optax chain: value
-clipping of every gradient element, then Adam (betas (0.9, 0.98), eps
-1e-9) at the Noam learning rate.  ``torch.optim.Adam``'s update is
-optax's; the learning rate of the k-th update (k from 0) is the schedule
+multi-GPU item.  GlowTTS's optimizer is the JAX package's optax chain:
+value clipping of every gradient element, then Adam (betas (0.9, 0.98),
+eps 1e-9) at the Noam learning rate; Tacotron2's clips by the global norm
+and decays the weights (optax's ``adamw``).  ``torch.optim.AdamW``'s update
+is optax's; the learning rate of the k-th update (k from 0) is the schedule
 at k, as optax reads its count before it increments it.
 """
 
@@ -40,6 +41,20 @@ def exponential_decay(init_value: float, transition_steps: int, decay_rate: floa
     return lambda count: init_value * decay_rate ** (count / transition_steps)
 
 
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Schedule:
+    """optax's linear schedule: from ``init_value`` at 0 to ``end_value`` at
+    ``transition_steps``, then held (held at ``init_value`` if
+    ``transition_steps`` <= 0)."""
+
+    def schedule(count: int) -> float:
+        if transition_steps <= 0:
+            return init_value
+        frac = 1.0 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
 def tree_leaves(tree) -> typing.List[torch.Tensor]:
     """The tensors of a parameter tree, in a fixed order."""
     if isinstance(tree, dict):
@@ -49,13 +64,15 @@ def tree_leaves(tree) -> typing.List[torch.Tensor]:
     return [tree]
 
 
-def trainable(tree):
+def trainable(tree, frozen: typing.Collection[str] = ()):
     """A copy of a parameter tree whose floating tensors are leaves that
-    require grad."""
+    require grad, except those under a key in ``frozen`` (copied without
+    grad: no optimizer sees them)."""
     if isinstance(tree, dict):
-        return {k: trainable(v) for k, v in tree.items()}
+        return {k: v.detach().clone() if k in frozen else trainable(v, frozen)
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [trainable(v) for v in tree]
+        return [trainable(v, frozen) for v in tree]
     if tree.is_floating_point():
         return tree.detach().clone().requires_grad_(True)
     return tree
@@ -63,35 +80,55 @@ def trainable(tree):
 
 @dataclass
 class OptState:
-    adam: torch.optim.Adam
+    adam: torch.optim.AdamW
     count: int = 0  # updates applied
 
 
 @dataclass
 class Optimizer:
-    """optax.chain(clip(grad_clip), adam(schedule, *betas, eps)); without a
-    ``grad_clip``, the Adam alone.  :meth:`init` binds it to params."""
+    """optax.chain(clip, adamw(schedule, *betas, eps, weight_decay)):
+    ``clip`` is ``"value"`` (optax.clip(grad_clip), every element into
+    [-grad_clip, grad_clip]) or ``"global_norm"``
+    (optax.clip_by_global_norm(grad_clip)); without a ``grad_clip``, no
+    clip.  At ``weight_decay`` 0 the AdamW is optax's ``adam``.
+    :meth:`init` binds it to params."""
 
     schedule: Schedule
     betas: typing.Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
     grad_clip: typing.Optional[float] = None
+    clip: str = "value"
+    weight_decay: float = 0.0
 
     def init(self, params) -> OptState:
+        if self.clip not in ("value", "global_norm"):
+            raise ValueError(f"unknown clip {self.clip!r}")
         leaves = [p for p in tree_leaves(params) if p.requires_grad]
-        return OptState(torch.optim.Adam(leaves, lr=self.schedule(0), betas=self.betas,
-                                         eps=self.eps))
+        return OptState(torch.optim.AdamW(leaves, lr=self.schedule(0), betas=self.betas,
+                                          eps=self.eps, weight_decay=self.weight_decay))
 
     def update(self, state: OptState) -> None:
         """Apply one update from the params' ``.grad``; a param without a
         gradient (GlowTTS's stored ``weight_inv``) is left as it is."""
         params = [p for group in state.adam.param_groups for p in group["params"]]
-        if self.grad_clip is not None:
+        if self.grad_clip is not None and self.clip == "value":
             torch.nn.utils.clip_grad_value_(params, self.grad_clip)
+        elif self.grad_clip is not None:
+            clip_by_global_norm([p.grad for p in params if p.grad is not None], self.grad_clip)
         for group in state.adam.param_groups:
             group["lr"] = self.schedule(state.count)
         state.adam.step()
         state.count += 1
+
+
+def clip_by_global_norm(grads: typing.List[torch.Tensor], max_norm: float) -> None:
+    """optax's clip_by_global_norm in place, with no host sync: every
+    gradient times max_norm / ||g|| where the global norm ||g|| >= max_norm
+    (``clip_grad_norm_`` would add 1e-6 to the norm and scale below it too)."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
 
 
 def make_optimizer(
@@ -113,11 +150,46 @@ class TrainState:
     step: int = 0
 
 
-def init_train_state(params, optimizer: Optimizer) -> TrainState:
+def init_train_state(params, optimizer: Optimizer,
+                     frozen: typing.Collection[str] = ()) -> TrainState:
     """Params (the port's layout, on their device) -> a state whose floating
-    params are leaves that require grad, with a fresh optimizer."""
-    params = trainable(params)
+    params, except those under a key in ``frozen``, are leaves that require
+    grad, with a fresh optimizer."""
+    params = trainable(params, frozen)
     return TrainState(params=params, opt_state=optimizer.init(params))
+
+
+LOG_EVERY = 10  # steps between the trainers' log lines
+
+
+class MetricHistory:
+    """Every step's metrics, as host floats in :attr:`steps`.
+
+    A step's metrics (device scalars) wait in a pending block until
+    :meth:`flush`, which the trainers call at each log point (every
+    ``LOG_EVERY`` steps, where they read the metrics anyway), at the end of a
+    run and at an interrupt: one device-to-host copy per block, and never
+    more than ``LOG_EVERY`` steps of metrics on the device."""
+
+    def __init__(self):
+        self.steps: typing.List[typing.Dict[str, float]] = []
+        self._pending: typing.List[typing.Mapping[str, torch.Tensor]] = []
+
+    def append(self, metrics: typing.Mapping[str, torch.Tensor]) -> None:
+        self._pending.append(metrics)
+
+    def flush(self) -> typing.Optional[typing.Dict[str, float]]:
+        """Move the pending steps to the host; returns the last step's
+        metrics (None if none were pending)."""
+        if not self._pending:
+            return None
+        keys = list(self._pending[0])
+        values = torch.stack([m[k].detach().reshape(()) for m in self._pending
+                              for k in keys]).tolist()
+        self.steps.extend(dict(zip(keys, values[i:i + len(keys)]))
+                          for i in range(0, len(values), len(keys)))
+        self._pending = []
+        return self.steps[-1]
 
 
 def batch_to(batch: typing.Mapping[str, np.ndarray], device) -> typing.Dict[str, torch.Tensor]:

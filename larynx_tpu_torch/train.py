@@ -1,16 +1,24 @@
 """Acoustic-model training CLI: ``python -m larynx_tpu_torch.train``.
 
-Counterpart of ``larynx_tpu/train.py`` for the GlowTTS family, on one
-device (``--device``, default ``cuda``): maximum-likelihood training with
-monotonic alignment search, from an LJSpeech-style corpus (``metadata.csv``
-+ a wav dir) to a voice dir that both packages load (``config.json``,
+Counterpart of ``larynx_tpu/train.py``, on one device (``--device``,
+default ``cuda``), from an LJSpeech-style corpus (``metadata.csv`` + a wav
+dir) to a voice dir that both packages load (``config.json``,
 ``phonemes.txt``, ``generator.npz`` in the native layout).  The flags are
-the JAX CLI's.  The saved checkpoint's invertible 1x1 inverses are
-recomputed from the trained weights: training moves ``weight`` and leaves
-``weight_inv`` without a gradient.  ``--resume`` loads parameters only:
-the optimizer and the learning-rate schedule start again, as in the JAX
-trainer.  Not ported yet (ROADMAP): ``--family tacotron2`` and a model
-axis (``--model-parallel`` above 1).
+the JAX CLI's.  ``--resume`` loads parameters only: the optimizer and the
+learning-rate schedule start again, as in the JAX trainer, and the log
+says so.  An empty phoneme table fails before the output dir is written.
+
+* ``--family glow_tts``: maximum-likelihood training with monotonic
+  alignment search.  The saved invertible 1x1 inverses are recomputed from
+  the trained weights: training moves ``weight`` and leaves ``weight_inv``
+  without a gradient.
+* ``--family tacotron2``: teacher forcing
+  (``models/tacotron2/training.py``), a global-norm clip and AdamW (weight
+  decay 1e-6) at a linear warmup to ``--learning-rate``; ``num_symbols`` is
+  sized from the phoneme table into the written ``config.json``.  Name the
+  output dir ``<voice>-tacotron2`` for the loaders to route it.
+
+Not ported yet (ROADMAP): a model axis (``--model-parallel`` above 1).
 """
 
 import argparse
@@ -29,9 +37,15 @@ from larynx_tpu_torch.device import resolve_device
 from larynx_tpu_torch.models.glow_tts import config_from_voice_json
 from larynx_tpu_torch.models.glow_tts.data import Dataset
 from larynx_tpu_torch.models.glow_tts.training import actnorm_ddi_init
+from larynx_tpu_torch.models.tacotron2 import training as t2_training
+from larynx_tpu_torch.models.tacotron2.config import tacotron2_config_from_voice_json
 from larynx_tpu_torch.parallel.train import (
+    LOG_EVERY,
+    MetricHistory,
+    Optimizer,
     batch_to,
     init_train_state,
+    linear_schedule,
     make_optimizer,
     make_train_step,
 )
@@ -45,7 +59,7 @@ def get_args(argv=None):
     parser = argparse.ArgumentParser(prog="larynx-tpu-torch.train")
     parser.add_argument(
         "--family", choices=("glow_tts", "tacotron2"), default="glow_tts",
-        help="Acoustic-model family to train (default: glow_tts; tacotron2 is not ported yet)",
+        help="Acoustic-model family to train (default: glow_tts)",
     )
     parser.add_argument("--metadata", required=True, help="metadata.csv (id|text)")
     parser.add_argument("--wav-dir", required=True, help="Directory of <id>.wav files")
@@ -94,15 +108,80 @@ def save_voice_params(path: Path, params) -> None:
     save_params(path, tree)
 
 
+RESUMED = ("Resumed parameters from %s (parameters only: the optimizer and the learning-rate "
+           "schedule start again at step 0)")
+
+
+def _epochs(args, dataset, train_step, history: MetricHistory, save, log_line):
+    """The trainers' loop: ``args.epochs`` passes over the dataset's
+    batches, ``train_step(batch, step)`` -> metrics, a log line every
+    LOG_EVERY steps (``log_line(step, last metrics)``), a save every
+    ``--checkpoint-every`` steps and at the end or an interrupt.  Each
+    epoch's mean loss is read from the device, as in JAX."""
+    step = 0
+    try:
+        for epoch in range(args.epochs):
+            epoch_start = time.time()
+            losses = []
+            for batch in dataset.batches(args.batch_size, max_id_len=args.max_id_len,
+                                         max_mel_len=args.max_mel_len,
+                                         shuffle_seed=args.seed + epoch):
+                metrics = train_step(batch, step)
+                step += 1
+                history.append(metrics)
+                losses.append(metrics["loss"])
+                if step % LOG_EVERY == 0:
+                    log_line(step, history.flush())
+                if step % args.checkpoint_every == 0:
+                    save(step)
+            _LOGGER.info("epoch %s done in %.1fs mean loss %.4f", epoch, time.time() - epoch_start,
+                         float(torch.stack(losses).mean()) if losses else float("nan"))
+    except KeyboardInterrupt:
+        _LOGGER.info("Interrupted")
+    finally:
+        history.flush()
+        save(step)
+
+
+def _train_tacotron2(args, raw_config, dataset, device, out_dir: Path):
+    """``--family tacotron2`` (``larynx_tpu/train.py::_train_tacotron2``)."""
+    cfg = tacotron2_config_from_voice_json(raw_config)
+    optimizer = Optimizer(linear_schedule(0.0, args.learning_rate, max(args.warmup_steps, 1)),
+                          grad_clip=args.grad_clip, clip="global_norm", weight_decay=1e-6)
+    if args.resume:
+        params = params_from_jax(load_params(args.resume), "tacotron2", device)
+        _LOGGER.info("Resumed parameters from %s (parameters only: the linear warmup and Adam's "
+                     "moments start again at step 0)", args.resume)
+    else:
+        params = params_from_jax(
+            init_params(torch.Generator().manual_seed(args.seed), cfg), "tacotron2", device)
+    state = t2_training.init_train_state(params, optimizer)
+    step_fn = t2_training.make_train_step(cfg, optimizer)
+
+    def train_step(batch, step):
+        bsz, t = batch["ids"].shape
+        masks = t2_training.draw_train_masks(cfg, bsz, t, batch["mels"].shape[1], args.seed + 1,
+                                             step, device)
+        return step_fn(state, batch, masks)[1]
+
+    def save(step: int):
+        save_params(out_dir / "generator.npz", params_to_jax(state.params, "tacotron2"))
+        _LOGGER.info("Saved checkpoint at step %s to %s", step, out_dir)
+
+    def log_line(step, m):
+        _LOGGER.info("step %s loss %.4f (mel %.4f/%.4f gate %.4f)", step, m["loss"],
+                     m["mel_pre"], m["mel_post"], m["gate"])
+
+    history = MetricHistory()
+    _epochs(args, dataset, train_step, history, save, log_line)
+    return state, history.steps
+
+
 def main(argv=None):
-    """Train; returns the final train state and every step's metrics
-    (device scalars)."""
+    """Train; returns the final train state and every step's metrics as
+    host floats."""
     args = get_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
-    if args.family == "tacotron2":
-        raise NotImplementedError(
-            "--family tacotron2: Tacotron2 training is not ported yet (ROADMAP, modules to port: "
-            "WaveGlow and Tacotron2 training)")
     if args.model_parallel not in (None, 1):
         raise NotImplementedError(
             "--model-parallel: the training mesh is not ported yet (ROADMAP, modules to port: "
@@ -121,22 +200,30 @@ def main(argv=None):
     settings = AudioSettings(**{k: v for k, v in raw_config.get("audio", {}).items() if k in known})
     with open(args.phonemes, encoding="utf-8") as f:
         phoneme_to_id = load_phoneme_ids(f)
+    if not phoneme_to_id:
+        raise SystemExit(f"{args.phonemes}: no phonemes (expected 'id phoneme' lines)")
 
     dataset = Dataset(args.metadata, args.wav_dir, phoneme_to_id, settings, lang=args.language,
                       device=device)
     _LOGGER.info("Dataset: %s utterances; device %s", len(dataset), device)
 
+    if args.family == "tacotron2":
+        # the symbol table sized from the phoneme set, so that the written
+        # config.json reloads the trained geometry
+        raw_config.setdefault("model", {}).setdefault("num_symbols",
+                                                      max(phoneme_to_id.values()) + 1)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / "config.json", "w", encoding="utf-8") as f:
         json.dump(raw_config, f, indent=2)
     shutil.copyfile(args.phonemes, out_dir / "phonemes.txt")
+    if args.family == "tacotron2":
+        return _train_tacotron2(args, raw_config, dataset, device, out_dir)
 
     cfg = config_from_voice_json(raw_config)
     if args.resume:
         params = params_from_jax(load_params(args.resume), "glow_tts", device)
-        _LOGGER.info("Resumed parameters from %s (parameters only: the optimizer and the "
-                     "learning-rate schedule start again at step 0)", args.resume)
+        _LOGGER.info(RESUMED, args.resume)
     else:
         params = params_from_jax(
             init_params(torch.Generator().manual_seed(args.seed), cfg), "glow_tts", device)
@@ -150,39 +237,19 @@ def main(argv=None):
             b = batch_to(first, device)
             params = actnorm_ddi_init(params, cfg, b["mels"], b["mel_lengths"])
     state = init_train_state(params, optimizer)
-    train_step = make_train_step(cfg, optimizer)
+    step_fn = make_train_step(cfg, optimizer)
 
     def save(step: int):
         save_voice_params(out_dir / "generator.npz", state.params)
         _LOGGER.info("Saved checkpoint at step %s to %s", step, out_dir)
 
-    history = []
-    step = 0
-    try:
-        for epoch in range(args.epochs):
-            epoch_start = time.time()
-            losses = []
-            for batch in dataset.batches(args.batch_size, shuffle_seed=args.seed + epoch,
-                                         **batch_kwargs):
-                state, metrics = train_step(state, batch)
-                step += 1
-                history.append(metrics)
-                # metrics stay on the device: a float() per step would wait
-                # for the step
-                losses.append(metrics["loss"])
-                if step % 10 == 0:
-                    _LOGGER.info("step %s loss %.4f (mle %.4f dur %.4f)", step,
-                                 float(metrics["loss"]), float(metrics["mle_loss"]),
-                                 float(metrics["duration_loss"]))
-                if step % args.checkpoint_every == 0:
-                    save(step)
-            _LOGGER.info("epoch %s done in %.1fs mean loss %.4f", epoch, time.time() - epoch_start,
-                         float(torch.stack(losses).mean()) if losses else float("nan"))
-    except KeyboardInterrupt:
-        _LOGGER.info("Interrupted")
-    finally:
-        save(step)
-    return state, history
+    def log_line(step, m):
+        _LOGGER.info("step %s loss %.4f (mle %.4f dur %.4f)", step, m["loss"], m["mle_loss"],
+                     m["duration_loss"])
+
+    history = MetricHistory()
+    _epochs(args, dataset, lambda batch, _step: step_fn(state, batch)[1], history, save, log_line)
+    return state, history.steps
 
 
 if __name__ == "__main__":

@@ -1,16 +1,25 @@
-"""HiFi-GAN vocoder training CLI: ``python -m larynx_tpu_torch.train_vocoder``.
+"""Vocoder training CLI: ``python -m larynx_tpu_torch.train_vocoder``.
 
-Counterpart of ``larynx_tpu/train_vocoder.py`` for the HiFi-GAN family, on
-one device (``--device``, default ``cuda``): the generator against the
-multi-period and multi-scale discriminators, with feature-matching and mel
-losses, on random hop-aligned audio segments, written as a vocoder dir
-(``config.json`` + ``generator.npz`` in the native layout) that both
-packages' ``get_vocoder_model`` load.  The flags are the JAX CLI's; both
-nets use Adam (betas (0.8, 0.99)) at optax's continuous exponential decay.
-``--family waveglow`` is not ported yet (ROADMAP).
+Counterpart of ``larynx_tpu/train_vocoder.py``, on one device
+(``--device``, default ``cuda``), on random hop-aligned audio segments,
+written as a vocoder dir (``config.json`` + ``generator.npz`` in the native
+layout) that both packages' ``get_vocoder_model`` load.  The flags are the
+JAX CLI's.
+
+* ``--family hifi_gan``: the generator against the multi-period and
+  multi-scale discriminators, with feature-matching and mel losses; both
+  nets use Adam (betas (0.8, 0.99)) at optax's continuous exponential
+  decay.
+* ``--family waveglow``: the flow's negative log-likelihood at ``--sigma``
+  (``models/waveglow/model.py::loss_fn``, unfused WN stacks), Adam at
+  optax's defaults on the same decay, mels at the model's own hop.  The
+  save records ``sigma`` in ``config.json`` and recomputes every
+  invertible 1x1's ``w_inv`` from the trained ``w`` in float64 (``w_inv``
+  is not trained).
 """
 
 import argparse
+import dataclasses
 import json
 import logging
 import time
@@ -26,8 +35,17 @@ from larynx_tpu_torch.io import wavfile
 from larynx_tpu_torch.models.glow_tts.data import _pcm_to_float, mel_basis_tensor
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
 from larynx_tpu_torch.models.hifi_gan.training import init_gan_state, log_mel, make_gan_train_step
-from larynx_tpu_torch.parallel.train import Optimizer, exponential_decay
-from larynx_tpu_torch.weights import params_from_jax, params_to_jax
+from larynx_tpu_torch.models.waveglow import model as wg_model
+from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig, waveglow_config_from_json
+from larynx_tpu_torch.parallel.train import (
+    LOG_EVERY,
+    MetricHistory,
+    Optimizer,
+    exponential_decay,
+    init_train_state,
+    zero_grads,
+)
+from larynx_tpu_torch.weights import init_params, params_from_jax, params_to_jax
 
 _LOGGER = logging.getLogger("larynx_tpu_torch.train_vocoder")
 
@@ -60,7 +78,7 @@ def get_args(argv=None):
     parser.add_argument("--out-dir", required=True, help="Vocoder model dir to write")
     parser.add_argument(
         "--family", choices=("hifi_gan", "waveglow"), default="hifi_gan",
-        help="Vocoder family to train (default: hifi_gan; waveglow is not ported yet)",
+        help="Vocoder family to train (default: hifi_gan)",
     )
     parser.add_argument(
         "--quality", choices=list(GEOMETRY), default="low",
@@ -120,6 +138,15 @@ def _make_mel_fn(settings: AudioSettings, frames: int, device):
     return make_mels
 
 
+def _corpus(args, seg_samples: int, up: int):
+    """``_load_corpus`` of ``--wav-dir`` with room for a segment and a hop;
+    no usable wav ends the run."""
+    corpus = _load_corpus(Path(args.wav_dir), seg_samples + up)
+    if not corpus:
+        raise SystemExit(f"no usable wavs >= {seg_samples + up} samples in {args.wav_dir}")
+    return corpus
+
+
 def _sample_batch(rng, corpus, batch_size, seg_samples, up) -> np.ndarray:
     """Hop-aligned random crops, so that mel frames line up."""
     batch_audio = np.empty((batch_size, seg_samples), np.float32)
@@ -131,19 +158,106 @@ def _sample_batch(rng, corpus, batch_size, seg_samples, up) -> np.ndarray:
     return batch_audio
 
 
+def _run_steps(args, corpus, seg_samples: int, up: int, device, make_mels, train_step, save,
+               log_line) -> list:
+    """The vocoder trainers' loop: ``--steps`` steps, each
+    ``train_step(audio, mels)`` -> metrics on a batch of random hop-aligned
+    crops, a log line every LOG_EVERY steps (``log_line(step, last
+    metrics, steps/s)``), a save every ``--checkpoint-every`` steps and at
+    the end or an interrupt.  Returns every step's metrics as host floats."""
+    rng = np.random.default_rng(args.seed)
+    history = MetricHistory()
+    step = 0
+    t0 = time.time()
+    try:
+        while step < args.steps:
+            audio = to_device(_sample_batch(rng, corpus, args.batch_size, seg_samples, up), device)
+            history.append(train_step(audio, make_mels(audio)))
+            step += 1
+            if step % LOG_EVERY == 0:
+                log_line(step, history.flush(), step / max(time.time() - t0, 1e-9))
+            if step % args.checkpoint_every == 0:
+                save(step)
+    except KeyboardInterrupt:
+        _LOGGER.info("Interrupted")
+    finally:
+        history.flush()
+        save(step)
+    return history.steps
+
+
+def save_waveglow(out_dir: Path, params, cfg: WaveGlowConfig, sigma: float) -> None:
+    """A WaveGlow vocoder dir: ``config.json`` (the config with the trained
+    ``sigma``) and ``generator.npz``, every ``convinv.w_inv`` recomputed as
+    inv(w) in float64."""
+    with open(out_dir / "config.json", "w", encoding="utf-8") as f:
+        json.dump(dict(dataclasses.asdict(cfg), sigma=sigma), f)
+    tree = params_to_jax(params, "waveglow")
+    for flow in tree["flows"]:
+        conv = flow["convinv"]
+        conv["w_inv"] = np.linalg.inv(conv["w"].astype(np.float64)).astype(np.float32)
+    save_params(out_dir / "generator.npz", tree)
+
+
+def _train_waveglow(args, device):
+    """``--family waveglow`` (``larynx_tpu/train_vocoder.py::_train_waveglow``)."""
+    cfg = waveglow_config_from_json(args.config) if args.config else WaveGlowConfig()
+    # the conditioning mels are the model's own: one frame per
+    # upsample_stride samples at its sample rate
+    settings = AudioSettings(mel_channels=cfg.mel_channels, sample_rate=cfg.sampling_rate,
+                             hop_length=cfg.upsample_stride)
+    up = cfg.upsample_stride
+    seg_samples = args.segment_frames * up
+    corpus = _corpus(args, seg_samples, up)
+    _LOGGER.info("Training waveglow on %d file(s), %d-sample segments, device %s",
+                 len(corpus), seg_samples, device)
+
+    optimizer = Optimizer(exponential_decay(args.learning_rate, args.lr_decay_every,
+                                            args.lr_decay))
+    if args.resume:
+        params = params_from_jax(load_params(args.resume), "waveglow", device)
+        _LOGGER.info("Resumed from %s (parameters only: Adam starts again at step 0)",
+                     args.resume)
+    else:
+        params = params_from_jax(init_params(torch.Generator().manual_seed(args.seed), cfg),
+                                 "waveglow", device)
+    # w_inv is not trained: JAX's zero gradient gives it a zero Adam update
+    state = init_train_state(params, optimizer, frozen=("w_inv",))
+    make_mels = _make_mel_fn(settings, args.segment_frames, device)
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def train_step(audio, mels):
+        zero_grads(state.opt_state)
+        loss = wg_model.loss_fn(state.params, cfg, audio, mels, args.sigma)
+        loss.backward()
+        optimizer.update(state.opt_state)
+        state.step += 1
+        return {"nll": loss.detach()}
+
+    def save(step: int):
+        save_waveglow(out_dir, state.params, cfg, args.sigma)
+        _LOGGER.info("Saved waveglow checkpoint at step %s to %s", step, out_dir)
+
+    def log_line(step, m, rate):
+        _LOGGER.info("step %s nll %.4f %.2f steps/s", step, m["nll"], rate)
+
+    return state, _run_steps(args, corpus, seg_samples, up, device, make_mels, train_step, save,
+                             log_line)
+
+
 def main(argv=None):
-    """Train; returns the final GAN state and every step's metrics (device
-    scalars)."""
+    """Train; returns the final state (a ``GanTrainState``, or for
+    WaveGlow a ``parallel.train.TrainState``) and every step's metrics as
+    host floats."""
     args = get_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
-    if args.family == "waveglow":
-        raise NotImplementedError(
-            "--family waveglow: WaveGlow training is not ported yet (ROADMAP, modules to port: "
-            "WaveGlow and Tacotron2 training)")
     device = resolve_device(args.device)
     # float32 convs and matmuls, as the port's inference CLI
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.family == "waveglow":
+        return _train_waveglow(args, device)
 
     geometry = dict(GEOMETRY[args.quality])
     if args.config:
@@ -159,10 +273,7 @@ def main(argv=None):
     settings = AudioSettings()
     up = cfg.total_upsample
     seg_samples = args.segment_frames * up
-
-    corpus = _load_corpus(Path(args.wav_dir), seg_samples + up)
-    if not corpus:
-        raise SystemExit(f"no usable wavs >= {seg_samples + up} samples in {args.wav_dir}")
+    corpus = _corpus(args, seg_samples, up)
     _LOGGER.info("Training %s vocoder on %d file(s), %d-sample segments, device %s",
                  args.quality, len(corpus), seg_samples, device)
 
@@ -175,7 +286,7 @@ def main(argv=None):
         _LOGGER.info("Resumed generator from %s", args.resume)
     state = init_gan_state(torch.Generator().manual_seed(args.seed), cfg, gen_opt, disc_opt,
                            device=device, gen_params=gen_params)
-    train_step = make_gan_train_step(cfg, settings, gen_opt, disc_opt)
+    gan_step = make_gan_train_step(cfg, settings, gen_opt, disc_opt)
 
     make_mels = _make_mel_fn(settings, args.segment_frames, device)
     out_dir = Path(args.out_dir)
@@ -190,27 +301,13 @@ def main(argv=None):
         save_params(out_dir / "generator.npz", params_to_jax(state.gen_params, "hifi_gan"))
         _LOGGER.info("Saved vocoder checkpoint at step %s to %s", step, out_dir)
 
-    rng = np.random.default_rng(args.seed)
-    history = []
-    step = 0
-    t0 = time.time()
-    try:
-        while step < args.steps:
-            audio = to_device(_sample_batch(rng, corpus, args.batch_size, seg_samples, up), device)
-            state, metrics = train_step(state, {"mels": make_mels(audio), "audio": audio})
-            step += 1
-            history.append(metrics)
-            if step % 10 == 0:
-                _LOGGER.info("step %s d %.4f g %.4f (mel_l1 %.4f) %.2f steps/s", step,
-                             float(metrics["d_loss"]), float(metrics["g_loss"]),
-                             float(metrics["mel_l1"]), step / max(time.time() - t0, 1e-9))
-            if step % args.checkpoint_every == 0:
-                save(step)
-    except KeyboardInterrupt:
-        _LOGGER.info("Interrupted")
-    finally:
-        save(step)
-    return state, history
+    def log_line(step, m, rate):
+        _LOGGER.info("step %s d %.4f g %.4f (mel_l1 %.4f) %.2f steps/s", step, m["d_loss"],
+                     m["g_loss"], m["mel_l1"], rate)
+
+    return state, _run_steps(
+        args, corpus, seg_samples, up, device, make_mels,
+        lambda audio, mels: gan_step(state, {"mels": mels, "audio": audio})[1], save, log_line)
 
 
 if __name__ == "__main__":

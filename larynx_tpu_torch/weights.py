@@ -16,8 +16,8 @@ bias ``b`` stays), its convs, ``location_conv`` ``[k, 2, F]`` among them,
 ``[C_out, C_in, k]``; its embedding and BatchNorm vectors stay.  HiFi-GAN's
 discriminators (training only) take their period convs ``[kh, kw, C_in,
 C_out]`` to ``[C_out, C_in, kh, kw]`` and their scale convs as convs.
-:func:`params_to_jax` writes the port's GlowTTS, HiFi-GAN and discriminator
-tensors back in the native layout, as the trainers save them.
+:func:`params_to_jax` writes the port's tensors of every kind back in the
+native layout, as the trainers save them.
 
 :func:`init_params` draws a random native tree with the JAX package's
 shapes and distributions from a ``torch.Generator``, so a machine without
@@ -46,14 +46,15 @@ _MAT_KEYS = {
 _WAVEGLOW_MAT_KEYS = {"start_w", "cond_w", "res_skip_w", "end_w"}
 
 
-def _convert_waveglow(path: typing.Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
-    """upsample.w [k, Ci, Co] -> [Ci, Co, k]; each WN layer's in_w [k, Ci, Co]
+def _convert_waveglow(path: typing.Tuple[str, ...], arr: np.ndarray,
+                      inverse: bool) -> np.ndarray:
+    """upsample.w [k, Ci, Co] <-> [Ci, Co, k]; each WN layer's in_w [k, Ci, Co]
     -> [Co, Ci, k]; the WN's 1x1s [Ci, Co] -> [Co, Ci], so cond_w
     [cc, 2ch*L] becomes [2ch*L, cc] and layer i reads its rows
     [2ch*i, 2ch*(i+1)); convinv.w / w_inv unchanged."""
     key = next(p for p in reversed(path) if not p.isdigit())  # past list indices
     if path[0] == "upsample" and key == "w":
-        return np.moveaxis(arr, -3, -1)
+        return np.moveaxis(arr, -1, -3) if inverse else np.moveaxis(arr, -3, -1)
     if key == "in_w":
         return np.swapaxes(arr, -3, -1)
     if key in _WAVEGLOW_MAT_KEYS:
@@ -88,7 +89,7 @@ def _convert(path: typing.Tuple[str, ...], arr: np.ndarray, kind: str,
     """One leaf from the native layout to the port's, or back (``inverse``;
     every other conversion is its own inverse)."""
     if kind == "waveglow":
-        return _convert_waveglow(path, arr)
+        return _convert_waveglow(path, arr, inverse)
     if kind == "tacotron2":
         return _convert_tacotron2(path, arr)
     if kind == "discriminators":
@@ -129,10 +130,10 @@ def params_from_jax(tree: Params, kind: str, device=None) -> Params:
 
 def params_to_jax(tree: Params, kind: str) -> Params:
     """The port's tensors -> a native (numpy, float32) tree, the inverse of
-    :func:`params_from_jax`, for ``kind`` ``"glow_tts"``, ``"hifi_gan"`` or
-    ``"discriminators"``: what the trainers save as ``generator.npz``."""
-    if kind not in ("glow_tts", "hifi_gan", "discriminators"):
-        raise ValueError(f"no native layout writer for {kind!r}")
+    :func:`params_from_jax` for every ``kind``: what the trainers save as
+    ``generator.npz``."""
+    if kind not in ("glow_tts", "hifi_gan", "waveglow", "tacotron2", "discriminators"):
+        raise ValueError(f"unknown parameter kind {kind!r}")
 
     def walk(node, path):
         if isinstance(node, dict):

@@ -42,6 +42,8 @@ from larynx_tpu_torch.models.glow_tts.data import mel_basis_tensor
 from larynx_tpu_torch.models.hifi_gan import discriminators as disc
 from larynx_tpu_torch.models.hifi_gan import training as tr
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+from larynx_tpu_torch.models.tacotron2.config import Tacotron2Config
+from larynx_tpu_torch.models.waveglow import WaveGlowConfig
 from larynx_tpu_torch.parallel import train as ptrain
 from larynx_tpu_torch.weights import init_params, params_from_jax, params_to_jax
 
@@ -192,13 +194,21 @@ def test_gan_optimizer_matches_optax(seed):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6 * max(lrs))
 
 
-@pytest.mark.parametrize("kind", ["glow_tts", "hifi_gan", "discriminators"])
+@pytest.mark.parametrize("kind", ["glow_tts", "hifi_gan", "discriminators", "waveglow",
+                                  "tacotron2"])
 def test_params_to_jax_inverts_params_from_jax(nets, kind):
     tree = {
         "glow_tts": lambda: init_params(torch.Generator().manual_seed(0), GlowTTSConfig(
             **dict(GLOW_SMALL, n_speakers=3, gin_channels=8))),
         "hifi_gan": lambda: nets[0],
         "discriminators": lambda: nets[1],
+        "waveglow": lambda: init_params(torch.Generator().manual_seed(1), WaveGlowConfig(
+            mel_channels=8, flows=4, early_every=2, wn_channels=16, wn_layers=2,
+            upsample_kernel=128, upsample_stride=64)),
+        "tacotron2": lambda: init_params(torch.Generator().manual_seed(2), Tacotron2Config(
+            num_symbols=20, symbols_embedding_dim=16, encoder_embedding_dim=16, prenet_dim=8,
+            attention_rnn_dim=24, decoder_rnn_dim=24, attention_dim=12, mel_channels=12,
+            postnet_embedding_dim=16, postnet_n_convolutions=3)),
     }[kind]()
     back = params_to_jax(params_from_jax(tree, kind), kind)
     want, got = _leaves(tree), _leaves(back)
