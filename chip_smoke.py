@@ -112,6 +112,25 @@ Phases (any failure exits non-zero):
      statistics moved; the written dirs through ``text_to_speech`` (96 WN
      launches per group call, 27 MRF per sentence); then both kernels at the
      shapes they gave.
+ 16. the multi-device layer.  ``serving_mesh()`` is None on one card.  A
+     ``ServingMesh`` of four positions on cuda:0 (and, on a machine with
+     more cards, ``serving_mesh()``'s mesh of distinct cards) against the
+     single-device engine, HiFi-GAN universal_large in bf16 (the CUDA
+     default) and float32: the row shard (pangram x8), the time shard (one
+     pangram, 1024-frame bucket) and the rows x time grid (three pangrams),
+     each plain and denoised where the JAX engine's bounds name it, with the
+     route counters and 27 MRF launches per position; the stream on the
+     first position (the single device's bytes); ``make_sharded_synthesis``
+     at noise 0 against the engine's batch path; WaveGlow wn_256's grid (96
+     WN launches per window); the latency model's predicted speed-up on N
+     cards.  Training: (a) ``python -m torch.distributed.run
+     --nproc-per-node 1 -m larynx_tpu_torch.train`` (an NCCL group of one)
+     against the same run without torchrun, bit for bit where two runs
+     without a group are; (b) two ranks on cuda:0 over gloo, the GlowTTS
+     step data parallel 2 and model parallel 2, HiFi-GAN's and Tacotron2's
+     data parallel 2 (running statistics too), against world 1 on the card
+     at the full widths and batches of phases 14-15, with step times; then
+     both kernels at every shape the mesh's positions and windows gave them.
 Phases 2-8 and 11-15 run in float32 (``LARYNX_TPU_VOCODER_PRECISION=f32``: the
 CUDA default is a bf16 vocoder); phase 2 also holds the bf16 instantiations
 against their plain bf16 versions (<= 2 bf16 ULPs of the output's scale).
@@ -3589,6 +3608,526 @@ def training_path_2(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes:
     return out
 
 
+# Phase 16: the multi-device layer.  Serving: a ServingMesh of MESH_POSITIONS
+# positions on cuda:0 (the measuring machine has one card; serving_mesh()
+# builds none there), against the single-device engine.  Bounds: the JAX
+# engine's (tests/test_mesh_serving.py, tests/test_time_shard.py) in float32;
+# in bf16 the row shard's positions run the single engine's per-row
+# arithmetic on fewer rows, held to the same LSB bound where the bytes agree,
+# else to the bf16 bar of phase 9.
+MESH_POSITIONS = 4
+MESH_LSB, MESH_SHARE = 2, 0.02  # row shard, denoised time shard
+WINDOW_LSB, WINDOW_SHARE = 1, 1e-3  # plain time shard and grid
+# Training on the card, world 2 over gloo on cuda:0 against world 1 on the
+# batch of phases 14-15, TF32 off, cuDNN deterministic: the bounds that
+# phases 14-15 hold the float32 steps to against float64 (a data-parallel
+# step sums the same terms in another order)
+MESH_GRAD_RTOL = {"glow_tts": 5.1e-5, "hifi_gan": TRAIN_GAN_GRAD_RTOL, "tacotron2": 3.8e-5}
+MESH_STAT_ATOL = 1e-6  # the running statistics of O(1) activations
+
+
+def lsb_share(a, b):
+    """(max |a - b| in int16 steps, share of samples that differ)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {a.shape} vs {b.shape}")
+    diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return int(diff.max()) if diff.size else 0, float(np.mean(diff != 0)) if diff.size else 0.0
+
+
+def hold_rows(label, got, want, lsb_bound, share_bound, bf16=False):
+    """Each row within (lsb_bound, share_bound); in bf16, rows that miss it
+    are held to phase 9's bar.  Returns the worst (lsb, share)."""
+    worst = (0, 0.0)
+    for i, (a, b) in enumerate(zip(got, want)):
+        lsb_i, share_i = lsb_share(a, b)
+        worst = (max(worst[0], lsb_i), max(worst[1], share_i))
+        if lsb_i <= lsb_bound and share_i < share_bound:
+            continue
+        if not bf16:
+            raise AssertionError(f"{label}, row {i}: {lsb_i} LSB on {share_i:.3%} of samples "
+                                 f"(bound {lsb_bound} LSB on < {share_bound:.1%})")
+        audibly_identical(a, b, f"{label}, row {i}")
+    log(f"{label}: {len(got)} rows, worst {worst[0]} LSB on {worst[1]:.4%} of samples "
+        f"(bound {lsb_bound} LSB on < {share_bound:.1%}" + (", else phase 9's bf16 bar)" if bf16
+                                                             else ")"))
+    return worst
+
+
+def mesh_engines(root: Path, mesh, vocoder: str):
+    """(single-device engine, mesh engine, jobs) for the staged harvard voice
+    and ``vocoder`` at the current precision pin."""
+    import larynx_tpu_torch
+    from larynx_tpu_torch.runtime.engine import SynthesisEngine, default_vocoder_half
+
+    jobs = larynx_tpu_torch._build_jobs(" ".join([PANGRAM] * 8), VOICE, vocoder,
+                                        custom_voices_dir=root, no_download=True)
+    tts, voc = jobs[0]["tts_model"], jobs[0]["vocoder_model"]
+    kind = "waveglow" if vocoder == "waveglow" else "hifi_gan"
+    extra = {"waveglow_sigma": voc.sigma} if kind == "waveglow" else {}
+    engines = [SynthesisEngine(tts.params, tts.model_config, tts.audio_settings,
+                               vocoder_kind=kind, vocoder_params=voc.params,
+                               vocoder_cfg=voc.model_config, device="cuda",
+                               vocoder_half=default_vocoder_half("cuda"), mesh=m, **extra)
+               for m in (None, mesh)]
+    return engines[0], engines[1], jobs
+
+
+def mesh_serving(root: Path, mrf_block, wn_layer, mesh, label, mrf_shapes, wn_shapes):
+    """Phase 16, serving, on ``mesh``: the row shard (pangram x8), the time
+    shard (one pangram, 1024-frame bucket) and the grid (three pangrams), each
+    plain and denoised, and the stream, HiFi-GAN in bf16 (the CUDA default)
+    and float32; WaveGlow's grid; make_sharded_synthesis.  Returns launches
+    and times."""
+    from larynx_tpu_torch.parallel.serve import make_sharded_synthesis
+    from larynx_tpu_torch.runtime.engine import postprocess, stream_halo_frames
+
+    out = {"launches": {}, "ms": {}, "lsb": {}}
+    n = len(mesh)
+    ids = None
+    for precision in ("bf16", "f32"):
+        pin_precision(precision)  # bf16 is the CUDA default; pinned, as phase 9 reads it
+        single, meshed, jobs = mesh_engines(root, mesh, "high")
+        bf16 = meshed.voc_dtype == torch.bfloat16
+        if bf16 != (precision == "bf16"):
+            raise AssertionError(f"mesh engine vocoder dtype {meshed.voc_dtype} under {precision}")
+        ids = [j["ids"] for j in jobs]
+        per_call = mrf_launches_per_call(meshed.vocoder_cfg)
+        kw = dict(seed=STREAM_SEED, length_scale=LENGTH_SCALE)
+        routes = (("row shard, pangram x8", ids, 0.0, MESH_LSB, MESH_SHARE),
+                  ("time shard, pangram", ids[:1], 0.0, WINDOW_LSB, WINDOW_SHARE),
+                  ("time shard denoised, pangram", ids[:1], 0.005, MESH_LSB, MESH_SHARE),
+                  ("grid, pangram x3", ids[:3], 0.0, WINDOW_LSB, WINDOW_SHARE),
+                  ("grid denoised, pangram x3", ids[:3], 0.005, MESH_LSB, MESH_SHARE))
+        with recording_mrf_shapes(mrf_shapes):
+            for route, rows, strength, lsb_bound, share_bound in routes:
+                want = single.synthesize_batch(rows, denoiser_strength=strength, **kw)
+                meshed.synthesize_batch(rows, denoiser_strength=strength, **kw)  # warm-up
+                hits = (meshed._time_shard_hits, meshed._grid_shard_hits)
+                mrf_block.mrf_section.launches = 0
+                got, t_mesh = timed_once(lambda: meshed.synthesize_batch(
+                    rows, denoiser_strength=strength, **kw))
+                launches = mrf_block.mrf_section.launches
+                _, t_single = timed_once(lambda: single.synthesize_batch(
+                    rows, denoiser_strength=strength, **kw))
+                dt = (meshed._time_shard_hits - hits[0], meshed._grid_shard_hits - hits[1])
+                expect = {"row": (0, 0), "time": (1, 0), "grid": (0, 1)}[route.split()[0].rstrip(",")]
+                if dt != expect:
+                    raise AssertionError(f"{label} {precision} {route}: time/grid hits {dt}, "
+                                         f"expected {expect}")
+                # one generator call per position: its rows or its window
+                if launches != per_call * n:
+                    raise AssertionError(f"{label} {precision} {route}: {launches} MRF launches, "
+                                         f"expected {per_call} in each of {n} positions")
+                key = f"{precision} {route}"
+                out["lsb"][key] = hold_rows(f"{label} {key}", got, want, lsb_bound, share_bound,
+                                            bf16=bf16)
+                out["launches"][f"mesh {label}, {key}"] = launches
+                out["ms"][f"{key}: single device"] = t_single
+                out["ms"][f"{key}: mesh"] = t_mesh
+                log(f"{label} {key}: {launches} MRF launches ({n} generator calls of "
+                    f"{per_call}), single device {t_single:.3f} ms, mesh {t_mesh:.3f} ms")
+            # the stream runs on the first position: the single-device bytes
+            mrf_block.mrf_section.launches = 0
+            got = list(meshed.synthesize_stream(ids[0], seed=STREAM_SEED,
+                                                length_scale=LENGTH_SCALE))
+            stream_launches = mrf_block.mrf_section.launches
+            want = list(single.synthesize_stream(ids[0], seed=STREAM_SEED,
+                                                 length_scale=LENGTH_SCALE))
+        if len(got) != len(want) or any(not np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label} {precision} stream: chunks differ from the single "
+                                 "device's")
+        out["launches"][f"mesh {label}, {precision} stream"] = stream_launches
+        log(f"{label} {precision} stream: {len(got)} chunks equal to the single device's, "
+            f"{stream_launches} MRF launches")
+
+    # float32 from here: make_sharded_synthesis at noise 0 against the
+    # engine's batch path (its mel and generator on the single device)
+    single, _, jobs = mesh_engines(root, mesh, "high")
+    tts, voc = jobs[0]["tts_model"], jobs[0]["vocoder_model"]
+    id_arr, lengths, _ = single._pad_id_arrays(ids, n)
+    # length scale 1: make_sharded_synthesis has none (JAX's has none)
+    enc1, g1 = single.encode_launch(ids, 1.0)
+    y1 = enc1.lengths.numpy()
+    m1 = single.policy.mel_bucket(int(y1.max()))
+    mel1, mask1 = single.decode_launch(enc1, y1, g1, len(ids), noise_scale=0.0)
+    want = single._generate(postprocess(mel1, mask1, single.audio_settings).transpose(1, 2))
+    fn = make_sharded_synthesis(tts.model_config, voc.model_config, mesh, m1, tts.audio_settings)
+    with recording_mrf_shapes(mrf_shapes):
+        mrf_block.mrf_section.launches = 0
+        (got, got_y), t_sharded = timed_once(lambda: fn(tts.params, voc.params, id_arr, lengths,
+                                                        seed=0, noise_scale=0.0))
+        sharded_launches = mrf_block.mrf_section.launches
+    if not np.array_equal(got_y.cpu().numpy(), y1):
+        raise AssertionError(f"make_sharded_synthesis y_lengths {got_y.tolist()} vs {y1.tolist()}")
+    err = (got.float() - want.float()).abs().max().item() / want.abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"make_sharded_synthesis: {err:.3g} of the audio's scale from the "
+                             "engine's batch path")
+    out["launches"][f"mesh {label}, make_sharded_synthesis"] = sharded_launches
+    out["ms"]["make_sharded_synthesis, pangram x8"] = t_sharded
+    log(f"{label} make_sharded_synthesis, pangram x8 at length scale 1, noise 0: float audio "
+        f"within {err:.3g} of its scale from the engine's batch path (bound 1e-4), "
+        f"{sharded_launches} MRF launches, {t_sharded:.3f} ms")
+
+    # WaveGlow wn_256: one pangram at the 1024-frame bucket takes the grid
+    wg_single, wg_mesh, _ = mesh_engines(root, mesh, "waveglow")
+    with recording_wn_shapes(wn_shapes):
+        want = wg_single.synthesize_batch(ids[:1], **kw)
+        wn_layer.fused_wn_layer_state.launches = 0
+        hits = wg_mesh._grid_shard_hits
+        got, t_wg = timed_once(lambda: wg_mesh.synthesize_batch(ids[:1], **kw))
+        wg_launches = wn_layer.fused_wn_layer_state.launches
+    if wg_mesh._grid_shard_hits != hits + 1:
+        raise AssertionError(f"{label} waveglow: the grid did not run (plan "
+                             f"{wg_mesh._grid_vocode_plan(1, 1024, wg_mesh._wg_halo_frames)})")
+    cfg = wg_mesh.vocoder_cfg
+    per_group = cfg.flows * cfg.wn_layers
+    if wg_launches != per_group * n:
+        raise AssertionError(f"{label} waveglow grid: {wg_launches} WN launches, expected "
+                             f"{per_group} in each of {n} windows")
+    out["lsb"]["waveglow grid, pangram"] = hold_rows(f"{label} f32 waveglow grid, pangram", got,
+                                                     want, WINDOW_LSB, WINDOW_SHARE)
+    out["launches"][f"mesh {label}, waveglow grid"] = wg_launches
+    out["ms"]["waveglow grid, pangram: mesh"] = t_wg
+    m = single.policy.mel_bucket(int(single.encode_batch(ids[:1], LENGTH_SCALE)[1][0]))
+    halo = stream_halo_frames(single.vocoder_cfg)
+    for cards in (2, 4, 8):
+        log(f"latency model (a prediction, parallel/time_shard.py): a {m}-frame utterance on "
+            f"{cards} cards, M / (M/N + 2 halo) = {m / (m / cards + 2 * halo):.2f}x (HiFi-GAN "
+            f"halo {halo}); WaveGlow halo {wg_mesh._wg_halo_frames}: "
+            f"{m / (m / cards + 2 * wg_mesh._wg_halo_frames):.2f}x")
+    pin_precision("f32")
+    return out
+
+
+def mesh_train_problem(corpus: Path):
+    """Phase 16's training problem, as numpy: the corpus's first batch of 32
+    (ids 192, mels 1024 x 80) for GlowTTS and Tacotron2, and 16 crops of
+    8192 samples with their mels for HiFi-GAN."""
+    from larynx_tpu_torch import train_vocoder
+    from larynx_tpu_torch.audio import AudioSettings
+    from larynx_tpu_torch.device import to_device
+    from larynx_tpu_torch.models.glow_tts.data import Dataset
+    from larynx_tpu_torch.text.ids import load_phoneme_ids
+
+    with open(corpus / "phonemes.txt", encoding="utf-8") as f:
+        table = load_phoneme_ids(f)
+    batch = next(Dataset(corpus / "metadata.csv", corpus / "wavs", table, AudioSettings(**AUDIO),
+                         device="cuda").batches(32, shuffle_seed=0))
+    up = 256
+    wavs = train_vocoder._load_corpus(corpus / "wavs", 32 * up + up)
+    audio = train_vocoder._sample_batch(np.random.default_rng(0), wavs, 16, 32 * up, up)
+    mels = train_vocoder._make_mel_fn(AudioSettings(), 32, "cuda")(to_device(audio, "cuda"))
+    return {"batch": batch, "audio": audio, "mels": mels.cpu().numpy(),
+            "num_symbols": max(table.values()) + 1}
+
+
+def _mesh_grad_tree(params):
+    if isinstance(params, dict):
+        return {k: _mesh_grad_tree(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_mesh_grad_tree(v) for v in params]
+    return (torch.zeros_like(params) if params.grad is None else params.grad).detach().clone()
+
+
+# Tacotron2's conv biases before a BatchNorm: the norm removes them, so their
+# true gradient is 0 and both sides hold float32 noise of sums over B x T
+# positions; they are held by magnitude (under this share of the net's
+# largest gradient on both sides), not against each other
+T2_ZERO_GRAD = ("/encoder/convs/", "/postnet/convs/")
+T2_ZERO_GRAD_SHARE = 1e-3
+
+
+def _zero_grad_leaf(path: str) -> bool:
+    return path.startswith(T2_ZERO_GRAD) and path.endswith("/b")
+
+
+def _mesh_rel_errors(got, want, floor_share, skip=lambda path: False):
+    """The largest |got - want| as a share of each leaf's scale (floored at
+    ``floor_share`` of the largest), and the three worst leaves; leaves for
+    which ``skip`` holds are left out."""
+    want_l, got_l = dict(flat_tree(want)), dict(flat_tree(got))
+    floor = floor_share * max(v.abs().max().item() for v in want_l.values())
+    errs = {p: (got_l[p].double() - w.double()).abs().max().item()
+            / max(w.abs().max().item(), floor, 1e-30) for p, w in want_l.items() if not skip(p)}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    return worst[0][1], ", ".join(f"{p} {e:.3g}" for p, e in worst)
+
+
+def mesh_train_rank(rank: int, port: int, out_file: str, problem: dict):
+    """One of phase 16's two training ranks on cuda:0 over gloo.  Each case
+    runs its world-2 step twice (the second timed); rank 0 then runs the
+    world-1 step on the whole batch and holds the first world-2 step
+    against it.  Rank 0 writes the errors and times to ``out_file``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                      RANK=str(rank), LOCAL_RANK="0")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from larynx_tpu_torch.audio import AudioSettings
+    from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
+    from larynx_tpu_torch.models.hifi_gan import training as gan_training
+    from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+    from larynx_tpu_torch.models.tacotron2 import training as t2_training
+    from larynx_tpu_torch.models.tacotron2.config import Tacotron2Config
+    from larynx_tpu_torch.parallel import mesh as pmesh
+    from larynx_tpu_torch.parallel import train as ptrain
+    from larynx_tpu_torch.weights import init_params, params_from_jax
+
+    dp = pmesh.make_mesh(1, device="cuda:0", backend="gloo")
+    tp = pmesh.make_mesh(2, device="cuda:0", backend="gloo")
+    report = {"errors": {}, "ms": {}, "stats": {}}
+    batch = problem["batch"]
+
+    def twice(step):
+        """The first call's result, and the second call's host-clocked ms."""
+        first = step()
+        _, ms = timed_once(step)
+        return first, ms
+
+    # GlowTTS, harvard dims: data parallel 2, then model parallel 2
+    cfg = GlowTTSConfig()
+    full = params_from_jax(init_params(torch.Generator().manual_seed(0), cfg), "glow_tts", "cuda")
+
+    def glow(mesh):
+        opt = ptrain.make_optimizer(cfg, grad_clip=1e9)  # the value clip never binds
+        state = ptrain.init_train_state(full if mesh is None else pmesh.shard_params(full, mesh),
+                                        opt)
+        step = ptrain.make_train_step(cfg, opt, mesh)
+        history = ptrain.MetricHistory(None if mesh is None else mesh.data_group)
+
+        def once():
+            _, metrics = step(state, batch)
+            history.append(metrics)
+            return _mesh_grad_tree(state.params)
+
+        grads, ms = twice(once)
+        history.flush()
+        if mesh is not None and mesh.model_parallel > 1:
+            grads = pmesh.gather_params(grads, mesh)
+        return grads, history.steps[0], ms
+
+    for name, mesh in (("glow_tts data parallel 2", dp), ("glow_tts model parallel 2", tp)):
+        grads, metrics, ms = glow(mesh)
+        report["ms"][name] = ms
+        if rank == 0:
+            want, want_metrics, ms1 = glow(None)
+            report["ms"]["glow_tts world 1"] = ms1
+            err, path = _mesh_rel_errors(tree_to_cpu(grads), tree_to_cpu(want), TRAIN_GRAD_RTOL)
+            loss_err = max(abs(metrics[k] - want_metrics[k]) / abs(want_metrics[k])
+                           for k in want_metrics)
+            report["errors"][name] = (err, path, loss_err, MESH_GRAD_RTOL["glow_tts"])
+
+    # HiFi-GAN universal_large, batch 16: both updates (learning rate 0, so
+    # the generator's objective sees the same discriminators on both sides)
+    hcfg = HiFiGanConfig()
+    gen_np = init_params(torch.Generator().manual_seed(1), hcfg)
+    dis_np = init_params(torch.Generator().manual_seed(2), "discriminators")
+    audio = torch.from_numpy(problem["audio"]).cuda()
+    mels = torch.from_numpy(problem["mels"]).cuda()
+
+    def hifi(mesh):
+        opt = ptrain.Optimizer(lambda k: 0.0, betas=(0.8, 0.99))
+        gen = ptrain.trainable(params_from_jax(gen_np, "hifi_gan", "cuda"))
+        dis = ptrain.trainable(params_from_jax(dis_np, "discriminators", "cuda"))
+        state = gan_training.GanTrainState(gen, dis, opt.init(gen), opt.init(dis))
+        step = gan_training.make_gan_train_step(hcfg, AudioSettings(), opt, opt, mesh=mesh)
+        d_grads = {}
+        update = opt.update
+
+        def capture(opt_state):
+            if opt_state is state.disc_opt:
+                d_grads["d"] = _mesh_grad_tree(state.disc_params)
+            update(opt_state)
+
+        opt.update = capture
+
+        def once():
+            step(state, {"audio": audio, "mels": mels})
+            return {"d": d_grads["d"], "g": _mesh_grad_tree(state.gen_params)}
+
+        return twice(once)
+
+    grads, ms = hifi(dp)
+    report["ms"]["hifi_gan data parallel 2"] = ms
+    if rank == 0:
+        want, report["ms"]["hifi_gan world 1"] = hifi(None)
+        for part in ("d", "g"):
+            err, path = _mesh_rel_errors(tree_to_cpu(grads[part]), tree_to_cpu(want[part]),
+                                         TRAIN_GRAD_RTOL)
+            report["errors"][f"hifi_gan {part} data parallel 2"] = (
+                err, path, 0.0, MESH_GRAD_RTOL["hifi_gan"])
+    del grads
+
+    # Tacotron2, NVIDIA's hparams, batch 32: gradients and running statistics
+    tcfg = Tacotron2Config(num_symbols=problem["num_symbols"])
+    t2_np = init_params(torch.Generator().manual_seed(3), tcfg)
+    bsz, t_ids = batch["ids"].shape
+    masks = t2_training.draw_train_masks(tcfg, bsz, t_ids, batch["mels"].shape[1],
+                                         T2_TRAIN_SEED + 1, 0, "cuda")
+
+    def t2(mesh):
+        opt = ptrain.Optimizer(lambda k: 0.0)
+        state = t2_training.init_train_state(params_from_jax(t2_np, "tacotron2", "cuda"), opt)
+        step = t2_training.make_train_step(tcfg, opt, mesh)
+        history = ptrain.MetricHistory(None if mesh is None else mesh.data_group)
+        _, metrics = step(state, batch, masks)
+        history.append(metrics)
+        history.flush()
+        grads = _mesh_grad_tree(state.params)
+        stats = {p: v.detach().clone() for p, v in flat_tree(state.params)
+                 if p.endswith(("/mean", "/var"))}
+        _, ms = timed_once(lambda: step(state, batch, masks))
+        return grads, stats, history.steps[0], ms
+
+    grads, stats, metrics, ms = t2(dp)
+    report["ms"]["tacotron2 data parallel 2"] = ms
+    if rank == 0:
+        want, want_stats, want_metrics, report["ms"]["tacotron2 world 1"] = t2(None)
+        got_cpu, want_cpu = tree_to_cpu(grads), tree_to_cpu(want)
+        err, path = _mesh_rel_errors(got_cpu, want_cpu, 1e-2, skip=_zero_grad_leaf)
+        loss_err = max(abs(metrics[k] - want_metrics[k]) / abs(want_metrics[k])
+                       for k in want_metrics)
+        largest = max(v.abs().max().item() for _p, v in flat_tree(want_cpu))
+        report["stats"]["tacotron2 zero-gradient biases, share of the largest gradient"] = max(
+            v.abs().max().item() / largest for tree in (got_cpu, want_cpu)
+            for p, v in flat_tree(tree) if _zero_grad_leaf(p))
+        report["errors"]["tacotron2 data parallel 2"] = (err, path, loss_err,
+                                                         MESH_GRAD_RTOL["tacotron2"])
+        report["stats"]["tacotron2 running statistics"] = max(
+            (stats[p] - want_stats[p]).abs().max().item() for p in want_stats)
+        report["stats"]["tacotron2 running statistics moved"] = max(
+            (want_stats[p] - (0.0 if p.endswith("mean") else 1.0)).abs().max().item()
+            for p in want_stats)
+        Path(out_file).write_text(json.dumps(report))
+    dp.close()
+
+
+def tree_to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: tree_to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_cpu(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def mesh_training(root: Path, corpus: Path):
+    """Phase 16, training: (a) one GlowTTS CLI step under torchrun with one
+    process (an NCCL group of one) against the same run with no torchrun;
+    (b) two ranks on cuda:0 over gloo against world 1 (``mesh_train_rank``)."""
+    import torch.multiprocessing as tmp
+
+    from larynx_tpu_torch import train
+    from larynx_tpu_torch.convert.native import load_params
+
+    out = {"ms": {}}
+    # (a) the first batch of 32 rows: one step, with DDI
+    sub = root / "mesh_corpus"
+    sub.mkdir()
+    rows = (corpus / "metadata.csv").read_text(encoding="utf-8").splitlines()[:32]
+    (sub / "metadata.csv").write_text("\n".join(rows) + "\n", encoding="utf-8")
+
+    def argv(out_dir):
+        return ["--metadata", str(sub / "metadata.csv"), "--wav-dir", str(corpus / "wavs"),
+                "--output-dir", str(out_dir), "--config", str(corpus / "config.json"),
+                "--phonemes", str(corpus / "phonemes.txt"), "--batch-size", "32", "--epochs", "1",
+                "--ddi", "--device", "cuda"]
+
+    runs = {}
+    for name in ("no group, run 1", "no group, run 2"):
+        _, ms = timed_once(lambda: train.main(argv(root / "mesh_voices" / name.replace(" ", "_")
+                                                    .replace(",", ""))))
+        runs[name] = ms
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc-per-node", "1",
+         "--master-addr", "127.0.0.1", "--master-port", str(free_port()), "-m",
+         "larynx_tpu_torch.train", *argv(root / "mesh_voices" / "torchrun")],
+        capture_output=True, text=True, cwd=Path(__file__).resolve().parent, env=env, timeout=600)
+    runs["torchrun, one process"] = 1e3 * (time.perf_counter() - start)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    if "mesh: data 1, model 1" not in proc.stderr + proc.stdout:
+        raise AssertionError("torchrun train: no mesh line in its log")
+    trees = {name: dict(flat_tree(load_params(root / "mesh_voices" / d / "generator.npz")))
+             for name, d in (("a", "no_group_run_1"), ("b", "no_group_run_2"),
+                             ("t", "torchrun"))}
+    spread = max(np.abs(trees["a"][p] - trees["b"][p]).max() for p in trees["a"])
+    diff = max(np.abs(trees["a"][p] - trees["t"][p]).max() for p in trees["a"])
+    if spread == 0.0:
+        if diff != 0.0:
+            raise AssertionError(f"torchrun train: generator.npz {diff:.3g} from the run without "
+                                 "a group, where two runs without one are bit for bit equal")
+        verdict = "bit for bit equal (two runs without a group are too)"
+    else:
+        if not diff <= 2 * spread:
+            raise AssertionError(f"torchrun train: {diff:.3g} from the run without a group, "
+                                 f"beyond twice the runs' own spread {spread:.3g}")
+        verdict = (f"within {diff:.3g} (two runs without a group differ by {spread:.3g}: cuDNN's "
+                   "algorithms are not deterministic; bound twice that)")
+    log(f"phase 16 (a): train, GlowTTS harvard, one step of 32 rows with DDI: torchrun "
+        f"--nproc-per-node 1 (NCCL, a group of one) against no torchrun: {verdict}; walls "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in runs.items()))
+    out["ms"].update({f"train CLI, {k}": v for k, v in runs.items()})
+
+    # (b) two ranks on the one card over gloo
+    problem = mesh_train_problem(corpus)
+    report_file = root / "mesh_train_report.json"
+    start = time.perf_counter()
+    tmp.spawn(mesh_train_rank, args=(free_port(), str(report_file), problem), nprocs=2,
+              join=True)
+    wall = time.perf_counter() - start
+    report = json.loads(report_file.read_text())
+    for name, (err, path, loss_err, bound) in report["errors"].items():
+        log(f"phase 16 (b): {name} on cuda:0 over gloo against world 1 on the card: gradients "
+            f"within {err:.3g} of their scale (worst leaves {path}; bound {bound}), losses within "
+            f"{loss_err:.3g} relative")
+        if not err <= bound or not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"phase 16 (b) {name}: gradient {err:.3g} at {path} (bound "
+                                 f"{bound}), losses {loss_err:.3g}")
+    stat_err = report["stats"]["tacotron2 running statistics"]
+    moved = report["stats"]["tacotron2 running statistics moved"]
+    if not stat_err <= MESH_STAT_ATOL or not moved > 1e-4:
+        raise AssertionError(f"phase 16 (b) tacotron2: running statistics {stat_err:.3g} from "
+                             f"world 1 (bound {MESH_STAT_ATOL}), moved {moved:.3g}")
+    zero = report["stats"]["tacotron2 zero-gradient biases, share of the largest gradient"]
+    if not zero <= T2_ZERO_GRAD_SHARE:
+        raise AssertionError(f"phase 16 (b) tacotron2: a conv bias before a BatchNorm has a "
+                             f"gradient {zero:.3g} of the largest (bound {T2_ZERO_GRAD_SHARE})")
+    log(f"phase 16 (b): tacotron2 conv biases before a BatchNorm (true gradient 0): at most "
+        f"{zero:.3g} of the net's largest gradient on either side (bound {T2_ZERO_GRAD_SHARE})")
+    log(f"phase 16 (b): tacotron2 running statistics within {stat_err:.3g} of world 1's (bound "
+        f"{MESH_STAT_ATOL}), moved up to {moved:.3g} from the init; the two ranks' wall "
+        f"{wall:.1f} s; step times (host clock, rank 0, the second step; two processes share "
+        "the card): " + ", ".join(f"{k} {v:.3f} ms" for k, v in report["ms"].items()))
+    out["ms"].update(report["ms"])
+    return out
+
+
+def mesh_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: set):
+    """Phase 16: the multi-device layer (see the module docstring)."""
+    from larynx_tpu_torch.parallel.mesh import ServingMesh, serving_mesh
+
+    count = torch.cuda.device_count()
+    mesh = serving_mesh()
+    log(f"phase 16: torch.cuda.device_count() {count}; serving_mesh() {mesh}")
+    if count == 1 and mesh is not None:
+        raise AssertionError("serving_mesh() built a mesh on one card")
+    out = {"launches": {}, "ms": {}, "lsb": {}}
+    meshes = [(f"{MESH_POSITIONS} positions on cuda:0", ServingMesh(["cuda:0"] * MESH_POSITIONS))]
+    if mesh is not None:
+        meshes.append((f"{len(mesh)} cards", mesh))
+    for label, m in meshes:
+        got = mesh_serving(root, mrf_block, wn_layer, m, label, mrf_shapes, wn_shapes)
+        for k in out:
+            out[k].update({f"{label}: {kk}": v for kk, v in got[k].items()})
+    trained = mesh_training(root, root / "train_corpus")
+    out["ms"].update(trained["ms"])
+    return out
+
+
 def flat_tree(tree, prefix=""):
     """[(path, leaf)] of a parameter tree."""
     if isinstance(tree, dict):
@@ -3781,6 +4320,26 @@ def main() -> int:
                                    "trained waveglow, 8-layer WN stack")
         log(f"phase 15 times: paths {t_path:.1f} s, kernels at its shapes "
             f"{time.perf_counter() - start15 - t_path:.1f} s")
+        # phase 16: the serving mesh and the training mesh, then both kernels
+        # at the shapes that the mesh's positions and windows gave them
+        start16 = time.perf_counter()
+        mesh_mrf, mesh_wn = set(), set()
+        meshed = mesh_path(Path(tmp), mrf_block, wn_layer, mesh_mrf, mesh_wn)
+        t_path = time.perf_counter() - start16
+        rows += check_mrf(mrf_block, path_mrf_cases(
+            mrf_cases + phase8_cases + server_cases + run_cases + train_cases,
+            {"mesh positions and windows": {s for s in mesh_mrf}}))
+        bf16_rows += check_mrf(mrf_block, path_mrf_cases(
+            bf16_cases, {"bf16 mesh positions and windows": {s for s in mesh_mrf}}),
+            dtype=torch.bfloat16)
+        checked_wn |= train2_wn
+        for shape in sorted(mesh_wn & checked_wn):
+            log(f"wn_layer mesh window, B={shape[0]} T={shape[1]}: checked by an earlier stack")
+        wn_stacks += wn_stack_rows(wn_layer, sorted(mesh_wn - checked_wn, reverse=True),
+                                   torch.Generator().manual_seed(8), torch.float32,
+                                   "mesh windows, 8-layer WN stack")
+        log(f"phase 16 times: paths {t_path:.1f} s, kernels at its shapes "
+            f"{time.perf_counter() - start16 - t_path:.1f} s")
         log("training step times, this run (host clock, mean of 3, f32, TF32 off): GlowTTS "
             f"{trained['ms']['train step, batch 32']:.3f} ms, HiFi-GAN "
             f"{trained['ms']['train_vocoder step, batch 16']:.3f} ms (earlier runs on an H100 at "
@@ -3808,6 +4367,8 @@ def main() -> int:
                              **{k: v for k, v in t2["launches"].items() if "waveglow" not in k},
                              **trained["launches"],
                              **{k: v for k, v in trained2["launches"].items()
+                                if "waveglow" not in k},
+                             **{k: v for k, v in meshed["launches"].items()
                                 if "waveglow" not in k}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
@@ -3841,7 +4402,8 @@ def main() -> int:
                              **{k: v for k, v in run["launches"].items() if "waveglow" in k},
                              **{k: v for k, v in t2["launches"].items() if "waveglow" in k},
                              **{k: v for k, v in trained2["launches"].items()
-                                if "waveglow" in k}},
+                                if "waveglow" in k},
+                             **{k: v for k, v in meshed["launches"].items() if "waveglow" in k}},
         "max_abs_err": max(r["max_abs_err"] for r in wn_rows + wn_stacks),
         "ms": sum(cfg.flows * r["ms"] for r in group_stacks),
         "plain_ms": sum(cfg.flows * r["plain_ms"] for r in group_stacks),

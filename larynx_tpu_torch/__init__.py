@@ -403,7 +403,7 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
         encodes.append((enc_out, g, t0))
 
     # pools: units that can share one vocode launch (unseeded, same
-    # vocoder model and precision); the others are pools of one
+    # vocoder model and precision, not on a mesh); the others are pools of one
     pool_ids = [0] * len(units)
     pools: typing.List[typing.List[int]] = []
     pool_key_of: typing.Dict[typing.Tuple[int, bool], int] = {}
@@ -413,6 +413,7 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             vocode_pool_enabled()
             and seed is None
             and engine is not None
+            and engine.mesh is None
             and engine.vocoder_kind in ("hifi_gan", "waveglow")
         ):
             key = (id(jobs[indices[0]]["vocoder_model"]), engine.vocoder_half)
@@ -576,18 +577,32 @@ def _sentence_task_fallback(job, tts_settings, vocoder_settings, device) -> np.n
 # -----------------------------------------------------------------------------
 # Engine and model caches
 
-_ENGINE_CACHE: typing.Dict[typing.Tuple[int, int, str, bool, bool], typing.Any] = {}
+_ENGINE_CACHE: typing.Dict[typing.Tuple[int, int, str, bool, bool, typing.Any], typing.Any] = {}
 # concurrent requests (threads sharing a scheduler) load each model and
 # build each engine once
 _CACHE_LOCK = threading.RLock()
 
 
+def _engine_mesh(device):
+    """The serving mesh of an engine on ``device``: ``serving_mesh()`` (None
+    on one card) when the device is the default CUDA device, as the JAX
+    package serves on every chip; an engine on a named card or the CPU has
+    none."""
+    import torch
+
+    if device is not None and torch.device(device) != torch.device("cuda"):
+        return None
+    from larynx_tpu_torch.parallel.mesh import serving_mesh
+
+    return serving_mesh()
+
+
 def _get_engine(tts_model, vocoder_model, device, half: bool = False):
-    """One engine per (voice params, vocoder params, device, precision): the
-    precision is ``half`` and the vocoder's dtype, ``half`` or the default
-    on the device, read at the call.  None, where the JAX package has no
-    engine either (another acoustic model or vocoder class): the caller
-    then takes the unfused fallback."""
+    """One engine per (voice params, vocoder params, device, serving mesh,
+    precision): the precision is ``half`` and the vocoder's dtype, ``half``
+    or the default on the device, read at the call.  None, where the JAX
+    package has no engine either (another acoustic model or vocoder class):
+    the caller then takes the unfused fallback."""
     from larynx_tpu_torch.glow_tts import GlowTextToSpeech
     from larynx_tpu_torch.griffin_lim import GriffinLimVocoder
     from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
@@ -595,8 +610,9 @@ def _get_engine(tts_model, vocoder_model, device, half: bool = False):
     from larynx_tpu_torch.waveglow import WaveGlowVocoder
 
     vocoder_half = half or default_vocoder_half(device)
+    mesh = _engine_mesh(device)
     with _CACHE_LOCK:
-        key = (id(tts_model), id(vocoder_model), str(device), half, vocoder_half)
+        key = (id(tts_model), id(vocoder_model), str(device), half, vocoder_half, mesh)
         if key in _ENGINE_CACHE:
             return _ENGINE_CACHE[key]
         extra = None
@@ -618,6 +634,7 @@ def _get_engine(tts_model, vocoder_model, device, half: bool = False):
                 device=device,
                 half=half,
                 vocoder_half=vocoder_half,
+                mesh=mesh,
                 **extra,
             )
         _ENGINE_CACHE[key] = engine

@@ -4,7 +4,15 @@ Counterpart of ``larynx_tpu/models/glow_tts/encoder.py``, channels-last
 [B, T, C].  Per-layer params are stacked on a leading axis (as in the
 native checkpoint) and run in a Python loop.  The relative-position logits
 use the same O(T * (2T-1)) pad/reshape skewing as the JAX package.
-Inference only: dropout is omitted.  In bfloat16 (``half``) the attention
+Dropout is omitted.  Tensor parallel (training on a mesh, ``tp`` a
+``parallel/train.py::ModelAxis``): each model rank holds whole heads of
+q/k/v and the matching input rows of the output projection, and a slice of
+the FFN's filters (``weights.py::GLOW_TP_AXES``); the layer input enters
+through ``tp.copy`` and the two row-parallel products leave through
+``tp.reduce``, their biases added once after it.  The relative-position
+embeddings are shared by the heads: replicated, entering through
+``tp.copy`` so that their gradient sums every rank's heads.  The norms, the
+prenet and the duration predictor stay replicated.  In bfloat16 (``half``) the attention
 scores, softmax and weighted sums run in float32, as the JAX package's
 einsums accumulate, and return to bfloat16 before the output projection.
 """
@@ -54,16 +62,21 @@ def multi_head_attention(
     n_heads: int,
     window_size: typing.Optional[int],
     block_length: typing.Optional[int] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Self-attention with windowed relative-position terms.
 
-    x: [B, T, C]; attn_mask: [B, 1, T, T] bool (True = attend).
+    x: [B, T, C]; attn_mask: [B, 1, T, T] bool (True = attend).  The heads
+    are those of q_w's rows (all of them, or a model rank's with ``tp``).
     """
     b, t, c = x.shape
     dk = c // n_heads
+    local = p["q_w"].shape[0] // dk  # this rank's heads
+    if tp is not None:
+        x = tp.copy(x)
 
     def heads(w, bias):
-        return matmul1x1(x, w, bias).reshape(b, t, n_heads, dk).transpose(1, 2)
+        return matmul1x1(x, w, bias).reshape(b, t, local, dk).transpose(1, 2)
 
     q = heads(p["q_w"], p["q_b"])  # [B, H, T, dk]
     k = heads(p["k_w"], p["k_b"])
@@ -76,8 +89,13 @@ def multi_head_attention(
     wide = torch.promote_types(x.dtype, torch.float32)
     q = q.to(wide)
     scores = torch.matmul(q, k.to(wide).transpose(-1, -2)) * scale
+    emb_rel_k, emb_rel_v = p.get("emb_rel_k"), p.get("emb_rel_v")
+    if tp is not None and window_size is not None:
+        # shared by every head: each model rank's heads give part of their
+        # gradient, which the copy's backward sums
+        emb_rel_k, emb_rel_v = tp.copy(emb_rel_k), tp.copy(emb_rel_v)
     if window_size is not None:
-        rel_k = _pad_relative_embeddings(p["emb_rel_k"], t, window_size)
+        rel_k = _pad_relative_embeddings(emb_rel_k, t, window_size)
         rel_logits = torch.matmul(q, rel_k.to(wide).t())  # [B, H, T, 2T-1]
         scores = scores + _relative_to_absolute(rel_logits) * scale
 
@@ -90,27 +108,33 @@ def multi_head_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs, v.to(wide))
     if window_size is not None:
-        rel_v = _pad_relative_embeddings(p["emb_rel_v"], t, window_size)
+        rel_v = _pad_relative_embeddings(emb_rel_v, t, window_size)
         out = out + torch.matmul(_absolute_to_relative(probs), rel_v.to(wide))
 
-    out = out.to(x.dtype).transpose(1, 2).reshape(b, t, c)
-    return matmul1x1(out, p["o_w"], p["o_b"])
+    out = out.to(x.dtype).transpose(1, 2).reshape(b, t, local * dk)
+    if tp is None:
+        return matmul1x1(out, p["o_w"], p["o_b"])
+    return tp.reduce(matmul1x1(out, p["o_w"])) + p["o_b"]
 
 
-def ffn(p: Params, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Conv feed-forward (relu)."""
-    h = torch.relu(conv1d(x * mask, p["conv1_w"], p["conv1_b"]))
-    h = conv1d(h * mask, p["conv2_w"], p["conv2_b"])
+def ffn(p: Params, x: torch.Tensor, mask: torch.Tensor, tp=None) -> torch.Tensor:
+    """Conv feed-forward (relu); with ``tp`` over this rank's filters."""
+    if tp is None:
+        h = torch.relu(conv1d(x * mask, p["conv1_w"], p["conv1_b"]))
+        h = conv1d(h * mask, p["conv2_w"], p["conv2_b"])
+        return h * mask
+    h = torch.relu(conv1d(tp.copy(x) * mask, p["conv1_w"], p["conv1_b"]))
+    h = tp.reduce(conv1d(h * mask, p["conv2_w"])) + p["conv2_b"]
     return h * mask
 
 
 def encoder_stack(
-    stacked: Params, x: torch.Tensor, mask: torch.Tensor, cfg: GlowTTSConfig
+    stacked: Params, x: torch.Tensor, mask: torch.Tensor, cfg: GlowTTSConfig, tp=None
 ) -> torch.Tensor:
     """n_layers x (rel-MHA + LN residual, conv-FFN + LN residual).
 
-    ``stacked`` holds per-layer params stacked on axis 0; ``mask`` is
-    [B, T, 1].
+    ``stacked`` holds per-layer params stacked on axis 0 (a model rank's
+    slices with ``tp``); ``mask`` is [B, T, 1].
     """
     m = mask[..., 0] > 0
     attn_mask = m[:, None, :, None] & m[:, None, None, :]
@@ -119,10 +143,10 @@ def encoder_stack(
         layer_p = {name: value[i] for name, value in stacked.items()}
         h = x * mask
         y = multi_head_attention(
-            layer_p, h, attn_mask, cfg.n_heads, cfg.window_size, cfg.block_length
+            layer_p, h, attn_mask, cfg.n_heads, cfg.window_size, cfg.block_length, tp=tp
         )
         h = layer_norm(h + y, layer_p["ln1_g"], layer_p["ln1_b"])
-        y = ffn(layer_p, h, mask)
+        y = ffn(layer_p, h, mask, tp=tp)
         x = layer_norm(h + y, layer_p["ln2_g"], layer_p["ln2_b"])
     return x * mask
 

@@ -33,11 +33,13 @@ def encode(
     lengths: torch.Tensor,
     length_scale: typing.Union[float, torch.Tensor] = 1.0,
     g: typing.Optional[torch.Tensor] = None,
+    tp=None,
 ):
     """ids [B, T] -> (x_m, x_logs, logw, w_ceil, y_lengths, x_mask).
 
     ``g`` [B, gin] is broadcast over T and concatenated to the duration
-    predictor's input.  The duration math stays float32: exp -> ceil -> y_lengths floored to a
+    predictor's input.  ``tp``: the encoder layers run tensor parallel on
+    this model rank's slices (training on a mesh, ``encoder_stack``).  The duration math stays float32: exp -> ceil -> y_lengths floored to a
     multiple of n_sqz, at least n_sqz.
     """
     p = params["encoder"]
@@ -49,7 +51,7 @@ def encode(
     x = p["emb"][ids] * math.sqrt(cfg.enc_channels)
     if cfg.prenet:
         x = enc.prenet(p["prenet"], x, mask1)
-    x = enc.encoder_stack(p["layers"], x, mask1, cfg)
+    x = enc.encoder_stack(p["layers"], x, mask1, cfg, tp=tp)
 
     x_m = matmul1x1(x, p["proj_m_w"], p["proj_m_b"]) * mask1
     if cfg.mean_only:

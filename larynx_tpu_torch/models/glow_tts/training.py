@@ -7,6 +7,13 @@ log-determinant), with the hard alignment that monotonic alignment search
 device: a forward pass over the mel frames, then a backtrack, as torch
 ops, with no copy to the host.  Gradients stop where the JAX package stops
 them: MAS and its inputs, and the duration predictor's input (``encode``).
+
+Data parallel (``parallel/train.py``): ``reduce`` is the sum over the data
+group.  The losses divide their local numerators by the global
+denominators (the JAX step's are over the whole batch), the constant of
+the MLE loss is added on the first data rank alone, and DDI takes its
+masked sums over the global batch, so the ranks' losses sum to the global
+loss and every rank gets the same init.
 """
 
 import math
@@ -83,11 +90,13 @@ def actnorm_ddi_init(
     mels: torch.Tensor,
     mel_lengths: torch.Tensor,
     speaker_ids: typing.Optional[torch.Tensor] = None,
+    reduce: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Params:
     """Data-dependent init of every ActNorm from a warmup batch: each
     block's ActNorm is set from the masked mean and variance of its own
     input, which depends on the blocks before it, so the blocks go front
-    to back.  Returns new params; the others are shared."""
+    to back.  With ``reduce`` the masked sums are the global batch's.
+    Returns new params; the others are shared."""
     g = None
     if speaker_ids is not None and "emb_g" in params:
         g = speaker_embedding(params, speaker_ids)
@@ -101,9 +110,14 @@ def actnorm_ddi_init(
     new_logs, new_bias = [], []
     for r in range(cfg.n_blocks_dec):
         block = flows._block(blocks, r)
-        denom = mask3.sum(dim=(0, 1))
-        mean = (x * mask3).sum(dim=(0, 1)) / denom
-        mean_sq = (x.square() * mask3).sum(dim=(0, 1)) / denom
+        sums = torch.cat([mask3.sum(dim=(0, 1)), (x * mask3).sum(dim=(0, 1)),
+                          (x.square() * mask3).sum(dim=(0, 1))])
+        if reduce is not None:
+            sums = reduce(sums)
+        c = x.shape[-1]
+        denom = sums[:1]
+        mean = sums[1 : 1 + c] / denom
+        mean_sq = sums[1 + c :] / denom
         logs = 0.5 * torch.log(torch.clamp(mean_sq - mean.square(), min=1e-6))
         bias = -mean * torch.exp(-logs)
         new_logs.append(-logs)
@@ -115,19 +129,25 @@ def actnorm_ddi_init(
     return dict(params, decoder=decoder)
 
 
-def mle_loss(z, m, logs, logdet, mask) -> torch.Tensor:
+def _global(x: torch.Tensor, reduce) -> torch.Tensor:
+    return x if reduce is None else reduce(x)
+
+
+def mle_loss(z, m, logs, logdet, mask, reduce=None, first: bool = True) -> torch.Tensor:
     """Flow maximum-likelihood loss.  z/m/logs: [B, M, C]; logdet: [B];
-    mask: [B, M]."""
+    mask: [B, M].  With ``reduce``, this rank's share: the local numerator
+    over the global denominator, the constant on the ``first`` rank."""
     mask3 = mask[..., None]
     loss = torch.sum(logs * mask3) + 0.5 * torch.sum(
         torch.exp(-2 * logs) * (z - m).square() * mask3)
     loss = loss - torch.sum(logdet)
-    return loss / (torch.sum(mask3) * z.shape[-1]) + 0.5 * math.log(2 * math.pi)
+    loss = loss / (_global(torch.sum(mask3), reduce) * z.shape[-1])
+    return loss + 0.5 * math.log(2 * math.pi) if first else loss
 
 
-def duration_loss(logw, logw_hat, lengths) -> torch.Tensor:
-    """L2 log-duration loss."""
-    return torch.sum((logw - logw_hat).square()) / torch.sum(lengths.float())
+def duration_loss(logw, logw_hat, lengths, reduce=None) -> torch.Tensor:
+    """L2 log-duration loss (with ``reduce``, this rank's share)."""
+    return torch.sum((logw - logw_hat).square()) / _global(torch.sum(lengths.float()), reduce)
 
 
 def alignment_log_likelihood(z: torch.Tensor, x_m: torch.Tensor,
@@ -151,13 +171,19 @@ def training_forward(
     mels: torch.Tensor,
     mel_lengths: torch.Tensor,
     g: typing.Optional[torch.Tensor] = None,
+    reduce: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
+    first: bool = True,
+    tp=None,
 ):
     """One training forward pass -> (loss, metrics dict of scalars).
 
     ids [B, T]; mels [B, M, C] normalised log-mels, channels-last; the mel
-    length is cut to a multiple of n_sqz."""
+    length is cut to a multiple of n_sqz.  ``reduce``/``first``: this data
+    rank's share of the global losses (:func:`mle_loss`); ``tp``: the
+    encoder's model axis (``parallel/train.py::ModelAxis``)."""
     mel_lengths = (mel_lengths // cfg.n_sqz) * cfg.n_sqz
-    x_m, x_logs, logw, _w_ceil, _y_lengths, x_mask = encode(params, cfg, ids, id_lengths, g=g)
+    x_m, x_logs, logw, _w_ceil, _y_lengths, x_mask = encode(params, cfg, ids, id_lengths, g=g,
+                                                            tp=tp)
     m = mels.shape[1]
     y_mask = (torch.arange(m, device=mels.device)[None, :] < mel_lengths[:, None]).float()
 
@@ -170,8 +196,8 @@ def training_forward(
     z_logs = torch.einsum("btm,btc->bmc", attn, x_logs)
     logw_hat = torch.log(1e-8 + attn.sum(dim=2)) * x_mask
 
-    l_mle = mle_loss(z, z_m, z_logs, logdet, y_mask)
-    l_dur = duration_loss(logw, logw_hat, id_lengths)
+    l_mle = mle_loss(z, z_m, z_logs, logdet, y_mask, reduce=reduce, first=first)
+    l_dur = duration_loss(logw, logw_hat, id_lengths, reduce=reduce)
     loss = l_mle + l_dur
     return loss, {"mle_loss": l_mle.detach(), "duration_loss": l_dur.detach(),
                   "loss": loss.detach()}

@@ -7,6 +7,13 @@ on the detached fake, then the generator against the updated
 discriminators.  The generator trains on unpacked params (no ``"mrf"``
 entry), so it runs the resblocks as torch convs under autograd, as the JAX
 package trains it without its Pallas kernels.
+
+Data parallel on a ``TrainMesh`` (``parallel/train.py``): each rank takes
+its equal share of the global batch's rows (the trainer requires the batch
+to divide over the ranks).  Every loss is a mean over equal shards, so a
+rank's share of the global loss is its local loss over the number of data
+ranks; both updates sum the shares' gradients over the data group before
+Adam, and every rank's discriminators, then generator, stay the same.
 """
 
 import typing
@@ -20,7 +27,14 @@ from larynx_tpu_torch.models.glow_tts.data import mel_basis_tensor
 from larynx_tpu_torch.models.hifi_gan import discriminators as disc
 from larynx_tpu_torch.models.hifi_gan import model as gen_model
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
-from larynx_tpu_torch.parallel.train import Optimizer, OptState, trainable, zero_grads
+from larynx_tpu_torch.parallel.train import (
+    Optimizer,
+    OptState,
+    local_rows,
+    reduce_grads,
+    trainable,
+    zero_grads,
+)
 from larynx_tpu_torch.weights import init_params, params_from_jax, tree_to
 
 MEL_LOSS_WEIGHT = 45.0
@@ -84,17 +98,21 @@ def make_gan_train_step(
     settings: AudioSettings,
     gen_optimizer: Optimizer,
     disc_optimizer: Optimizer,
+    mesh=None,
 ):
     """(state, batch) -> (state, metrics), both nets updated in place.
 
     Batch: {"mels": [B, M, n_mels] log-mels, "audio": [B, M * upsample]}
-    as tensors on the params' device.  The generator runs once; its output,
-    detached, trains the discriminators, then the same output (JAX's second
-    forward pass computes the same values) trains the generator against
-    the updated discriminators.  Metrics are device scalars."""
+    as tensors on the params' device, the global batch.  The generator runs
+    once; its output, detached, trains the discriminators, then the same
+    output (JAX's second forward pass computes the same values) trains the
+    generator against the updated discriminators.  Metrics are device
+    scalars (on a mesh, this rank's shares of the global means)."""
     basis_of = {}
+    share = 1.0 if mesh is None else 1.0 / mesh.n_data
 
     def train_step(state: GanTrainState, batch):
+        batch = local_rows(batch, mesh)
         mels, real = batch["mels"], batch["audio"]
         if real.device not in basis_of:
             basis_of[real.device] = mel_basis_tensor(settings, real.device)
@@ -102,19 +120,23 @@ def make_gan_train_step(
         fake = gen_model.generator(state.gen_params, cfg, mels)
 
         zero_grads(state.disc_opt)
-        d_loss = discriminator_loss_fn(state.disc_params, real, fake.detach())
+        d_loss = discriminator_loss_fn(state.disc_params, real, fake.detach()) * share
         d_loss.backward()
+        reduce_grads(state.disc_opt, mesh)
         disc_optimizer.update(state.disc_opt)
 
         zero_grads(state.gen_opt)
         g_loss, parts = generator_loss_fn(state.disc_params, real, fake, settings, basis)
+        g_loss = g_loss * share
         gen_leaves = state.gen_opt.adam.param_groups[0]["params"]
         for p, g in zip(gen_leaves, torch.autograd.grad(g_loss, gen_leaves)):
             p.grad = g
+        reduce_grads(state.gen_opt, mesh)
         gen_optimizer.update(state.gen_opt)
         state.step += 1
         return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "mel_l1": parts["mel_l1"].detach(), "fm_loss": parts["fm"].detach(),
-                       "adv_loss": parts["adv"].detach()}
+                       "mel_l1": parts["mel_l1"].detach() * share,
+                       "fm_loss": parts["fm"].detach() * share,
+                       "adv_loss": parts["adv"].detach() * share}
 
     return train_step

@@ -94,24 +94,37 @@ def _lstm_scan(
     return torch.stack(hs, dim=1)
 
 
-def _bn(p: Params, x: torch.Tensor, train: bool = False, eps: float = 1e-5):
+def _bn(p: Params, x: torch.Tensor, train: bool = False, eps: float = 1e-5, reduce=None):
     """BatchNorm over the channel axis: with the running statistics, or in
     ``train`` mode with the batch's mean and biased variance over (B, T),
     padded positions included, as JAX.  Returns (y, (mean, var) in train
-    mode, else None)."""
-    if train:
+    mode, else None).  With ``reduce`` (the data group's differentiable
+    sum) the statistics are the global batch's, in two passes (the sum and
+    the count, then the squared deviations' sum)."""
+    if not train:
+        mean, var = p["mean"], p["var"]
+    elif reduce is None:
         var, mean = torch.var_mean(x, dim=(0, 1), correction=0)
     else:
-        mean, var = p["mean"], p["var"]
+        c = x.shape[-1]
+        count = torch.full((1,), float(x.shape[0] * x.shape[1]), device=x.device, dtype=x.dtype)
+        sums = reduce(torch.cat([x.sum(dim=(0, 1)), count]))
+        mean = sums[:c] / sums[c]
+        var = reduce((x - mean).square().sum(dim=(0, 1))) / sums[c]
     y = (x - mean) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]
     return y, ((mean, var) if train else None)
 
 
-def _collect(bn_stats: typing.Optional[list], p: Params, stats, y: torch.Tensor) -> None:
+def _collect(bn_stats: typing.Optional[list], p: Params, stats, y: torch.Tensor,
+             reduce=None) -> None:
     """Append a train-mode BatchNorm's (params, mean, var, n) to
-    ``bn_stats``, n = B * T of its output ``y``: the values per channel."""
+    ``bn_stats``, n = B * T of its output ``y``: the values per channel (a
+    tensor, the global batch's, with ``reduce``)."""
     if bn_stats is not None and stats is not None:
-        bn_stats.append((p, *stats, y.shape[0] * y.shape[1]))
+        n = y.shape[0] * y.shape[1]
+        if reduce is not None:
+            n = reduce(torch.tensor(float(n), device=y.device))
+        bn_stats.append((p, *stats, n))
 
 
 # -----------------------------------------------------------------------------
@@ -126,6 +139,7 @@ def encode(
     train: bool = False,
     keep: typing.Optional[torch.Tensor] = None,
     bn_stats: typing.Optional[list] = None,
+    reduce=None,
 ):
     """ids [B, T] -> (memory [B, T, E], mask [B, T] float {0, 1}).
 
@@ -134,7 +148,8 @@ def encode(
     ``train`` mode the BatchNorms take the batch's statistics, each
     appended as (bn params, mean, var, n) to ``bn_stats`` if given, and with
     ``keep`` [n_conv, B, T, E] (bool) each conv's ReLU output goes through
-    dropout 0.5: ``where(keep, x / 0.5, 0)``."""
+    dropout 0.5: ``where(keep, x / 0.5, 0)``; ``reduce`` makes the
+    statistics global (:func:`_bn`)."""
     bsz, t = ids.shape
     if lengths is None:
         lengths = torch.full((bsz,), t, dtype=torch.int32, device=ids.device)
@@ -143,8 +158,8 @@ def encode(
 
     x = params["embedding"][ids]  # [B, T, E]
     for i, conv in enumerate(params["encoder"]["convs"]):
-        x, stats = _bn(conv["bn"], conv1d(x * mask1, conv["w"], conv["b"]), train)
-        _collect(bn_stats, conv["bn"], stats, x)
+        x, stats = _bn(conv["bn"], conv1d(x * mask1, conv["w"], conv["b"]), train, reduce=reduce)
+        _collect(bn_stats, conv["bn"], stats, x, reduce)
         x = torch.relu(x)
         if train and keep is not None:
             x = torch.where(keep[i], x / 0.5, 0.0)
@@ -322,14 +337,14 @@ def decode_teacher(
 
 
 def postnet(params: Params, cfg: Tacotron2Config, mels: torch.Tensor, train: bool = False,
-            bn_stats: typing.Optional[list] = None) -> torch.Tensor:
+            bn_stats: typing.Optional[list] = None, reduce=None) -> torch.Tensor:
     """5-conv residual refiner: mels [B, S, M] -> residual [B, S, M]; in
     ``train`` mode with batch statistics, as :func:`encode`."""
     x = mels
     convs = params["postnet"]["convs"]
     for i, conv in enumerate(convs):
-        x, stats = _bn(conv["bn"], conv1d(x, conv["w"], conv["b"]), train)
-        _collect(bn_stats, conv["bn"], stats, x)
+        x, stats = _bn(conv["bn"], conv1d(x, conv["w"], conv["b"]), train, reduce=reduce)
+        _collect(bn_stats, conv["bn"], stats, x, reduce)
         if i < len(convs) - 1:
             x = torch.tanh(x)
     return x
@@ -361,11 +376,14 @@ def forward_teacher(
     encoder_keep: typing.Optional[torch.Tensor] = None,
     prenet_keep: typing.Optional[torch.Tensor] = None,
     bn_stats: typing.Optional[list] = None,
+    reduce=None,
 ):
     """Training forward: (mel_pre, mel_post, gate_logits).  The keep masks
     ([n_conv, B, T, E] and [2, B, S, prenet_dim], bool) switch the two
-    dropouts on; ``bn_stats`` collects the BatchNorms' batch statistics."""
+    dropouts on; ``bn_stats`` collects the BatchNorms' batch statistics,
+    global ones with ``reduce`` (data parallel)."""
     memory, mask = encode(params, cfg, ids, id_lengths, train=train, keep=encoder_keep,
-                          bn_stats=bn_stats)
+                          bn_stats=bn_stats, reduce=reduce)
     mels, gates = decode_teacher(params, cfg, memory, mask, mel_targets, keep=prenet_keep)
-    return mels, mels + postnet(params, cfg, mels, train=train, bn_stats=bn_stats), gates
+    return mels, mels + postnet(params, cfg, mels, train=train, bn_stats=bn_stats,
+                                reduce=reduce), gates

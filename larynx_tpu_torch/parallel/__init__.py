@@ -1,2 +1,4 @@
-"""Training steps; the multi-GPU mesh of ``larynx_tpu/parallel`` is not
-ported yet (ROADMAP)."""
+"""Training steps and the multi-device layer: the serving mesh
+(``mesh.ServingMesh``, ``serving_mesh``), the time and grid shards of the
+vocode (``time_shard``), the sharded synthesis step (``serve``) and the
+training mesh (``mesh.make_mesh``, the collectives of ``train``)."""

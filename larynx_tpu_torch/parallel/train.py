@@ -1,9 +1,22 @@
-"""The GlowTTS training step, the optimizer of every trainer and the
-trainers' metric history, on one device.
+"""The GlowTTS training step, the optimizer of every trainer, the trainers'
+metric history and the collectives of the training mesh.
 
-Counterpart of ``larynx_tpu/parallel/train.py`` without the mesh: data
-parallelism and the encoder's tensor parallelism wait for ROADMAP's
-multi-GPU item.  GlowTTS's optimizer is the JAX package's optax chain:
+Counterpart of ``larynx_tpu/parallel/train.py``.  On a ``TrainMesh``
+(``parallel/mesh.py``: one process per device, torchrun's environment) the
+step is data parallel over the ``data`` group and, for the GlowTTS encoder,
+tensor parallel over the ``model`` group.  JAX's step is one global
+program, so its losses are normalised over the whole batch; here each
+rank takes its rows of the same global batch and keeps those semantics by
+hand: every loss's numerator is local and its denominator summed over the
+data group (:func:`global_sum`) before the division, each rank's loss is
+its share of the global loss, and the gradients are summed over the data
+group (:func:`all_reduce_grads`) before the clip, so that every rank clips
+and updates the same vector.  The model axis carries two autograd
+collectives (:class:`ModelAxis`): identity forward and all-reduce backward
+before a column-parallel layer, all-reduce forward and identity backward
+after a row-parallel one.
+
+GlowTTS's optimizer is the JAX package's optax chain:
 value clipping of every gradient element, then Adam (betas (0.9, 0.98),
 eps 1e-9) at the Noam learning rate; Tacotron2's clips by the global norm
 and decays the weights (optax's ``adamw``).  ``torch.optim.AdamW``'s update
@@ -159,6 +172,122 @@ def init_train_state(params, optimizer: Optimizer,
     return TrainState(params=params, opt_state=optimizer.init(params))
 
 
+# -----------------------------------------------------------------------------
+# the mesh's collectives
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over a group that every rank uses: all-reduce forward, and
+    all-reduce backward (the sum's gradient is every rank's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Before a column-parallel layer: identity forward, all-reduce of the
+    input's gradient backward (each model rank's slice contributes)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """After a row-parallel layer: all-reduce of the partial outputs
+    forward, the gradient as it is backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over ``group``, differentiable (None: x itself)."""
+    return x if group is None else _AllReduceSum.apply(x, group)
+
+
+def data_sum(mesh) -> typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]]:
+    """The differentiable sum over a mesh's data group, or None without one:
+    what the losses, DDI and the BatchNorms take as ``reduce``."""
+    if mesh is None or not mesh.distributed:
+        return None
+    return lambda x: global_sum(x, mesh.data_group)
+
+
+class ModelAxis:
+    """The model group's two collectives, for the encoder's tensor-parallel
+    layers (``models/glow_tts/encoder.py``)."""
+
+    def __init__(self, group, size: int):
+        self.group, self.size = group, size
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyToModel.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceFromModel.apply(x, self.group)
+
+
+def model_axis(mesh) -> typing.Optional[ModelAxis]:
+    if mesh is None or mesh.model_parallel == 1:
+        return None
+    return ModelAxis(mesh.model_group, mesh.model_parallel)
+
+
+def all_reduce_grads(params: typing.Sequence[torch.Tensor], group) -> None:
+    """Sum every param's ``.grad`` over ``group`` in place, as one flat
+    all-reduce."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if group is None or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def reduce_grads(opt_state: OptState, mesh) -> None:
+    """The data group's sum of the optimizer's params' gradients."""
+    if mesh is not None and mesh.distributed:
+        all_reduce_grads([p for g in opt_state.adam.param_groups for p in g["params"]],
+                         mesh.data_group)
+
+
+def local_rows(batch: typing.Mapping[str, typing.Any], mesh) -> typing.Dict[str, typing.Any]:
+    """This rank's rows of a global batch (numpy or tensors)."""
+    if mesh is None or mesh.n_data == 1:
+        return dict(batch)
+    b = next(iter(batch.values())).shape[0]
+    rows = mesh.rows(b)
+    return {k: v[rows[0] : rows[-1] + 1] if len(rows) else v[:0] for k, v in batch.items()}
+
+
 LOG_EVERY = 10  # steps between the trainers' log lines
 
 
@@ -169,11 +298,15 @@ class MetricHistory:
     :meth:`flush`, which the trainers call at each log point (every
     ``LOG_EVERY`` steps, where they read the metrics anyway), at the end of a
     run and at an interrupt: one device-to-host copy per block, and never
-    more than ``LOG_EVERY`` steps of metrics on the device."""
+    more than ``LOG_EVERY`` steps of metrics on the device.  With a data
+    ``group`` a step's metrics are this rank's shares of the global ones and
+    the flush sums the block over the group, in one all-reduce: there is no
+    collective per step."""
 
-    def __init__(self):
+    def __init__(self, group=None):
         self.steps: typing.List[typing.Dict[str, float]] = []
         self._pending: typing.List[typing.Mapping[str, torch.Tensor]] = []
+        self._group = group
 
     def append(self, metrics: typing.Mapping[str, torch.Tensor]) -> None:
         self._pending.append(metrics)
@@ -184,8 +317,10 @@ class MetricHistory:
         if not self._pending:
             return None
         keys = list(self._pending[0])
-        values = torch.stack([m[k].detach().reshape(()) for m in self._pending
-                              for k in keys]).tolist()
+        block = torch.stack([m[k].detach().reshape(()) for m in self._pending for k in keys])
+        if self._group is not None:
+            torch.distributed.all_reduce(block, group=self._group)
+        values = block.tolist()
         self.steps.extend(dict(zip(keys, values[i:i + len(keys)]))
                           for i in range(0, len(values), len(keys)))
         self._pending = []
@@ -204,17 +339,24 @@ def zero_grads(opt_state: OptState) -> None:
             p.grad = None
 
 
-def make_train_step(cfg: GlowTTSConfig, optimizer: Optimizer):
+def make_train_step(cfg: GlowTTSConfig, optimizer: Optimizer, mesh=None):
     """(state, batch) -> (state, metrics): one update of the params in
     place.  Batch: numpy ids [B, T], id_lengths [B], mels [B, M, C],
-    mel_lengths [B]; metrics are device scalars."""
+    mel_lengths [B], the global batch; metrics are device scalars (on a
+    mesh, this rank's shares).  On a ``TrainMesh`` each rank takes its rows,
+    the losses are normalised over the global batch, the gradients summed
+    over the data group before the clip, and the encoder runs tensor
+    parallel over the model group on params from ``mesh.shard_params``."""
+    reduce, tp = data_sum(mesh), model_axis(mesh)
+    first = mesh is None or mesh.data_rank == 0
 
     def train_step(state: TrainState, batch):
-        b = batch_to(batch, state.params["encoder"]["emb"].device)
+        b = batch_to(local_rows(batch, mesh), state.params["encoder"]["emb"].device)
         zero_grads(state.opt_state)
         loss, metrics = training_forward(state.params, cfg, b["ids"], b["id_lengths"], b["mels"],
-                                         b["mel_lengths"])
+                                         b["mel_lengths"], reduce=reduce, first=first, tp=tp)
         loss.backward()
+        reduce_grads(state.opt_state, mesh)
         optimizer.update(state.opt_state)
         state.step += 1
         return state, metrics

@@ -35,6 +35,22 @@ row's latent noise from its own seed, which lets the batch scheduler
 multi-speaker voice takes ``speaker_ids`` at the encode, and their
 normalised embeddings ``g`` condition the encode and the decode.
 
+On a serving mesh (``mesh=ServingMesh(...)``, ``parallel/mesh.py``) the
+engine keeps a replica of its params (packed kernel weights included) on
+each device, rounds the batch bucket up to a multiple of the mesh's size
+and runs each position's rows on its device from this one thread
+(:class:`RowShards`): the encode and decode of a position's rows, and the
+vocode in uniform row groups split over the positions, as the JAX engine's
+``shard_map``.  The decode noise (and WaveGlow's prior, and Griffin-Lim's
+phase) is drawn once for the whole batch on the first position, at the
+single-device engine's batch rows, then sliced and copied, so the mesh
+gives the single-device engine's mel.  A single valid row at least
+``LARYNX_TPU_TIME_SHARD_MIN_FRAMES`` (default 2 x N x halo) wide is
+vocoded along time over every position, and 1 < n_valid < N rows on the
+rows x time grid of ``_grid_vocode_plan`` (``parallel/time_shard.py``),
+as there.  The stream, and ``phonemes_to_mels``, run on the first position
+alone (JAX computes the same values on every position).
+
 Precision, as in the JAX engine: ``half`` runs GlowTTS and the vocoder in
 bfloat16, ``vocoder_half`` the vocoder alone; by default the vocoder is
 bfloat16 on a CUDA device and float32 on the CPU (:func:`default_vocoder_half`).
@@ -156,6 +172,49 @@ class EncodeOutput(tuple):
         return out
 
 
+class RowShards:
+    """A batch split by rows over a serving mesh's positions: shard k holds
+    rows ``[k * s, (k + 1) * s)`` on position k's device."""
+
+    def __init__(self, shards: typing.Sequence[torch.Tensor]):
+        self.shards = list(shards)
+
+    @property
+    def shape(self) -> typing.Tuple[int, ...]:
+        first = self.shards[0]
+        return (first.shape[0] * len(self.shards),) + tuple(first.shape[1:])
+
+    def rows(self, start: int, stop: int, device) -> torch.Tensor:
+        """Rows [start, stop) on ``device``, copied without blocking from
+        the shards that hold them."""
+        s = self.shards[0].shape[0]
+        pieces = []
+        for k in range(start // s, -(-stop // s)):
+            lo, hi = max(start, k * s) - k * s, min(stop, (k + 1) * s) - k * s
+            pieces.append(self.shards[k][lo:hi].to(device, non_blocking=True))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+class _HostCopies:
+    """Several positions' copies of one batch's rows, joined on the host."""
+
+    def __init__(self, copies: typing.Sequence[HostCopy]):
+        self._copies = list(copies)
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([c.numpy() for c in self._copies])
+
+
+class MeshEncodeOutput(tuple):
+    """``encode``'s six outputs as :class:`RowShards` over a mesh; its
+    ``lengths`` is every position's copy of y_lengths to the host."""
+
+    def __new__(cls, per_position):
+        out = super().__new__(cls, [RowShards(t) for t in zip(*per_position)])
+        out.lengths = _HostCopies([HostCopy(o[4]) for o in per_position])
+        return out
+
+
 def default_vocoder_half(device=None) -> bool:
     """The vocoder's default precision, the JAX engine's contract
     (``larynx_tpu/runtime/engine.py::default_vocoder_half``) with "TPU
@@ -249,13 +308,19 @@ class SynthesisEngine:
         vocoder_half: typing.Optional[bool] = None,
         griffin_lim_iters: int = 60,
         griffin_lim_momentum: typing.Optional[float] = None,
+        mesh=None,
     ):
         if vocoder_kind not in ("hifi_gan", "waveglow", "griffin_lim", "none"):
             raise ValueError(f"unknown vocoder kind {vocoder_kind!r}")
         neural = vocoder_kind in ("hifi_gan", "waveglow")
         if neural and (vocoder_cfg is None or vocoder_params is None):
             raise ValueError(f"the {vocoder_kind} engine needs vocoder params and config")
-        self.device = resolve_device(device)
+        # the serving mesh (parallel/mesh.py::ServingMesh): rows over its
+        # positions; None is one device.  Its first position is the
+        # engine's device.
+        self.mesh = mesh
+        self._n_data = len(mesh) if mesh is not None else 1
+        self.device = resolve_device(mesh.positions[0] if mesh is not None else device)
         self.glow_cfg = glow_cfg
         self.audio_settings = audio_settings
         self.vocoder_kind = vocoder_kind
@@ -301,6 +366,41 @@ class SynthesisEngine:
         # decodes launched again because a prediction fell short
         self._frames_per_token = 0.0
         self._bucket_mispredicts = 0
+        # the mesh's routes: single-row time shards and rows x time grids
+        # taken (the tests pin that the gates route as JAX's), and the grid
+        # programs, built on first use per (n_rows, n_time)
+        self._time_shard_hits = 0
+        self._grid_shard_hits = 0
+        self._grid_fns: typing.Dict[typing.Tuple[int, int], typing.Any] = {}
+        # per device: (glow params, vocoder params, Griffin-Lim basis)
+        self._replicas = {self.device: (self.glow_params, self.vocoder_params,
+                                        getattr(self, "_gl_basis", None))}
+        if mesh is not None:
+            for dev in mesh.devices:
+                dev = resolve_device(dev)
+                if dev not in self._replicas:
+                    self._replicas[dev] = (
+                        tree_to(self.glow_params, dev),
+                        None if self.vocoder_params is None
+                        else pack(cast(tree_to(vocoder_params, dev), self.voc_dtype), vocoder_cfg),
+                        None if vocoder_kind != "griffin_lim" else self._gl_basis.to(dev),
+                    )
+        self._bias_on: typing.Dict[torch.device, torch.Tensor] = {}
+        if vocoder_kind == "hifi_gan":
+            self._ts_halo = stream_halo_frames(vocoder_cfg)
+        elif vocoder_kind == "waveglow":
+            from larynx_tpu_torch.parallel.time_shard import waveglow_halo_frames
+
+            self._wg_halo_frames = waveglow_halo_frames(vocoder_cfg)
+
+    @property
+    def _time_shard_min_frames(self) -> int:
+        """The shortest mel bucket that a single valid row time-shards at:
+        ``LARYNX_TPU_TIME_SHARD_MIN_FRAMES``, read at each call, else 2 x N x
+        halo, where the latency model predicts a speed-up of N / 2 (the JAX
+        engine's gate)."""
+        return int(os.environ.get("LARYNX_TPU_TIME_SHARD_MIN_FRAMES",
+                                  2 * self._n_data * self._ts_halo))
 
     # ------------------------------------------------------------------
     # helpers
@@ -318,10 +418,11 @@ class SynthesisEngine:
             arr[len(value):] = value[-1] if len(value) else 0.0
         return arr
 
-    def _row_param(self, value, b_bucket: int, ndim: int) -> torch.Tensor:
-        """Scalar or per-row sequence -> [b_bucket, 1, ...] f32 tensor."""
+    def _row_param(self, value, b_bucket: int, ndim: int, device=None) -> torch.Tensor:
+        """Scalar or per-row sequence -> [b_bucket, 1, ...] f32 tensor on
+        ``device`` (default the engine's)."""
         arr = self._row_values(value, b_bucket).reshape((b_bucket,) + (1,) * (ndim - 1))
-        return to_device(arr, self.device)
+        return to_device(arr, self.device if device is None else device)
 
     def _generator(self, entropy: typing.List[int]) -> torch.Generator:
         """A generator on the engine's device seeded by ``SeedSequence(entropy)``."""
@@ -360,38 +461,48 @@ class SynthesisEngine:
             rows.append(torch.cat(blocks)[:m])
         return torch.stack(rows)
 
-    def _generate(self, mel: torch.Tensor, z: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _generate(self, mel: torch.Tensor, z: typing.Optional[torch.Tensor] = None,
+                  params=None) -> torch.Tensor:
         """mel [B, M, C] -> float32 audio [B, M * upsample]; ``z`` is
         WaveGlow's prior [B, blocks, groups].  Both are cast to the
-        vocoder's dtype."""
+        vocoder's dtype.  ``params``: a mesh position's vocoder replica
+        (default the engine's)."""
         self.generator_calls += 1
+        params = self.vocoder_params if params is None else params
         mel = mel.to(self.voc_dtype)
         if self.vocoder_kind == "waveglow":
             z = None if z is None else z.to(self.voc_dtype)
-            return wg_model.infer(self.vocoder_params, self.vocoder_cfg, mel, z=z).float()
-        return hifi_model.generator(self.vocoder_params, self.vocoder_cfg, mel).float()
+            return wg_model.infer(params, self.vocoder_cfg, mel, z=z).float()
+        return hifi_model.generator(params, self.vocoder_cfg, mel).float()
 
     # ------------------------------------------------------------------
     # stages
 
-    def _pad_id_batch(self, id_seqs):
-        """Pad id sequences to (text, batch) buckets; pad rows get length 1."""
+    def _pad_id_arrays(self, id_seqs, n_data: int = 1):
+        """Pad id sequences to (text, batch) buckets, the batch bucket
+        rounded up to a multiple of ``n_data``; pad rows get length 1 ->
+        (ids, lengths, b_bucket) on the host."""
         n = len(id_seqs)
         t_bucket = self.policy.text_bucket(max(len(s) for s in id_seqs))
-        b_bucket = self.policy.batch_bucket(n)
+        b_bucket = -(-self.policy.batch_bucket(n) // n_data) * n_data
         ids = np.zeros((b_bucket, t_bucket), dtype=np.int64)
         lengths = np.zeros((b_bucket,), dtype=np.int64)
         for i, seq in enumerate(id_seqs):
             ids[i, : len(seq)] = seq
             lengths[i] = len(seq)
         lengths[n:] = 1
+        return ids, lengths, b_bucket
+
+    def _pad_id_batch(self, id_seqs):
+        """:meth:`_pad_id_arrays` on the engine's device."""
+        ids, lengths, b_bucket = self._pad_id_arrays(id_seqs)
         return to_device(ids, self.device), to_device(lengths, self.device), b_bucket
 
-    def _speaker_embedding(self, speaker_ids, b_bucket: int):
-        """Speaker indices -> normalised embeddings [b_bucket, gin] (padding
-        rows take speaker 0), or None for a single-speaker voice.  A
-        multi-speaker voice without speaker ids raises: its duration
-        predictor and couplings take the embedding."""
+    def _speaker_index(self, speaker_ids, b_bucket: int) -> typing.Optional[np.ndarray]:
+        """Speaker indices [b_bucket] (padding rows take speaker 0), or None
+        for a single-speaker voice.  A multi-speaker voice without speaker
+        ids raises: its duration predictor and couplings take the
+        embedding."""
         if "emb_g" not in self.glow_params:
             return None
         n_speakers = self.glow_params["emb_g"].shape[0]
@@ -404,6 +515,14 @@ class SynthesisEngine:
         idx[: len(speaker_ids)] = np.asarray(speaker_ids, dtype=np.int64)
         if idx.min() < 0 or idx.max() >= n_speakers:
             raise ValueError(f"speaker ids {list(speaker_ids)} outside [0, {n_speakers})")
+        return idx
+
+    def _speaker_embedding(self, speaker_ids, b_bucket: int):
+        """Speaker indices -> normalised embeddings [b_bucket, gin] on the
+        engine's device, or None for a single-speaker voice."""
+        idx = self._speaker_index(speaker_ids, b_bucket)
+        if idx is None:
+            return None
         return glow_model.speaker_embedding(self.glow_params, to_device(idx, self.device))
 
     @torch.inference_mode()
@@ -411,7 +530,33 @@ class SynthesisEngine:
         """Encode a batch -> (:class:`EncodeOutput`, g), without waiting for
         the card: the output's ``lengths`` is the copy of y_lengths to the
         host, already started.  ``g`` is the speaker conditioning of
-        ``speaker_ids`` (one per sentence), None for a single-speaker voice."""
+        ``speaker_ids`` (one per sentence), None for a single-speaker voice.
+        On a mesh: (:class:`MeshEncodeOutput`, g as :class:`RowShards`)."""
+        if self.mesh is not None:
+            return self._mesh_encode(id_seqs, length_scale, speaker_ids)
+        return self._encode_one(id_seqs, length_scale, speaker_ids)
+
+    def _mesh_encode(self, id_seqs, length_scale, speaker_ids):
+        """Each position encodes its rows of the batch, on its device."""
+        ids, lengths, b_bucket = self._pad_id_arrays(id_seqs, self._n_data)
+        idx = self._speaker_index(speaker_ids, b_bucket)
+        scales = self._row_values(length_scale, b_bucket)
+        s = b_bucket // self._n_data
+        outs, gs = [], []
+        for k, dev in enumerate(self.mesh.positions):
+            rows = slice(k * s, (k + 1) * s)
+            glow = self._replicas[dev][0]
+            g = None if idx is None else glow_model.speaker_embedding(
+                glow, to_device(idx[rows], dev))
+            outs.append(glow_model.encode(
+                glow, self.glow_cfg, to_device(ids[rows], dev), to_device(lengths[rows], dev),
+                length_scale=to_device(scales[rows].reshape(s, 1), dev), g=g,
+            ))
+            gs.append(g)
+        return MeshEncodeOutput(outs), (None if idx is None else RowShards(gs))
+
+    def _encode_one(self, id_seqs, length_scale=1.0, speaker_ids=None):
+        """:meth:`encode_launch` on the engine's device alone."""
         ids, lengths, b_bucket = self._pad_id_batch(id_seqs)
         g = self._speaker_embedding(speaker_ids, b_bucket)
         out = glow_model.encode(
@@ -451,6 +596,9 @@ class SynthesisEngine:
             mel_bucket_override if mel_bucket_override is not None
             else self.policy.mel_bucket(int(y_lengths[:n].max()))
         )
+        if isinstance(enc_out, MeshEncodeOutput):
+            return self._mesh_decode(enc_out, g, n, mel_bucket, noise_scale, seed, batch_index,
+                                     row_seeds)
         noise = generator = None
         if row_seeds is not None:
             noise = self.row_noise(row_seeds, b, mel_bucket, c, batch_index)
@@ -464,6 +612,36 @@ class SynthesisEngine:
             generator=generator,
             g=g,
         )
+
+    def _mesh_decode(self, enc_out, g, n, mel_bucket, noise_scale, seed, batch_index, row_seeds):
+        """Each position decodes its rows.  The noise is drawn once on the
+        first position, as the single-device engine draws it (its batch
+        bucket of n rows; the mesh's extra padding rows take zeros), then
+        sliced and copied: the mesh gives the single-device mel."""
+        x_m, x_logs, _logw, w_ceil, y_dev, _mask = enc_out
+        b, _t, c = x_m.shape
+        if row_seeds is not None:
+            noise = self.row_noise(row_seeds, b, mel_bucket, c, batch_index)
+        else:
+            noise = torch.randn((self.policy.batch_bucket(n), mel_bucket, c),
+                                generator=self._noise_generator(seed, batch_index),
+                                device=self.device, dtype=self.dtype)
+            noise = torch.nn.functional.pad(noise, (0, 0, 0, 0, 0, b - noise.shape[0]))
+        scales = self._row_values(noise_scale, b)
+        s = b // self._n_data
+        mels, masks = [], []
+        for k, dev in enumerate(self.mesh.positions):
+            rows = slice(k * s, (k + 1) * s)
+            mel, z_mask = glow_model.expand_and_decode(
+                self._replicas[dev][0], self.glow_cfg, x_m.shards[k], x_logs.shards[k],
+                w_ceil.shards[k], y_dev.shards[k], mel_max_length=mel_bucket,
+                noise_scale=to_device(scales[rows].reshape(s, 1, 1), dev),
+                noise=noise[rows].to(dev, non_blocking=True),
+                g=None if g is None else g.shards[k],
+            )
+            mels.append(mel)
+            masks.append(z_mask)
+        return RowShards(mels), RowShards(masks)
 
     # ------------------------------------------------------------------
     # the predicted mel bucket
@@ -556,7 +734,8 @@ class SynthesisEngine:
         nothing yet or the batch is empty.  The JAX engine fuses the two
         into one program; eager PyTorch launches them back to back."""
         max_id_len = max((len(s) for s in id_seqs), default=0)
-        if self._frames_per_token <= 0.0 or max_id_len <= 0 or not fused_encode_enabled():
+        if (self.mesh is not None or self._frames_per_token <= 0.0 or max_id_len <= 0
+                or not fused_encode_enabled()):
             return None
         enc_out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
         mel, z_mask, y_lengths = self.decode_launch_predicted(
@@ -576,51 +755,61 @@ class SynthesisEngine:
         ``seed`` and ``batch_index`` seed WaveGlow's prior or Griffin-Lim's
         initial phase, on a stream of their own beside the decode noise's.
         Griffin-Lim vocodes every row in one part and takes no denoiser."""
-        if self.vocoder_kind == "griffin_lim":
-            part = self._vocode_griffin_lim(mel, z_mask, seed, batch_index)
-            return [(HostCopy(part), list(range(mel.shape[0])))]
         if self.vocoder_kind == "none":
             raise RuntimeError("an engine with vocoder_kind='none' cannot vocode "
                                "(mel-only surface; use phonemes_to_mels)")
+        if isinstance(mel, RowShards):
+            return self._mesh_vocode(mel, z_mask, n_valid, denoiser_strength, seed, batch_index)
+        if self.vocoder_kind == "griffin_lim":
+            part = self._vocode_griffin_lim(mel, z_mask, seed, batch_index)
+            return [(HostCopy(part), list(range(mel.shape[0])))]
         z_full = None
         if self.vocoder_kind == "waveglow":
             z_full = self._waveglow_prior(mel.shape[0], mel.shape[1], z_mask, seed, batch_index)
         return self._vocode_groups(mel, z_mask, n_valid, denoiser_strength, y_lengths, z_full)
 
-    def _waveglow_prior(self, b: int, m: int, z_mask, seed, batch_index) -> torch.Tensor:
+    def _waveglow_prior(self, b: int, m: int, z_mask, seed, batch_index,
+                        drawn: typing.Optional[int] = None) -> torch.Tensor:
         """sigma * N(0, 1) for the whole [b, blocks, groups] batch, zeroed past
         each row's y_length * blocks_per_frame: the padded tail is then
-        (near-)silence under any bucket width."""
+        (near-)silence under any bucket width.  ``drawn`` rows are drawn (the
+        single-device engine's batch, on a mesh), the others are zeros."""
         cfg = self.vocoder_cfg
         blocks_full = m * cfg.upsample_stride // cfg.groups
         blocks_per_frame = cfg.upsample_stride // cfg.groups
         z_full = self.waveglow_sigma * torch.randn(
-            (b, blocks_full, cfg.groups), device=self.device,
+            (b if drawn is None else drawn, blocks_full, cfg.groups), device=self.device,
             generator=self._noise_generator(seed, batch_index, stream=1),
         )
+        z_full = torch.nn.functional.pad(z_full, (0, 0, 0, 0, 0, b - z_full.shape[0]))
         valid_blocks = (z_mask > 0).sum(dim=1) * blocks_per_frame
         inside = torch.arange(blocks_full, device=self.device)[None, :] < valid_blocks[:, None]
         return torch.where(inside[..., None], z_full, 0.0)
 
-    def _vocode_griffin_lim(self, mel, z_mask, seed, batch_index) -> torch.Tensor:
+    def _vocode_griffin_lim(self, mel, z_mask, seed, batch_index,
+                            initial_phase: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
         """mel [B, M, C] -> int16 audio [B, (M - 1) * hop + fft]: linear
         magnitudes through the mel basis (last frame dropped), Griffin-Lim
-        from a random phase, each row normalised over its (y - 1) * hop + fft
-        samples."""
+        from a random phase (or ``initial_phase``), each row normalised over
+        its (y - 1) * hop + fft samples."""
         fft, hop = self.audio_settings.filter_length, self.audio_settings.hop_length
         mel_pp = postprocess(mel, z_mask, self.audio_settings)
-        spec = dspmel.linear_from_mel(mel_pp, self._gl_basis, 1000.0)[:, :, :-1]
+        basis = self._replicas[mel.device][2] if mel.device in self._replicas else self._gl_basis
+        spec = dspmel.linear_from_mel(mel_pp, basis, 1000.0)[:, :, :-1]
         signal = dsp.griffin_lim(
             spec, self._noise_generator(seed, batch_index, stream=1), fft, hop,
-            self.griffin_lim_iters, momentum=self.griffin_lim_momentum,
+            self.griffin_lim_iters, initial_phase=initial_phase,
+            momentum=self.griffin_lim_momentum,
         )
         y_len = (z_mask > 0).sum(dim=1)
         return to_int16(signal, torch.clamp(y_len - 1, min=1) * hop + fft)
 
-    def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool, z=None) -> torch.Tensor:
-        """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)]."""
+    def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool, z=None,
+                params=None) -> torch.Tensor:
+        """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)];
+        ``params`` a mesh position's vocoder replica."""
         mel_pp = postprocess(mel, z_mask, self.audio_settings)
-        audio = self._generate(mel_pp.transpose(1, 2), z)
+        audio = self._generate(mel_pp.transpose(1, 2), z, params)
         n_valid = (z_mask > 0).sum(dim=1) * self.upsample
         if denoise:
             fft = self.audio_settings.filter_length
@@ -676,6 +865,168 @@ class SynthesisEngine:
             )
             parts.append((HostCopy(part), [int(i) for i in rows]))
         return parts
+
+    # ------------------------------------------------------------------
+    # the mesh's vocode
+
+    def _bias_on_device(self, device) -> torch.Tensor:
+        """The denoiser bias (built once on the first position) on ``device``."""
+        bias = self._get_bias_spec()
+        if device not in self._bias_on:
+            self._bias_on[device] = bias.to(device)
+        return self._bias_on[device]
+
+    def _mesh_vocode(self, mel, z_mask, n_valid, denoiser_strength, seed, batch_index):
+        """The mesh's routes (``larynx_tpu/runtime/engine.py::
+        _vocode_launch_hifi`` and its WaveGlow and Griffin-Lim siblings): one
+        long valid row time-shards over every position (HiFi-GAN), fewer
+        valid rows than positions take the rows x time grid where
+        :meth:`_grid_vocode_plan` finds one, else uniform row groups split
+        over the positions (:meth:`_mesh_uniform_groups`)."""
+        b, m = mel.shape[0], mel.shape[1]
+        b_single = self.policy.batch_bucket(n_valid)  # the rows the single engine draws for
+        if self.vocoder_kind == "griffin_lim":
+            return self._mesh_griffin_lim(mel, z_mask, n_valid, seed, batch_index, b_single)
+        waveglow = self.vocoder_kind == "waveglow"
+        area = waveglow_area() if waveglow else MAX_VOCODE_AREA
+        denoise = bool(np.any(np.asarray(denoiser_strength) > 0))
+        str_rows = self._row_values(denoiser_strength, b)
+        z_full = None
+        if waveglow:
+            z_full = self._waveglow_prior(b, m, z_mask.rows(0, b, self.device), seed, batch_index,
+                                          drawn=b_single)
+        plan = None
+        if not waveglow and n_valid == 1 and m >= self._time_shard_min_frames:
+            plan = (1, self._n_data)
+            self._time_shard_hits += 1
+        elif (1 if waveglow else 2) <= n_valid < self._n_data:
+            plan = self._grid_vocode_plan(
+                n_valid, m, **({"halo": self._wg_halo_frames, "area": area} if waveglow else {}))
+            if plan is not None:
+                self._grid_shard_hits += 1
+        if plan is not None:
+            fn = self._grid_fns.get(plan)
+            if fn is None:
+                fn = self._grid_fns[plan] = self._build_grid(*plan)
+            args = [{dev: rep[1] for dev, rep in self._replicas.items()},
+                    mel.rows(0, n_valid, self.device), z_mask.rows(0, n_valid, self.device)]
+            if waveglow:
+                args.append(z_full[:n_valid])
+            out = fn(*args, bias_spec=self._get_bias_spec() if denoise else None,
+                     strength=self._row_param(str_rows[:n_valid], n_valid, 3), denoise=denoise)
+            return out.parts
+        return self._mesh_uniform_groups(b, m, n_valid, area, mel, z_mask, z_full, str_rows,
+                                         denoise)
+
+    def _build_grid(self, n_rows: int, n_time: int):
+        from larynx_tpu_torch.parallel import time_shard
+
+        if self.vocoder_kind == "waveglow":
+            return time_shard.make_waveglow_grid_vocode(
+                self.vocoder_cfg, self.audio_settings, self.mesh.positions, n_rows, n_time,
+                self._wg_halo_frames, voc_dtype=self.voc_dtype)
+        return time_shard.make_grid_sharded_vocode(
+            self.vocoder_cfg, self.audio_settings, self.mesh.positions, n_rows, n_time,
+            self._ts_halo, voc_dtype=self.voc_dtype)
+
+    def _mesh_uniform_groups(self, b, m, n_valid, area, mel, z_mask, z_full, str_rows, denoise):
+        """Uniform-width row groups of a multiple of N rows
+        (``larynx_tpu/runtime/engine.py::_mesh_uniform_groups``), each split
+        into N equal slices, slice k on position k.  The final group clamps
+        to the batch's end (overlapping rows are vocoded again with the same
+        result); the area cap is per device, so the group's rows scale by
+        N.  A slice of padding rows alone is not vocoded."""
+        n = self._n_data
+        group = max(1, (area * n) // m)
+        group = max(group - group % n, n)
+        parts = []
+        for start in range(0, b, group):
+            if start >= n_valid:
+                break
+            lo, size = (0, b) if group >= b else (min(start, b - group), group)
+            per = size // n
+            for k, dev in enumerate(self.mesh.positions):
+                r0 = lo + k * per
+                if r0 >= n_valid:
+                    break
+                bias = self._bias_on_device(dev) if denoise else None
+                part = self._vocode(
+                    mel.rows(r0, r0 + per, dev), z_mask.rows(r0, r0 + per, dev), bias,
+                    self._row_param(str_rows[r0 : r0 + per], per, 3, dev), denoise,
+                    None if z_full is None else z_full[r0 : r0 + per].to(dev, non_blocking=True),
+                    params=self._replicas[dev][1],
+                )
+                parts.append((HostCopy(part), list(range(r0, r0 + per))))
+        return parts
+
+    def _mesh_griffin_lim(self, mel, z_mask, n_valid, seed, batch_index, b_single):
+        """Each position's rows through Griffin-Lim on its device, from the
+        phase the single-device engine draws for its batch (padding rows past
+        it start from zero phase)."""
+        b, m = mel.shape[0], mel.shape[1]
+        n_freq = self.audio_settings.filter_length // 2 + 1
+        phase = 2.0 * math.pi * torch.rand(
+            (b_single, n_freq, m - 1), generator=self._noise_generator(seed, batch_index, stream=1),
+            device=self.device, dtype=torch.float32)
+        phase = torch.nn.functional.pad(phase, (0, 0, 0, 0, 0, b - b_single))
+        s = b // self._n_data
+        parts = []
+        for k, dev in enumerate(self.mesh.positions):
+            if k * s >= n_valid:
+                break
+            part = self._vocode_griffin_lim(
+                mel.shards[k], z_mask.shards[k], seed, batch_index,
+                initial_phase=phase[k * s : (k + 1) * s].to(dev, non_blocking=True))
+            parts.append((HostCopy(part), list(range(k * s, (k + 1) * s))))
+        return parts
+
+    def _grid_vocode_plan(
+        self,
+        n_valid: int,
+        m: int,
+        halo: typing.Optional[int] = None,
+        area: typing.Optional[int] = None,
+    ) -> typing.Optional[typing.Tuple[int, int]]:
+        """Pick the (n_rows, n_time) vocode grid minimizing per-device
+        work ``ceil(n_valid/r) * (m/t + 2*halo)`` frames (the model in
+        parallel/time_shard.py), subject to the per-device area cap.
+
+        Returns None when plain row sharding (r == n_data, t == 1, work
+        = m) is not beaten — the uniform-group path handles that.  Ties
+        prefer more rows (less halo re-compute, same wall time).  Grids
+        where an entire row shard would hold only padding are excluded:
+        every device must carry at least one real row (padded rows may
+        ride along in a shard that also holds real ones).
+
+        ``halo``/``area`` default to the HiFi-GAN values; the WaveGlow
+        route passes its own (receptive field ~100 frames, quarter area
+        cap), which makes the plan decline except at long mels.
+        """
+        # Copied line for line from larynx_tpu/runtime/engine.py::_grid_vocode_plan.
+        n = self._n_data
+        if halo is None:
+            halo = self._ts_halo
+        if area is None:
+            area = MAX_VOCODE_AREA
+        best: typing.Optional[typing.Tuple[int, int]] = None
+        best_w = m  # plain row sharding's per-device work
+        for n_rows in range(n, 0, -1):
+            if n % n_rows:
+                continue
+            n_time = n // n_rows
+            if n_time > max(m, 1):
+                continue
+            rows_per = -(-n_valid // n_rows)
+            if (n_rows - 1) * rows_per >= n_valid:
+                continue  # last row shard would be pure padding
+            window = min(
+                -(-m // n_time) + (2 * halo if n_time > 1 else 0), m
+            )
+            work = rows_per * window
+            if work >= best_w or work > area:
+                continue
+            best, best_w = (n_rows, n_time), work
+        return best
 
     def _ragged_group_plan(
         self, sorted_lens: np.ndarray, n_valid: int, m: int, area: int, margin: int = 0
@@ -903,13 +1254,14 @@ class SynthesisEngine:
         bucket's edges, so its samples are those of the one-window run.
         Chunk i + 1 is launched before chunk i is copied to the host (a
         blocking copy).  ``speaker_ids`` ([k]) picks a multi-speaker voice's
-        speaker.  The decode runs at the exact mel bucket."""
+        speaker.  The decode runs at the exact mel bucket.  On a mesh the
+        stream runs on the first position alone."""
         if self.vocoder_kind != "hifi_gan":
             raise ValueError(
                 "streaming synthesis requires a HiFi-GAN vocoder "
                 f"(engine has vocoder_kind={self.vocoder_kind!r})"
             )
-        enc_out, g = self.encode_launch([ids], length_scale, speaker_ids=speaker_ids)
+        enc_out, g = self._encode_one([ids], length_scale, speaker_ids=speaker_ids)
         y_lengths = enc_out.lengths.numpy()
         n_frames = int(y_lengths[0])
         mel, z_mask = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale,
@@ -944,10 +1296,11 @@ class SynthesisEngine:
                          speaker_id: typing.Optional[int] = None) -> np.ndarray:
         """One id sequence -> its raw (normalised) mel [1, C, frames], float32
         numpy, decoded at its mel bucket with the noise of (seed or the
-        engine's seed, batch 0); ``speaker_id`` for a multi-speaker voice."""
+        engine's seed, batch 0); ``speaker_id`` for a multi-speaker voice.
+        On a mesh it runs on the first position."""
         speaker_ids = None if speaker_id is None else [int(speaker_id)]
-        enc_out, y_lengths, g = self.encode_batch([np.asarray(ids)], length_scale,
-                                                  speaker_ids=speaker_ids)
+        enc_out, g = self._encode_one([np.asarray(ids)], length_scale, speaker_ids=speaker_ids)
+        y_lengths = enc_out.lengths.numpy()
         mel, _ = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale, seed=seed)
         frames = int(y_lengths[0])
         return mel[0:1, :frames].float().transpose(1, 2).cpu().numpy()

@@ -1,10 +1,17 @@
 """Vocoder training CLI: ``python -m larynx_tpu_torch.train_vocoder``.
 
-Counterpart of ``larynx_tpu/train_vocoder.py``, on one device
-(``--device``, default ``cuda``), on random hop-aligned audio segments,
-written as a vocoder dir (``config.json`` + ``generator.npz`` in the native
-layout) that both packages' ``get_vocoder_model`` load.  The flags are the
-JAX CLI's.
+Counterpart of ``larynx_tpu/train_vocoder.py``, on random hop-aligned
+audio segments, written as a vocoder dir (``config.json`` +
+``generator.npz`` in the native layout) that both packages'
+``get_vocoder_model`` load.  The flags are the JAX CLI's.  One process
+trains on ``--device`` (default ``cuda``); HiFi-GAN also trains data
+parallel under ``python -m torch.distributed.run --nproc-per-node N``
+(``parallel/mesh.py::make_mesh`` with no model axis, as JAX's), every rank
+drawing the same global batch and taking its rows, rank 0 alone writing
+and logging.  Two divergences from JAX, which quietly trains on one device
+in both cases, where N processes have no such meaning: a HiFi-GAN batch
+that does not divide over the ranks, and WaveGlow (one device in JAX) under
+a world above 1, exit naming the sizes.
 
 * ``--family hifi_gan``: the generator against the multi-period and
   multi-scale discriminators, with feature-matching and mel losses; both
@@ -37,6 +44,7 @@ from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
 from larynx_tpu_torch.models.hifi_gan.training import init_gan_state, log_mel, make_gan_train_step
 from larynx_tpu_torch.models.waveglow import model as wg_model
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig, waveglow_config_from_json
+from larynx_tpu_torch.parallel.mesh import is_rank0, make_mesh, world_size
 from larynx_tpu_torch.parallel.train import (
     LOG_EVERY,
     MetricHistory,
@@ -159,14 +167,16 @@ def _sample_batch(rng, corpus, batch_size, seg_samples, up) -> np.ndarray:
 
 
 def _run_steps(args, corpus, seg_samples: int, up: int, device, make_mels, train_step, save,
-               log_line) -> list:
+               log_line, group=None) -> list:
     """The vocoder trainers' loop: ``--steps`` steps, each
     ``train_step(audio, mels)`` -> metrics on a batch of random hop-aligned
-    crops, a log line every LOG_EVERY steps (``log_line(step, last
-    metrics, steps/s)``), a save every ``--checkpoint-every`` steps and at
-    the end or an interrupt.  Returns every step's metrics as host floats."""
+    crops (the global batch: every rank draws the same), a log line every
+    LOG_EVERY steps (``log_line(step, last metrics, steps/s)``), a save
+    every ``--checkpoint-every`` steps and at the end or an interrupt.
+    Returns every step's metrics as host floats (summed over the data
+    ``group``'s shares)."""
     rng = np.random.default_rng(args.seed)
-    history = MetricHistory()
+    history = MetricHistory(group)
     step = 0
     t0 = time.time()
     try:
@@ -251,13 +261,29 @@ def main(argv=None):
     WaveGlow a ``parallel.train.TrainState``) and every step's metrics as
     host floats."""
     args = get_args(argv)
-    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
-    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.DEBUG if args.debug else
+                        logging.INFO if is_rank0() else logging.WARNING)
     # float32 convs and matmuls, as the port's inference CLI
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    world = world_size()
     if args.family == "waveglow":
-        return _train_waveglow(args, device)
+        if world > 1:
+            raise SystemExit(f"waveglow trains on one device (as the JAX trainer); this run has "
+                             f"world size {world}: run it without torch.distributed.run")
+        return _train_waveglow(args, resolve_device(args.device))
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not split over world size {world}: "
+                         "pass a multiple of the number of processes")
+    mesh = make_mesh(model_parallel=1, device=args.device)
+    try:
+        return _train_hifi_gan(args, mesh)
+    finally:
+        mesh.close()
+
+
+def _train_hifi_gan(args, mesh):
+    device = mesh.device
 
     geometry = dict(GEOMETRY[args.quality])
     if args.config:
@@ -286,13 +312,16 @@ def main(argv=None):
         _LOGGER.info("Resumed generator from %s", args.resume)
     state = init_gan_state(torch.Generator().manual_seed(args.seed), cfg, gen_opt, disc_opt,
                            device=device, gen_params=gen_params)
-    gan_step = make_gan_train_step(cfg, settings, gen_opt, disc_opt)
+    gan_step = make_gan_train_step(cfg, settings, gen_opt, disc_opt, mesh=mesh)
 
     make_mels = _make_mel_fn(settings, args.segment_frames, device)
     out_dir = Path(args.out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if mesh.rank == 0:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     def save(step: int):
+        if mesh.rank != 0:
+            return
         with open(out_dir / "config.json", "w", encoding="utf-8") as f:
             json.dump({
                 "audio": {"num_mels": settings.mel_channels, "sampling_rate": settings.sample_rate},
@@ -307,7 +336,8 @@ def main(argv=None):
 
     return state, _run_steps(
         args, corpus, seg_samples, up, device, make_mels,
-        lambda audio, mels: gan_step(state, {"mels": mels, "audio": audio})[1], save, log_line)
+        lambda audio, mels: gan_step(state, {"mels": mels, "audio": audio})[1], save, log_line,
+        group=mesh.data_group)
 
 
 if __name__ == "__main__":

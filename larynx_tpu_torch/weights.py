@@ -148,6 +148,45 @@ def params_to_jax(tree: Params, kind: str) -> Params:
     return walk(tree, ())
 
 
+# The GlowTTS encoder layers' tensor-parallel split, in the port's layout
+# (stacked layers on axis 0): conv1 [L, f, h, k] and q/k/v [L, h_out, h_in]
+# on their outputs, conv2 [L, h, f, k] and o [L, h_out, h_in] on their inputs
+# (``larynx_tpu/parallel/mesh.py::glow_param_specs`` in the native layout).
+GLOW_TP_AXES = {
+    "conv1_w": 1, "conv1_b": 1, "conv2_w": 2,
+    "q_w": 1, "k_w": 1, "v_w": 1, "q_b": 1, "k_b": 1, "v_b": 1, "o_w": 2,
+}
+
+
+def glow_tp_axis(path: typing.Tuple[str, ...]) -> typing.Optional[int]:
+    """The axis of a GlowTTS leaf (by its key path) that the model ranks
+    split, or None for a replicated leaf."""
+    return GLOW_TP_AXES.get(path[-1]) if path[:2] == ("encoder", "layers") else None
+
+
+def tp_slice(params: Params, n: int, k: int, path: typing.Tuple[str, ...] = ()) -> Params:
+    """Model rank k's slice (of n) of a GlowTTS tree in the port's layout:
+    each split leaf's k-th contiguous chunk, every other leaf as it is."""
+    if isinstance(params, dict):
+        return {key: tp_slice(v, n, k, path + (key,)) for key, v in params.items()}
+    if isinstance(params, list):
+        return [tp_slice(v, n, k, path + (str(i),)) for i, v in enumerate(params)]
+    axis = glow_tp_axis(path)
+    return params if axis is None else torch.chunk(params, n, dim=axis)[k].contiguous()
+
+
+def tp_merge(shards: typing.Sequence[Params], path: typing.Tuple[str, ...] = ()) -> Params:
+    """The full GlowTTS tree from every model rank's slice, in rank order:
+    the inverse of :func:`tp_slice` (replicated leaves from rank 0)."""
+    first = shards[0]
+    if isinstance(first, dict):
+        return {key: tp_merge([s[key] for s in shards], path + (key,)) for key in first}
+    if isinstance(first, list):
+        return [tp_merge([s[i] for s in shards], path + (str(i),)) for i in range(len(first))]
+    axis = glow_tp_axis(path)
+    return first if axis is None else torch.cat(list(shards), dim=axis)
+
+
 def tree_to(tree, device) -> typing.Any:
     """Move every tensor of a parameter tree to ``device``."""
     if isinstance(tree, dict):

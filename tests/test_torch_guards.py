@@ -115,12 +115,14 @@ VOCODER_ARGV = ["--wav-dir", "/nonexistent", "--out-dir", "/nonexistent/vocoder"
 
 def _train_family_tacotron2_starts():
     """Tacotron2 training is ported: it fails on the missing data, not as
-    unported; the training mesh is not ported."""
+    unported.  The training mesh is ported: ``--model-parallel 2`` run alone
+    (a world of 1) exits naming the world size; under a world of 2 it runs
+    (``tests/test_torch_distributed_training.py``)."""
     from larynx_tpu_torch import train
 
     with pytest.raises((SystemExit, FileNotFoundError)):
         train.main(TRAIN_ARGV + ["--family", "tacotron2"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(SystemExit, match="world size 1"):
         train.main(TRAIN_ARGV + ["--model-parallel", "2"])
 
 
@@ -140,6 +142,25 @@ def _train_vocoder_family_waveglow_starts():
 def test_unported_options_raise(call):
     """What is not ported raises NotImplementedError; what is, runs."""
     call()
+
+
+def test_serving_mesh_never_repeats_a_device(monkeypatch):
+    """``serving_mesh()`` builds a mesh of distinct cards or none: on one
+    card, and on the CPU, it is None, so ``text_to_speech`` stays on the
+    single-device path there; a repeated-device mesh is only ever the
+    caller's own."""
+    from larynx_tpu_torch.parallel.mesh import serving_mesh
+
+    assert serving_mesh() is None  # the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for count in range(0, 10):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
+        mesh = serving_mesh()
+        if count < 2:
+            assert mesh is None
+        else:
+            assert len(set(mesh.positions)) == len(mesh.positions) >= 2
+            assert all(d.type == "cuda" and d.index < count for d in mesh.positions)
 
 
 # the training path: the four trainers and their CLIs
@@ -246,6 +267,17 @@ def test_batch_path_and_multispeaker_load_neither_jax_nor_larynx_tpu(module):
 
 @pytest.mark.parametrize("module", TACOTRON2_IMPORT_MODULES)
 def test_tacotron2_and_import_load_neither_jax_nor_larynx_tpu(module):
+    _loads_neither_jax_nor_larynx_tpu(module)
+
+
+# the multi-device layer: the serving mesh, the time and grid shards, the
+# sharded synthesis step
+MESH_MODULES = ["larynx_tpu_torch.parallel.mesh", "larynx_tpu_torch.parallel.time_shard",
+                "larynx_tpu_torch.parallel.serve"]
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_load_neither_jax_nor_larynx_tpu(module):
     _loads_neither_jax_nor_larynx_tpu(module)
 
 
