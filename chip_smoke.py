@@ -13,7 +13,11 @@ Phases (any failure exits non-zero):
      C=128 with a ragged T of odd tile count and a T under one stride) and
      wn_layer (WaveGlow: every mode, ragged T with an odd tile count and a
      one-step tail, and a whole 8-layer WN stack), each row with its share
-     of the bound.
+     of the bound; the bf16 MRF kernel (csrc/mrf_bf16.cu, one launch per
+     section at C <= 64, per unit at C = 128) at the main path's sections,
+     the stream's one-row windows, ragged T with an odd tile count, T under
+     one tile, ResBlock2 and C=8, each row with the HBM bytes and the L2
+     weight bytes that its plan moves.
   3. the HiFi-GAN path: ``larynx_tpu_torch.text_to_speech`` at full width
      (GlowTTS harvard dims + HiFi-GAN universal_large, random weights from
      a fixed seed) on eight pangram sentences, with and without the
@@ -41,7 +45,9 @@ Phases (any failure exits non-zero):
   9. the bfloat16 paths: ``text_to_speech`` at the CUDA default (bf16
      vocoder) with HiFi-GAN and with WaveGlow, ``half=True``,
      ``stream_text_to_speech`` at the default and with ``half=True``, and the
-     CLI with ``--half`` in process; each with its launch counts and
+     CLI with ``--half`` in process; each with its launch counts (11 MRF
+     launches a universal_large call: 9 unit launches at C=128, one for
+     each section at C=64 and C=32) and
      against its float32 run of the same rows at noise 0 (correlation >
      0.999, RMS level within 1% of full scale), and a small batch on CUDA
      in bf16 against the CPU path in bf16 by the same bar.
@@ -119,8 +125,8 @@ Phases (any failure exits non-zero):
      default) and float32: the row shard (pangram x8), the time shard (one
      pangram, 1024-frame bucket) and the rows x time grid (three pangrams),
      each plain and denoised where the JAX engine's bounds name it, with the
-     route counters and 27 MRF launches per position; the stream on the
-     first position (the single device's bytes); ``make_sharded_synthesis``
+     route counters and 27 (f32) or 11 (bf16) MRF launches per position;
+     the stream on the first position (the single device's bytes); ``make_sharded_synthesis``
      at noise 0 against the engine's batch path; WaveGlow wn_256's grid (96
      WN launches per window); the latency model's predicted speed-up on N
      cards.  Training: (a) ``python -m torch.distributed.run
@@ -362,27 +368,41 @@ R1 = ((3, 7, 11), ((1, 3, 5),) * 3, 2)  # universal_large: ResBlock1
 R2 = ((3, 5, 7), ((1, 2), (2, 6), (3, 12)), 1)  # vctk_small: ResBlock2
 
 
-def unit_design_bytes(stage, b, t):
-    """HBM bytes that the per-unit launches move for one section: each unit
-    reads its input and writes its output once (a chain's last unit after
-    the first chain also reads out; in bf16 the chains' sum is f32 and the
-    last chain writes bf16), plus the weight stages once; the residual
-    re-read and the tiles' halos come from L2."""
-    from larynx_tpu_torch.ops.mrf_block import MODE_OUT_ADD, MODE_TO_SCRATCH, unit_launches
-
+def design_bytes(mrf_block, stage, b, t):
+    """(HBM bytes, L2 weight bytes) that the kernel's plan moves for one
+    section: the floors besides its operations.  Section plan (bf16, C <=
+    64): x read once and the output written once (the later chains' re-reads
+    of x come from L2), the weights once; each tile streams every weight
+    stage of the section from L2.  Unit plan (float32; bf16 at C = 128): each
+    unit reads its input and writes its output once (a chain's last unit
+    after the first chain also reads out; in bf16 the chains' sum is f32 and
+    the last chain writes bf16), plus the weight stages once (the residual
+    re-read and the tiles' halos come from L2); each block streams its unit's
+    weight stages from L2."""
     e = stage.w_flat.element_size()
-    a = float(b * t * stage.b_flat.shape[-1])
+    c = stage.b_flat.shape[-1]
+    cpu = stage.convs_per_unit
+    a = float(b * t * c)
+    weights = e * (stage.wpack.numel() + stage.b_flat.numel())
+    if e == 2 and mrf_block.bf16_plan(c) == "section":
+        r, _s, _p = mrf_block.bf16_tile(c, stage.kernel_sizes, stage.dilations_per_block, cpu)
+        return 2 * e * a + weights, b * -(-t // r) * e * stage.wpack.numel()
     n_chains = len(stage.kernel_sizes)
-    io = 0.0
-    for r, *_, mode, _s in unit_launches(stage):
+    io = l2 = 0.0
+    for r, _u, k, d, _w, _b, _src, _dst, mode, _s in mrf_block.unit_launches(stage):
         io += e * a  # the unit's input
-        if mode == MODE_TO_SCRATCH:
+        if mode == mrf_block.MODE_TO_SCRATCH:
             io += e * a
         elif e == 4:
-            io += 4 * a + (4 * a if mode == MODE_OUT_ADD else 0)
+            io += 4 * a + (4 * a if mode == mrf_block.MODE_OUT_ADD else 0)
         else:
-            io += (4 * a if mode == MODE_OUT_ADD else 0) + (e * a if r == n_chains - 1 else 4 * a)
-    return io + e * (stage.wpack.numel() + stage.b_flat.numel())
+            io += ((4 * a if mode == mrf_block.MODE_OUT_ADD else 0)
+                   + (e * a if r == n_chains - 1 else 4 * a))
+        stride = (mrf_block.bf16_tile(c, (k,), ((d,),), cpu)[0] if e == 2
+                  else mrf_block.unit_stride(k, cpu))
+        unit_weights = e * (2 if e == 4 else 1) * cpu * k * max(c, 32 // e) * c  # TF32 hi, lo
+        l2 += b * -(-t // stride) * unit_weights
+    return io + weights, l2
 
 
 def stream_cases(engine):
@@ -448,8 +468,10 @@ def check_mrf(mrf_block, cases, units=(), dtype=torch.float32):
             cast(tree_to(random_stage(gen, c, ks, dils, cpu), "cuda"), dtype), ks, dils, cpu)
         w, bias = stage.w_flat, stage.b_flat
         x = torch.randn((b, t, c), generator=gen).cuda().to(dtype)
+        before = mrf_block.mrf_section.launches
         out = mrf_block.mrf_section(x, stage)
         torch.cuda.synchronize()
+        launches = mrf_block.mrf_section.launches - before
         convs = list(mrf_block._unpacked_convs(w, bias, c, ks, dils, cpu))
         if len(convs) == 1:  # a single unit: its own plain version
             def plain():
@@ -476,7 +498,7 @@ def check_mrf(mrf_block, cases, units=(), dtype=torch.float32):
         ops_s = flops / BF16_PEAK_FLOPS if bf16 else TF32_PER_F32 * flops / TF32_PEAK_FLOPS
         e = x.element_size()
         bytes_s = e * (2 * b * t * c + stage.wpack.numel() + bias.numel()) / HBM_BYTES_PER_S
-        design = unit_design_bytes(stage, b, t)
+        design, l2_weights = design_bytes(mrf_block, stage, b, t)
         row = {
             "case": label, "dtype": str(dtype).replace("torch.", ""), "C": c, "B": b, "T": t,
             "convs_per_unit": cpu, "main_path": main, "stream_path": label.startswith("stream"),
@@ -487,7 +509,9 @@ def check_mrf(mrf_block, cases, units=(), dtype=torch.float32):
             "ops_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s,
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
-            "unit_hbm_gb": design / 1e9, "unit_hbm_ms": 1e3 * design / HBM_BYTES_PER_S,
+            "launches": launches,
+            "design_hbm_gb": design / 1e9, "design_hbm_ms": 1e3 * design / HBM_BYTES_PER_S,
+            "l2_weight_gb": l2_weights / 1e9,
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
@@ -495,8 +519,9 @@ def check_mrf(mrf_block, cases, units=(), dtype=torch.float32):
         log(f"mrf_section {row['dtype']} {label}: C={c} B={b} T={t} units {len(convs)} "
             f"max_abs_err={err:.3g} {tol} kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"cuDNN conv chain {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-            f"({row['bound_by']}), {row['bound_share']:.1%} of bound; per-unit HBM traffic "
-            f"{row['unit_hbm_gb']:.3f} GB = {row['unit_hbm_ms']:.3f} ms at 3.35 TB/s")
+            f"({row['bound_by']}), {row['bound_share']:.1%} of bound; {launches} launch(es); the "
+            f"design's HBM traffic {row['design_hbm_gb']:.3f} GB = {row['design_hbm_ms']:.3f} ms "
+            f"at 3.35 TB/s, weight stages from L2 {row['l2_weight_gb']:.3f} GB")
     return rows
 
 
@@ -822,11 +847,19 @@ def wn_stack_rows(wn_layer, shapes, gen, dtype, label):
     return stacks
 
 
-def mrf_launches_per_call(cfg) -> int:
-    """One launch per resblock unit of every stage the kernel takes (C <= 128)."""
-    kernel_stages = sum(1 for i in range(len(cfg.upsample_rates))
-                        if cfg.upsample_initial_channel // 2 ** (i + 1) <= 128)
-    return kernel_stages * sum(len(d) for d in cfg.resblock_dilation_sizes)
+def mrf_launches_per_call(cfg, dtype=torch.float32) -> int:
+    """MRF kernel launches of one generator call, over the stages the kernel
+    takes (C <= 128): one per resblock unit, except one per section where
+    the bf16 kernel runs the section plan (C <= 64)."""
+    from larynx_tpu_torch.ops.mrf_block import bf16_plan
+
+    units = sum(len(d) for d in cfg.resblock_dilation_sizes)
+    n = 0
+    for i in range(len(cfg.upsample_rates)):
+        c = cfg.upsample_initial_channel // 2 ** (i + 1)
+        if c <= 128:
+            n += 1 if dtype == torch.bfloat16 and bf16_plan(c) == "section" else units
+    return n
 
 
 @contextlib.contextmanager
@@ -1482,7 +1515,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
     if not torch.equal(leaky_relu(x.cuda()).cpu(), leaky_relu(x)):
         raise AssertionError("bf16 leaky_relu: CUDA and CPU round differently")
 
-    per_call = mrf_launches_per_call(engine("high").vocoder_cfg)
+    per_call = mrf_launches_per_call(engine("high").vocoder_cfg, torch.bfloat16)
     for label, voc, half in (("HiFi-GAN, CUDA default (bf16 vocoder)", "high", False),
                              ("WaveGlow, CUDA default (bf16 vocoder)", "waveglow", False),
                              ("HiFi-GAN, half=True", "high", True)):
@@ -3691,7 +3724,7 @@ def mesh_serving(root: Path, mrf_block, wn_layer, mesh, label, mrf_shapes, wn_sh
         if bf16 != (precision == "bf16"):
             raise AssertionError(f"mesh engine vocoder dtype {meshed.voc_dtype} under {precision}")
         ids = [j["ids"] for j in jobs]
-        per_call = mrf_launches_per_call(meshed.vocoder_cfg)
+        per_call = mrf_launches_per_call(meshed.vocoder_cfg, meshed.voc_dtype)
         kw = dict(seed=STREAM_SEED, length_scale=LENGTH_SCALE)
         routes = (("row shard, pangram x8", ids, 0.0, MESH_LSB, MESH_SHARE),
                   ("time shard, pangram", ids[:1], 0.0, WINDOW_LSB, WINDOW_SHARE),
@@ -4167,8 +4200,8 @@ def main() -> int:
     from larynx_tpu_torch.ops import build, mrf_block, wn_layer
 
     start = time.perf_counter()
-    build.build(["mrf_section", "wn_layer"])
-    for name in ("mrf_section", "wn_layer"):
+    build.build(["mrf_section", "wn_layer", "mrf_bf16"])
+    for name in ("mrf_section", "wn_layer", "mrf_bf16"):
         lines = build.BUILD_LOGS.get(name, "").splitlines()
         ptxas = sorted({line.split(":", 1)[-1].split(" for the function")[0].strip()
                         for line in lines
@@ -4194,16 +4227,20 @@ def main() -> int:
             f"{mrf_block.unit_stride(k, 2)} rows")
     log(f"wn_layer bf16: dynamic shared memory {wn_layer._library().wn_layer_smem_bytes_bf16()} "
         "bytes per block")
-    for c, k, d in ((128, 11, 5), (128, 7, 12), (64, 11, 5), (32, 11, 5), (8, 11, 5)):
-        rows = mrf_block.unit_rows(k, d)
-        got = (mrf_lib.mrf_unit_smem_bytes_bf16(c, rows), mrf_lib.mrf_unit_b_stages_bf16(c, rows))
-        want = (mrf_block.unit_smem_bytes(c, rows, torch.bfloat16),
-                mrf_block.unit_b_stages(c, rows, torch.bfloat16))
+    # the bf16 kernel's own geometry against ops/mrf_block.py's mirror: the
+    # unit plan's widest units at C=128, the section plan at C <= 64
+    for c, (ks, dils, cpu) in ((128, ((11,), ((5,),), 2)), (128, ((7,), ((12,),), 1)), (64, R1),
+                               (32, R1), (8, R1), (64, R2)):
+        got = mrf_block.bf16_geometry(mrf_block.MRFStage(None, None, None, ks, dils, cpu), c)
+        r, s, p = mrf_block.bf16_tile(c, ks, dils, cpu)
+        want = [r, s, p, mrf_block.bf16_ring_stages(c, r, p), mrf_block.bf16_smem_bytes(c, r, p),
+                int(mrf_block.bf16_fits(c, r, p))]
         if got != want:
-            raise AssertionError(f"mrf_section bf16 (C={c}, k={k}, d={d}): kernel smem and ring "
-                                 f"{got}, ops/mrf_block.py mirrors {want}")
-        log(f"mrf_section bf16: unit (k={k}, d={d}) at C={c}: dynamic shared memory {got[0]} bytes "
-            f"per block, {got[1]}-stage weight ring")
+            raise AssertionError(f"mrf_bf16 (C={c}, k={ks}, d={dils}): kernel geometry {got}, "
+                                 f"ops/mrf_block.py mirrors {want}")
+        log(f"mrf_bf16 {mrf_block.bf16_plan(c)} plan, C={c}, k={ks}, d={dils}: {r} output rows "
+            f"a block, halo {s}, {p} buffer rows, {got[3]}-stage weight ring, dynamic shared "
+            f"memory {got[4]} bytes per block")
 
     # plain references and the main path run in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -4222,7 +4259,12 @@ def main() -> int:
             ("vctk_medium stage 4 (C=8, inputs padded to 16), 512-frame mel", 8, R1, 8, 131072,
              False),
             ("vctk_small stage 1, 512-frame mel", 128, R2, 8, 4096, False),
+            ("ResBlock2 section (vctk_small's dilations)", 64, R2, 8, 32768, False),
             ("ragged T", 128, R1, 2, 1000, False),
+            ("ragged T, 13 tiles", 64, R1, 3, 256 * 13 - 50, False),
+            ("ragged T, 13 tiles", 32, R1, 3, 256 * 13 - 50, False),
+            ("T under one tile", 32, R1, 2, 100, False),
+            ("T under one tile, ResBlock2", 64, R2, 2, 100, False),
         ]
         bf16_rows = check_mrf(mrf_block, bf16_cases, dtype=torch.bfloat16)
         bf16_wn_rows, bf16_wn_stacks = check_wn(wn_layer, wg_shapes, dtype=torch.bfloat16)
@@ -4369,7 +4411,7 @@ def main() -> int:
                              **{k: v for k, v in trained2["launches"].items()
                                 if "waveglow" not in k},
                              **{k: v for k, v in meshed["launches"].items()
-                                if "waveglow" not in k}},
+                                if "waveglow" not in k and "bf16" not in k}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # the main path's generator call(s) without the denoiser: stages 2-4
         "ms": sum(r["ms"] for r in main_rows),
@@ -4415,19 +4457,20 @@ def main() -> int:
     if any(r["bound_by"] != "operations" for r in wn_rows + wn_stacks):
         raise AssertionError("expected the WN layer to be bound by operations")
 
-    # the bf16 instantiations: the same sources and TPU sites; bound_by from
-    # the main rows' summed operations and bytes (small rows may be bound by
-    # bytes at the bf16 peak)
+    # the bf16 kernels: the MRF section's own source (csrc/mrf_bf16.cu), the
+    # WN layer's bf16 instantiation; bound_by from the main rows' summed
+    # operations and bytes (small rows may be bound by bytes at the bf16 peak)
     bf16_main = [r for r in bf16_rows if r["main_path"]]
     kernels.append(kernel_entry(
-        "mrf_section (bf16)", "larynx_tpu_torch/csrc/mrf_section.cu",
+        "mrf_section (bf16)", "larynx_tpu_torch/csrc/mrf_bf16.cu",
         "larynx_tpu/ops/mrf_block.py:272; larynx_tpu/ops/mrf_block.py:382",
         bf16["launches"]["high"],
         {"text_to_speech, pangram x8, CUDA default": bf16["launches"]["high"],
          "text_to_speech, pangram x8, half=True": bf16["launches"]["half"],
          "stream_text_to_speech, pangram, CUDA default": bf16["launches"]["stream"],
          "stream_text_to_speech, pangram, half=True": bf16["launches"]["stream half"],
-         "cli --half, pangram WAV": bf16["launches"]["cli --half"]},
+         "cli --half, pangram WAV": bf16["launches"]["cli --half"],
+         **{k: v for k, v in meshed["launches"].items() if "bf16" in k}},
         bf16_rows, bf16_main))
     bf16_stack_of = {(r["B"], r["T"]): r for r in bf16_wn_stacks}
     kernels.append(kernel_entry(

@@ -1,12 +1,13 @@
 // One resblock unit of a HiFi-GAN multi-receptive-field (MRF) section for
-// Hopper (sm_90a), f32 or bf16: wgmma from shared memory, weights by TMA.
+// Hopper (sm_90a) in f32: wgmma from shared memory, weights by TMA.  (The
+// bf16 section is csrc/mrf_bf16.cu.)
 //
 // Replaces both TPU kernels of larynx_tpu/ops/mrf_block.py:
 //   K1  fused_mrf, dense branch      (_make_kernel,        pallas_call at :272)
 //   K2  _fused_mrf_packed, C < 128   (_make_packed_kernel, pallas_call at :382)
 // K2's time packing only fills the TPU's 128 lanes; here one kernel,
-// templated on the element type (f32, bf16), on C in {8, 16, 32, 64, 128}
-// and on convs_per_unit in {1, 2}, takes every width.  The section runs as
+// templated on C in {8, 16, 32, 64, 128} and on convs_per_unit in {1, 2},
+// takes every width.  The section runs as
 // one launch per resblock unit (ops/mrf_block.py::mrf_section, 9 per
 // universal_large stage):
 //   ResBlock1 (convs_per_unit=2): h_new = h + conv_k(lrelu(conv_{k,d}(lrelu(h))))
@@ -17,19 +18,10 @@
 // chain's last unit, into the section's output: out = h_new (first chain),
 // out = out + h_new (later chains), times 1/n_chains on the last chain.
 //
-// bf16 (the JAX engine's vocoder precision on an accelerator) follows the
-// Pallas kernel's rounding points (mrf_block.py:105-148): each conv sums in
-// f32, adds its bias, is zeroed outside [0, T) and rounded to bf16; the
-// leaky-ReLU multiplies by bf16(0.1) and rounds (:51-58); h + conv is
-// rounded to bf16; the chain sum stays f32 (a [B, T, C] f32 buffer,
-// `total`) until the last chain's unit rounds total / n_chains once.
-//
 // What bounds it: operations.  A unit costs 2 * C^2 * k * convs FLOPs per
-// time step against 2-3 * C * 4 (bf16: 2) bytes of activation I/O (~700
-// FLOP/byte at C=128, k=11, f32).  In f32 each product runs as three TF32
-// tensor-core products (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, f32
-// accumulate); in bf16 it is one product at the dense bf16 rate.  The
-// design:
+// time step against 2-3 * C * 4 bytes of activation I/O (~700 FLOP/byte at
+// C=128, k=11).  Each product runs as three TF32 tensor-core products
+// (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, f32 accumulate).  The design:
 //
 //   * one block per (time tile, batch row): a producer warpgroup and two
 //     consumer warpgroups.  The first conv computes M = 128 rows (64 per
@@ -39,25 +31,25 @@
 //     carried a 60-row halo on a 96-row tile (~1.5x).
 //   * A operands: the raw input tile, M + (k - 1) * d rows, arrives once by
 //     TMA from a 3-D tensor map [B, T, C], one box of 16 bytes of channels
-//     (4 f32 or 8 bf16) x all rows per channel group, so shared memory
+//     (4 f32) x all rows per channel group, so shared memory
 //     holds it channel-group-major ([C/g][rows][g]): the hardware's zero
 //     fill is the conv's padding at both ends, never reading the
 //     neighbouring batch row.  All 384 threads then apply lrelu once, in
-//     place, and in f32 split it into exact TF32 hi and lo planes (lrelu(0)
+//     place, and split it into exact TF32 hi and lo planes (lrelu(0)
 //     = 0, so no mask).  In that layout a row is 16 bytes, so tap j's A
 //     operand, the tile shifted by j * d rows, is a wgmma descriptor 16 * j
 //     * d bytes further (K-major, no swizzle, core matrices of 8 contiguous
 //     rows, the two 16-byte K halves of a k-step one channel-group plane
-//     apart): no copy and no split per tap.  A k-step is 32 bytes of K in
-//     both types (8 TF32 or 16 bf16 values).
+//     apart): no copy and no split per tap.  A k-step is 32 bytes of K
+//     (8 TF32 values).
 //   * B operands (weights) are packed once at load (ops/mrf_block.py::
 //     pack_stages) in wgmma core-matrix order, one stage per k-step, i.e.
 //     per (tap, 8 input channels) as exact TF32 hi and lo planes (8 KB at
-//     C=128) or per (tap, 16 input channels) as one bf16 plane (4 KB).  One
+//     C=128).  One
 //     producer thread streams them by bulk TMA into an mbarrier ring as deep
-//     as the shared memory left allows (f32: 5 stages at C=128, k=11, d=5).
+//     as the shared memory left allows (5 stages at C=128, k=11, d=5).
 //   * the first conv's output goes from registers, zeroed outside [0, T),
-//     through lrelu (and in f32 the TF32 split) into the same layout over
+//     through lrelu and the TF32 split into the same layout over
 //     the raw tile's (both consumers are done reading it by then): the
 //     second conv's A operand.  Its residual is read back from global
 //     memory (L2) in the epilogue.
@@ -69,8 +61,7 @@
 //
 // Shared memory at C=128, (k, d) = (11, 5), f32: tile planes 2 x 184 x 512
 // B = 184 KB, weight ring 5 x 8 KB: 226 KB of the 227 KB a block can have;
-// ResBlock2's widest unit, (7, 12), has 200 rows and a 3-stage ring.  In
-// bf16 the tile is 46 KB and the ring 16 x 4 KB.
+// ResBlock2's widest unit, (7, 12), has 200 rows and a 3-stage ring.
 
 #include "sm90.cuh"
 
@@ -85,61 +76,41 @@ constexpr int kMaxRows = 256;         // raw tile rows: the TMA box limit
 constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block can have
 constexpr size_t kPairSmem = 115712;  // ... two blocks of an SM can have each
 constexpr float kSlope = 0.1f;
-constexpr float kSlopeBf16 = 0.10009765625f;  // bf16(0.1), JAX's slope in bf16
+constexpr int kStep = 8;              // K per wgmma k-step: 32 bytes of TF32
+constexpr int kGroup = 4;             // channels per 16-byte channel group of the tile
 
 enum Mode { kToScratch = 0, kOutStore = 1, kOutAdd = 2 };
 
 __host__ __device__ constexpr int pad8(int rows) { return (rows + 7) & ~7; }
 
-// operand planes of one value: TF32 hi and lo (f32), or the value (bf16)
-template <typename E>
-__host__ __device__ constexpr int planes() { return is_f32<E>() ? 2 : 1; }
+// one weight stage: (tap, one k-step of input channels) x C outputs, TF32
+// hi and lo planes
+template <int C>
+__host__ __device__ constexpr int b_bytes() { return 2 * kStep * C * 4; }
 
-// K per wgmma k-step: 32 bytes of the element type
-template <typename E>
-__host__ __device__ constexpr int kstep() { return 32 / (int)sizeof(E); }
-
-// channels per 16-byte channel group of the tile
-template <typename E>
-__host__ __device__ constexpr int cgroup() { return 16 / (int)sizeof(E); }
-
-// input channels that the k-steps span: C, zero-padded to one k-step
-// (bf16 at C=8: 16, the second 8 a zero plane and zero weights)
-template <typename E, int C>
-__host__ __device__ constexpr int kchannels() { return C < kstep<E>() ? kstep<E>() : C; }
-
-// one weight stage: (tap, one k-step of input channels) x C outputs, every plane
-template <typename E, int C>
-__host__ __device__ constexpr int b_bytes() { return planes<E>() * kstep<E>() * C * (int)sizeof(E); }
-
-// the tile's planes, [CK/g][pad8(rows)][g] each
-template <typename E, int C>
+// the tile's TF32 hi and lo planes, [C/4][pad8(rows)][4] each
+template <int C>
 __host__ __device__ constexpr size_t a_bytes(int rows) {
-  return (size_t)planes<E>() * pad8(rows) * kchannels<E, C>() * sizeof(E);
+  return (size_t)2 * pad8(rows) * C * 4;
 }
 
 // weight ring depth: as deep as the block's shared memory allows (at
 // C <= 64 within half an SM where 4 stages still fit), at most kMaxBStages
-template <typename E, int C>
+template <int C>
 constexpr int b_stages(int rows) {
-  const size_t fixed = 1024 + a_bytes<E, C>(rows) + 8 * kBars;
-  const size_t budget =
-      C <= 64 && fixed + 4 * b_bytes<E, C>() <= kPairSmem ? kPairSmem : kMaxSmem;
+  const size_t fixed = 1024 + a_bytes<C>(rows) + 8 * kBars;
+  const size_t budget = C <= 64 && fixed + 4 * b_bytes<C>() <= kPairSmem ? kPairSmem : kMaxSmem;
   if (fixed > budget) return 0;
-  const size_t n = (budget - fixed) / b_bytes<E, C>();
+  const size_t n = (budget - fixed) / b_bytes<C>();
   return n < kMaxBStages ? (int)n : kMaxBStages;
 }
 
-template <typename E, int C>
+template <int C>
 constexpr size_t smem_bytes(int rows) {
-  return 1024 + a_bytes<E, C>(rows) + 8 * kBars + (size_t)b_stages<E, C>(rows) * b_bytes<E, C>();
+  return 1024 + a_bytes<C>(rows) + 8 * kBars + (size_t)b_stages<C>(rows) * b_bytes<C>();
 }
 
 __device__ __forceinline__ float lrelu(float a) { return fmaxf(a, kSlope * a); }
-
-// JAX's bf16 leaky-ReLU of a bf16 value, before its rounding to bf16:
-// x, or x * bf16(0.1)
-__device__ __forceinline__ float lrelu_bf16(float a) { return a >= 0.0f ? a : a * kSlopeBf16; }
 
 // wgmma descriptor of a K-major operand without swizzle whose 8-row core
 // matrices are contiguous (stride byte offset 128) and whose two K halves
@@ -149,45 +120,35 @@ __device__ __forceinline__ uint64_t desc_rows(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(128 >> 4) << 32);
 }
 
-// acc += a * b for one k-step: f32 as (a_hi + a_lo) * (b_hi + b_lo) less
-// the a_lo * b_lo term, bf16 as one product
-template <typename E, int N>
+// acc += a * b for one k-step, as (a_hi + a_lo) * (b_hi + b_lo) less the
+// a_lo * b_lo term
+template <int N>
 __device__ __forceinline__ void mma_step(float (&d)[N / 2], uint32_t a_hi, uint32_t a_lo,
                                          uint32_t lbo, uint32_t b_hi, uint32_t b_lo) {
-  if constexpr (is_f32<E>()) {
-    wgmma_tf32<N>(d, desc_rows(a_lo, lbo), desc_kmajor(b_hi));
-    wgmma_tf32<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_lo));
-    wgmma_tf32<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_hi));
-  } else {
-    wgmma_bf16<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_hi));
-  }
+  wgmma_tf32<N>(d, desc_rows(a_lo, lbo), desc_kmajor(b_hi));
+  wgmma_tf32<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_lo));
+  wgmma_tf32<N>(d, desc_rows(a_hi, lbo), desc_kmajor(b_hi));
 }
 
 __device__ __forceinline__ void named_sync_consumers() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
 }
 
-// `total` (bf16 only): the f32 chain sum.  `last`: the unit ends the last
-// chain (bf16: writes dst = total / n_chains rounded, `scale` = 1/n_chains,
-// `denom` = n_chains).
-template <typename E, int C, int CPU>
+template <int C, int CPU>
 __global__ void __launch_bounds__(kThreads, C <= 64 ? 2 : 1)
-mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict__ h_in,
-                const E* __restrict__ wpack, const E* __restrict__ bias, E* __restrict__ dst,
-                float* __restrict__ total, int T, int k, int d, int rows, int depth, int mode,
-                int last, float scale, float denom) {
-  constexpr int B_BYTES = b_bytes<E, C>();
-  constexpr int G = cgroup<E>();
-  constexpr int KS = kstep<E>();
-  constexpr int CK = kchannels<E, C>();
+mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const float* __restrict__ h_in,
+                const float* __restrict__ wpack, const float* __restrict__ bias,
+                float* __restrict__ dst, int T, int k, int d, int rows, int depth, int mode,
+                float scale) {
+  constexpr int B_BYTES = b_bytes<C>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_s = smem_u32(smem_raw);
   const uint32_t base = (raw_s + 1023) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw_s);
   const int rp = pad8(rows);                        // row pitch of a channel-group plane
   const uint32_t plane = rp * 16;                   // bytes of one channel-group plane
-  const uint32_t a_hi = base, a_lo = base + (CK / G) * plane;  // a_lo: f32 only
-  const uint32_t b_ring = base + static_cast<uint32_t>(a_bytes<E, C>(rows));
+  const uint32_t a_hi = base, a_lo = base + (C / kGroup) * plane;
+  const uint32_t b_ring = base + static_cast<uint32_t>(a_bytes<C>(rows));
   const uint32_t bars = b_ring + depth * B_BYTES;
   const uint32_t raw_full = bars;
   auto full_b = [&](int i) { return bars + 8 * (1 + i); };
@@ -198,7 +159,7 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
   const int t0 = blockIdx.x * stride;
   const int o0 = CPU == 2 ? t0 - half : t0;         // position of the first conv's row 0
   const int batch = blockIdx.y;
-  const int steps = k * (CK / KS);                  // k-steps (and weight stages) per conv
+  const int steps = k * (C / kStep);                // k-steps (and weight stages) per conv
   const int total_steps = CPU * steps;
   const int wg = threadIdx.x / 128;
 
@@ -216,23 +177,22 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
   uint32_t bp = 0;
   auto load_b = [&](int s) {
     mbar_expect_tx(full_b(bs), B_BYTES);
-    bulk_load(b_ring + bs * B_BYTES, wpack + static_cast<size_t>(s) * (B_BYTES / sizeof(E)),
-              B_BYTES, full_b(bs));
+    bulk_load(b_ring + bs * B_BYTES, wpack + static_cast<size_t>(s) * (B_BYTES / 4), B_BYTES,
+              full_b(bs));
     if (++bs == depth) { bs = 0; bp ^= 1; }
   };
   const int first = depth < total_steps ? depth : total_steps;
   if (threadIdx.x == 0) {
     // the raw tile, input rows from o0 - half * d, one box per channel group
-    mbar_expect_tx(raw_full, rows * C * sizeof(E));
-    for (int q = 0; q < C / G; ++q)
-      tma_load_3d(a_hi + q * plane, &tmap_in, raw_full, G * q, o0 - half * d, batch);
+    mbar_expect_tx(raw_full, rows * C * 4);
+    for (int q = 0; q < C / kGroup; ++q)
+      tma_load_3d(a_hi + q * plane, &tmap_in, raw_full, kGroup * q, o0 - half * d, batch);
     for (int s = 0; s < first; ++s) load_b(s);  // the ring is empty: no waits
   }
 
-  // every thread: the raw tile -> lrelu, in place (f32: TF32 hi in place
-  // and a lo plane)
+  // every thread: the raw tile -> lrelu, TF32 hi in place and a lo plane
   mbar_wait(raw_full, 0);
-  if constexpr (is_f32<E>()) {
+  {
     float4* hi = reinterpret_cast<float4*>(smem);
     float4* lo = reinterpret_cast<float4*>(smem + (a_lo - base));
 #pragma unroll 4
@@ -243,13 +203,6 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
       hi[u] = ah;
       lo[u] = make_float4(to_tf32(a.x - ah.x), to_tf32(a.y - ah.y), to_tf32(a.z - ah.z),
                           to_tf32(a.w - ah.w));
-    }
-  } else {
-    __nv_bfloat162* t2 = reinterpret_cast<__nv_bfloat162*>(smem);
-#pragma unroll 4
-    for (int u = threadIdx.x; u < (CK / 2) * rp; u += kThreads) {
-      const float2 x = u < (C / 2) * rp ? __bfloat1622float2(t2[u]) : make_float2(0.0f, 0.0f);
-      t2[u] = __floats2bfloat162_rn(lrelu_bf16(x.x), lrelu_bf16(x.y));
     }
   }
   fence_proxy_async();
@@ -284,17 +237,17 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
       acc[4 * i] = bv.x; acc[4 * i + 1] = bv.y; acc[4 * i + 2] = bv.x; acc[4 * i + 3] = bv.y;
     }
     fence_acc(acc);
-    // k-step s: tap s / (CK/KS), channels [KS * (s % (CK/KS)), +KS); one
-    // group of products in flight while the next is issued, a weight
-    // stage released once its group is done
+    // k-step s: tap s / (C/8), channels [8 * (s % (C/8)), +8); one group of
+    // products in flight while the next is issued, a weight stage released
+    // once its group is done
     int prev = 0;
     for (int s = 0; s < steps; ++s) {
-      const int tap = s / (CK / KS), ks = s % (CK / KS);
+      const int tap = s / (C / kStep), ks = s % (C / kStep);
       mbar_wait(full_b(cs), cp);
       const uint32_t a = 2 * ks * plane + (tap * dd + 64 * c) * 16;
       const uint32_t b = b_ring + cs * B_BYTES;
       wgmma_fence();
-      mma_step<E, C>(acc, a_hi + a, a_lo + a, plane, b, b + B_BYTES / 2);
+      mma_step<C>(acc, a_hi + a, a_lo + a, plane, b, b + B_BYTES / 2);
       wgmma_commit();
       wgmma_wait<1>();
       if (s > 0 && leader) mbar_arrive(empty_b(prev));
@@ -316,21 +269,13 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
 #pragma unroll
         for (int i = 0; i < C / 8; ++i) {
           const int ch = 8 * i + 2 * t;
-          const uint32_t off = (ch / G) * plane + row * 16 + (ch % G) * sizeof(E);
-          if constexpr (is_f32<E>()) {
-            const float x0 = inside ? lrelu(acc[4 * i + 2 * hr]) : 0.0f;
-            const float x1 = inside ? lrelu(acc[4 * i + 2 * hr + 1]) : 0.0f;
-            const float h0 = to_tf32(x0), h1 = to_tf32(x1);
-            *reinterpret_cast<float2*>(smem + off) = make_float2(h0, h1);
-            *reinterpret_cast<float2*>(smem + (a_lo - base) + off) =
-                make_float2(to_tf32(x0 - h0), to_tf32(x1 - h1));
-          } else {
-            // the conv's output rounded to bf16, then the bf16 lrelu
-            const float2 y = inside ? round_to<E>(make_float2(acc[4 * i + 2 * hr],
-                                                              acc[4 * i + 2 * hr + 1]))
-                                    : make_float2(0.0f, 0.0f);
-            store2(reinterpret_cast<E*>(smem + off), make_float2(lrelu_bf16(y.x), lrelu_bf16(y.y)));
-          }
+          const uint32_t off = (ch / kGroup) * plane + row * 16 + (ch % kGroup) * 4;
+          const float x0 = inside ? lrelu(acc[4 * i + 2 * hr]) : 0.0f;
+          const float x1 = inside ? lrelu(acc[4 * i + 2 * hr + 1]) : 0.0f;
+          const float h0 = to_tf32(x0), h1 = to_tf32(x1);
+          *reinterpret_cast<float2*>(smem + off) = make_float2(h0, h1);
+          *reinterpret_cast<float2*>(smem + (a_lo - base) + off) =
+              make_float2(to_tf32(x0 - h0), to_tf32(x1 - h1));
         }
       }
       fence_proxy_async();
@@ -350,33 +295,16 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
     for (int i = 0; i < C / 8; ++i) {
       const size_t e = e0 + 8 * i + 2 * t;
       const float2 hv = ldg2(h_in + e);
-      const float2 cv = round_to<E>(make_float2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]));
-      const float2 v = round_to<E>(make_float2(hv.x + cv.x, hv.y + cv.y));
+      const float2 v = make_float2(hv.x + acc[4 * i + 2 * hr], hv.y + acc[4 * i + 2 * hr + 1]);
       if (mode == kToScratch) {
         store2(dst + e, v);
-      } else if constexpr (is_f32<E>()) {
+      } else {
         float2 o = v;
         if (mode == kOutAdd) {
           const float2 old = load2(dst + e);
           o = make_float2(old.x + v.x, old.y + v.y);
         }
         store2(dst + e, make_float2(o.x * scale, o.y * scale));
-      } else {
-        float2 s = v;  // the f32 chain sum
-        if (mode == kOutAdd) {
-          const float2 old = load2(total + e);
-          s = make_float2(old.x + v.x, old.y + v.y);
-        }
-        if (last) {
-          // s / n_chains, rounded once: the quotient by the reciprocal,
-          // corrected by its exact remainder (no division subroutine)
-          float qx = s.x * scale, qy = s.y * scale;
-          qx = fmaf(fmaf(-qx, denom, s.x), scale, qx);
-          qy = fmaf(fmaf(-qy, denom, s.y), scale, qy);
-          store2(dst + e, make_float2(qx, qy));
-        } else {
-          store2(total + e, s);
-        }
       }
     }
   }
@@ -386,97 +314,77 @@ mrf_unit_kernel(const __grid_constant__ CUtensorMap tmap_in, const E* __restrict
 
 // [B, T, C] -> a map whose box is 16 bytes of channels x `rows` steps of one
 // batch row (rows x 16 bytes in shared memory), zero outside the tensor
-template <typename E>
-bool encode_input(CUtensorMap* map, const E* base, int C, int T, int B, int rows) {
+bool encode_input(CUtensorMap* map, const float* base, int C, int T, int B, int rows) {
   auto encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(E), (cuuint64_t)C * sizeof(E) * T};
-  const cuuint32_t box[3] = {(cuuint32_t)cgroup<E>(), (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 4, (cuuint64_t)C * 4 * T};
+  const cuuint32_t box[3] = {(cuuint32_t)kGroup, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, tensor_map_type<E>(), 3, const_cast<E*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct UnitArgs {
-  const void* h_in;
-  const void* wpack;
-  const void* bias;
-  void* dst;
-  float* total;
-  int B, T, k, d, mode, last;
+  const float* h_in;
+  const float* wpack;
+  const float* bias;
+  float* dst;
+  int B, T, k, d, mode;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename E, int C, int CPU>
+template <int C, int CPU>
 int launch(const UnitArgs& a) {
   const int rows = kM + (a.k - 1) * a.d;
-  const int depth = b_stages<E, C>(rows);
-  const size_t smem = smem_bytes<E, C>(rows);
+  const int depth = b_stages<C>(rows);
+  const size_t smem = smem_bytes<C>(rows);
   if (rows > kMaxRows || depth < 2 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const E* h_in = static_cast<const E*>(a.h_in);
   CUtensorMap map;
-  if (!encode_input<E>(&map, h_in, C, a.T, a.B, rows)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mrf_unit_kernel<E, C, CPU>,
+  if (!encode_input(&map, a.h_in, C, a.T, a.B, rows)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(mrf_unit_kernel<C, CPU>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int stride = CPU == 2 ? kM - (a.k - 1) : kM;
   const dim3 grid((a.T + stride - 1) / stride, a.B);
-  const float denom = nearbyintf(1.0f / a.scale);
-  mrf_unit_kernel<E, C, CPU><<<grid, kThreads, smem, a.stream>>>(
-      map, h_in, static_cast<const E*>(a.wpack), static_cast<const E*>(a.bias),
-      static_cast<E*>(a.dst), a.total, a.T, a.k, a.d, rows, depth, a.mode, a.last, a.scale, denom);
+  mrf_unit_kernel<C, CPU><<<grid, kThreads, smem, a.stream>>>(
+      map, a.h_in, a.wpack, a.bias, a.dst, a.T, a.k, a.d, rows, depth, a.mode, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename E, int CPU>
+template <int CPU>
 int dispatch_c(int C, const UnitArgs& a) {
   switch (C) {
-    case 8: return launch<E, 8, CPU>(a);
-    case 16: return launch<E, 16, CPU>(a);
-    case 32: return launch<E, 32, CPU>(a);
-    case 64: return launch<E, 64, CPU>(a);
-    case 128: return launch<E, 128, CPU>(a);
+    case 8: return launch<8, CPU>(a);
+    case 16: return launch<16, CPU>(a);
+    case 32: return launch<32, CPU>(a);
+    case 64: return launch<64, CPU>(a);
+    case 128: return launch<128, CPU>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename E>
-int unit(const UnitArgs& a, int C, int convs_per_unit) {
-  if (a.B < 1 || a.B > 65535 || a.T < 1 || a.k < 1 || a.k % 2 == 0 || a.d < 1 ||
-      a.mode < kToScratch || a.mode > kOutAdd || !(a.scale > 0.0f))
-    return (int)cudaErrorInvalidValue;
-  if (convs_per_unit == 2) {
-    if (a.k - 1 >= kM) return (int)cudaErrorInvalidValue;
-    return dispatch_c<E, 2>(C, a);
-  }
-  if (convs_per_unit == 1) return dispatch_c<E, 1>(C, a);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename E>
 long long smem_of(int C, int rows) {
   switch (C) {
-    case 8: return (long long)smem_bytes<E, 8>(rows);
-    case 16: return (long long)smem_bytes<E, 16>(rows);
-    case 32: return (long long)smem_bytes<E, 32>(rows);
-    case 64: return (long long)smem_bytes<E, 64>(rows);
-    case 128: return (long long)smem_bytes<E, 128>(rows);
+    case 8: return (long long)smem_bytes<8>(rows);
+    case 16: return (long long)smem_bytes<16>(rows);
+    case 32: return (long long)smem_bytes<32>(rows);
+    case 64: return (long long)smem_bytes<64>(rows);
+    case 128: return (long long)smem_bytes<128>(rows);
     default: return 0;
   }
 }
 
-template <typename E>
 int stages_of(int C, int rows) {
   switch (C) {
-    case 8: return b_stages<E, 8>(rows);
-    case 16: return b_stages<E, 16>(rows);
-    case 32: return b_stages<E, 32>(rows);
-    case 64: return b_stages<E, 64>(rows);
-    case 128: return b_stages<E, 128>(rows);
+    case 8: return b_stages<8>(rows);
+    case 16: return b_stages<16>(rows);
+    case 32: return b_stages<32>(rows);
+    case 64: return b_stages<64>(rows);
+    case 128: return b_stages<128>(rows);
     default: return 0;
   }
 }
@@ -487,38 +395,28 @@ extern "C" {
 
 // Dynamic shared memory of a block whose raw tile holds `rows` steps, and
 // its weight ring's depth; 0 for an unsupported C.
-long long mrf_unit_smem_bytes(int C, int rows) { return smem_of<float>(C, rows); }
-int mrf_unit_b_stages(int C, int rows) { return stages_of<float>(C, rows); }
-long long mrf_unit_smem_bytes_bf16(int C, int rows) { return smem_of<__nv_bfloat16>(C, rows); }
-int mrf_unit_b_stages_bf16(int C, int rows) { return stages_of<__nv_bfloat16>(C, rows); }
+long long mrf_unit_smem_bytes(int C, int rows) { return smem_of(C, rows); }
+int mrf_unit_b_stages(int C, int rows) { return stages_of(C, rows); }
 
-// One resblock unit, f32: h_in, dst [B, T, C]; wpack: the unit's convs as
-// TF32 hi/lo weight stages (ops/mrf_block.py::pack_stages); bias [convs, C].
+// One resblock unit: h_in, dst [B, T, C]; wpack: the unit's convs as TF32
+// hi/lo weight stages (ops/mrf_block.py::pack_stages); bias [convs, C].
 // mode 0 writes h_new to dst; mode 1 writes h_new * scale; mode 2 writes
 // (dst + h_new) * scale.  dst must not alias h_in.
 // Returns the CUDA error code of the launch (0 on success).
 int mrf_unit_f32(const float* h_in, const float* wpack, const float* bias, float* dst, int B,
                  int T, int C, int convs_per_unit, int k, int d, int mode, float scale,
                  void* stream) {
-  const UnitArgs a{h_in, wpack, bias, dst, nullptr, B, T, k, d, mode, 0, scale,
+  const UnitArgs a{h_in, wpack, bias, dst, B, T, k, d, mode, scale,
                    static_cast<cudaStream_t>(stream)};
-  return unit<float>(a, C, convs_per_unit);
-}
-
-// One resblock unit, bf16: h_in, dst [B, T, C] bf16; wpack: bf16 weight
-// stages (pack_stages); bias [convs, C] bf16; total [B, T, C] f32, the
-// section's chain sum.  mode 0 writes h_new to dst; mode 1 stores h_new and
-// mode 2 adds it into total, or, when `last`, writes (h_new or total +
-// h_new) * scale to dst, rounded once (scale = 1/n_chains).  dst must not
-// alias h_in.  Returns the CUDA error code of the launch (0 on success).
-int mrf_unit_bf16(const void* h_in, const void* wpack, const void* bias, void* dst, float* total,
-                  int B, int T, int C, int convs_per_unit, int k, int d, int mode, int last,
-                  float scale, void* stream) {
-  if (mode != kToScratch && !total && !(mode == kOutStore && last))
+  if (a.B < 1 || a.B > 65535 || a.T < 1 || a.k < 1 || a.k % 2 == 0 || a.d < 1 ||
+      a.mode < kToScratch || a.mode > kOutAdd || !(a.scale > 0.0f))
     return (int)cudaErrorInvalidValue;
-  const UnitArgs a{h_in, wpack, bias, dst, total, B, T, k, d, mode, last, scale,
-                   static_cast<cudaStream_t>(stream)};
-  return unit<__nv_bfloat16>(a, C, convs_per_unit);
+  if (convs_per_unit == 2) {
+    if (a.k - 1 >= kM) return (int)cudaErrorInvalidValue;
+    return dispatch_c<2>(C, a);
+  }
+  if (convs_per_unit == 1) return dispatch_c<1>(C, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* mrf_section_error_string(int code) {

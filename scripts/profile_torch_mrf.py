@@ -2,7 +2,8 @@
 """Profile the port's MRF kernel (larynx_tpu_torch/csrc/mrf_section.cu) on one GPU.
 
     python3 scripts/profile_torch_mrf.py [--repo DIR] [--label NAME]
-    python3 scripts/profile_torch_mrf.py --hifigan [--repo DIR] [--label NAME]
+    python3 scripts/profile_torch_mrf.py --hifigan [--bf16] [--repo DIR] [--label NAME]
+    python3 scripts/profile_torch_mrf.py --bf16 [--repo DIR] [--label NAME]
 
 The default mode runs ``mrf_section`` at the HiFi-GAN main path's three
 shapes (universal_large stages 2-4 of 8 rows x 1024 mel frames: C=128,
@@ -19,7 +20,17 @@ frames, random weights), 3 calls after a warm-up: CUDA events around each
 phase (conv_pre, each stage's transposed conv, stage 1's resblocks in
 cuDNN, each MRF section, conv_post; the rest, elementwise lrelu and tanh,
 is the window less the phases), then ``torch.profiler``: the device's busy
-share over the window and the device time of every kernel by name.
+share over the window and the device time of every kernel by name; with
+``--bf16``, the call in bf16 as the CUDA default runs it (params and mel
+cast to bf16).
+``--bf16`` checks and times the bf16 kernel (csrc/mrf_bf16.cu): its
+geometry against ops/mrf_block.py's mirror, then every case of
+``BF16_CASES`` (the main path's three sections, the stream's one-row
+windows, ragged and short T, ResBlock2, C = 8 and 16) against the plain
+bf16 version (at most 2 bf16 ULPs of the output's scale), the main and
+stream cases timed (mean of 10 after a warm-up) with their bound; each
+case runs in a child process with a time limit, so a fault ends the case
+and not the run.
 ``--repo`` profiles the package of another checkout (an older commit
 unpacked with git archive), so two versions can be compared in one call.
 """
@@ -35,7 +46,27 @@ import torch
 
 TF32_PEAK_FLOPS = 495e12
 TF32_PER_F32 = 3
+BF16_PEAK_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
 R1 = ((3, 7, 11), ((1, 3, 5),) * 3, 2)  # universal_large: ResBlock1
+R2 = ((3, 5, 7), ((1, 2), (2, 6), (3, 12)), 1)  # vctk_small: ResBlock2
+BF16_CASES = (  # (label, C, geometry, B, T, timed)
+    ("main path, stage 2", 128, R1, 8, 65536, True),
+    ("main path, stage 3", 64, R1, 8, 131072, True),
+    ("main path, stage 4", 32, R1, 8, 262144, True),
+    ("stream chunk, stage 2", 128, R1, 1, 5888, True),
+    ("stream chunk, stage 3", 64, R1, 1, 11776, True),
+    ("stream chunk, stage 4", 32, R1, 1, 23552, True),
+    ("ragged T, 13 tiles", 64, R1, 3, 256 * 13 - 50, False),
+    ("ragged T, 13 tiles", 32, R1, 3, 256 * 13 - 50, False),
+    ("ragged T, 13 blocks", 128, R1, 3, 246 * 13 - 50, False),
+    ("T under one tile", 32, R1, 2, 100, False),
+    ("T under one tile, ResBlock2", 64, R2, 2, 100, False),
+    ("T under one block, ResBlock2", 128, R2, 2, 100, False),
+    ("ResBlock2", 64, R2, 4, 32768, False),
+    ("C=16", 16, R1, 2, 5000, False),
+    ("C=8 (inputs padded to 16)", 8, R1, 8, 131072, False),
+)
 SHAPES = ((128, 65536), (64, 131072), (32, 262144))  # (C, T) of stages 2-4, B = 8
 B = 8
 
@@ -45,6 +76,8 @@ def main() -> int:
     ap.add_argument("--repo", default=".")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--hifigan", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--case", type=int, help=argparse.SUPPRESS)  # one BF16_CASES row, in a child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_mrf: no CUDA device", flush=True)
@@ -53,7 +86,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.hifigan:
-        return profile_generator(args.label)
+        return profile_generator(args.label, torch.bfloat16 if args.bf16 else torch.float32)
+    if args.case is not None:
+        return bf16_case(args.case)
+    if args.bf16:
+        return profile_bf16(args)
     from larynx_tpu_torch.ops import build, mrf_block
 
     build.build(["mrf_section"])
@@ -83,16 +120,94 @@ def main() -> int:
     return 0
 
 
-def random_stage(mrf_block, gen, c, kernel_sizes, dilations, convs_per_unit):
-    """A ResBlock1 stage packed on the card, with the init's scale."""
+def random_stage(mrf_block, gen, c, kernel_sizes, dilations, convs_per_unit,
+                 dtype=torch.float32):
+    """A stage packed on the card, with the init's scale."""
     def conv(k):
         bound = 1.0 / (c * k) ** 0.5
-        return {"w": ((torch.rand((c, c, k), generator=gen) * 2 - 1) * bound).cuda(),
-                "b": ((torch.rand(c, generator=gen) * 2 - 1) * bound).cuda()}
+        return {"w": ((torch.rand((c, c, k), generator=gen) * 2 - 1) * bound).cuda().to(dtype),
+                "b": ((torch.rand(c, generator=gen) * 2 - 1) * bound).cuda().to(dtype)}
 
-    blocks = [{"convs1": [conv(k) for _ in d], "convs2": [conv(k) for _ in d]}
-              for k, d in zip(kernel_sizes, dilations)]
+    if convs_per_unit == 2:
+        blocks = [{"convs1": [conv(k) for _ in d], "convs2": [conv(k) for _ in d]}
+                  for k, d in zip(kernel_sizes, dilations)]
+    else:
+        blocks = [{"convs": [conv(k) for _ in d]} for k, d in zip(kernel_sizes, dilations)]
     return mrf_block.pack_mrf_stage(blocks, kernel_sizes, dilations, convs_per_unit)
+
+
+def profile_bf16(args) -> int:
+    from larynx_tpu_torch.ops import build, mrf_block
+
+    build.build(["mrf_bf16"])
+    log = build.BUILD_LOGS.get("mrf_bf16", "")
+    ptxas = sorted({line.split(":", 1)[-1].strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line or "Performance Loss" in line})
+    print(json.dumps({"label": args.label, "card": smi("name,power.limit"), "ptxas": ptxas}),
+          flush=True)
+    geometry = []
+    for c, (ks, dils, cpu) in ((128, R1), (64, R1), (32, R1), (16, R1), (8, R1), (128, R2),
+                               (64, R2)):
+        stage = random_stage(mrf_block, torch.Generator().manual_seed(0), c, ks, dils, cpu,
+                             torch.bfloat16)
+        got = mrf_block.bf16_geometry(stage, c)
+        if mrf_block.bf16_plan(c) == "units":  # the kernel reports the first unit's launch
+            ks, dils = ks[:1], ((dils[0][0],),)
+        r, s, p = mrf_block.bf16_tile(c, ks, dils, cpu)
+        want = [r, s, p, mrf_block.bf16_ring_stages(c, r, p), mrf_block.bf16_smem_bytes(c, r, p),
+                int(mrf_block.bf16_fits(c, r, p))]
+        geometry.append({"C": c, "convs_per_unit": cpu, "kernel": got, "mirror": want})
+        if got != want:
+            print(json.dumps({"geometry mismatch": geometry[-1]}), flush=True)
+            return 1
+    print(json.dumps({"geometry": geometry}), flush=True)
+    failed = 0
+    for i, case in enumerate(BF16_CASES):
+        try:
+            proc = subprocess.run([sys.executable, __file__, "--repo", args.repo, "--case",
+                                   str(i)], capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            print(json.dumps({"case": case[0], "C": case[1], "timed out": 300}), flush=True)
+            failed += 1
+            continue
+        print(proc.stdout.strip() or json.dumps({"case": case[0], "C": case[1],
+                                                 "stderr": proc.stderr[-2000:]}), flush=True)
+        failed += proc.returncode != 0
+    print(json.dumps({"sass": sass_census(build.library_path("mrf_bf16"))}), flush=True)
+    return 1 if failed else 0
+
+
+def ulps_of_scale(out, ref) -> float:
+    """max |out - ref| in bf16 ULPs of ref's scale, 2^(floor(log2 max|ref|) - 7)."""
+    ref = ref.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
+    return (out.float() - ref).abs().max().item() / ulp
+
+
+def bf16_case(i) -> int:
+    from larynx_tpu_torch.ops import mrf_block
+
+    label, c, (ks, dils, cpu), b, t, timed = BF16_CASES[i]
+    gen = torch.Generator().manual_seed(i)
+    stage = random_stage(mrf_block, gen, c, ks, dils, cpu, torch.bfloat16)
+    x = torch.randn((b, t, c), generator=gen).cuda().to(torch.bfloat16)
+    mrf_block.mrf_section.launches = 0
+    out = mrf_block.mrf_section(x, stage)
+    torch.cuda.synchronize()
+    launches = mrf_block.mrf_section.launches
+    ref = mrf_block.mrf_section_plain(x, stage.w_flat, stage.b_flat, ks, dils, cpu)
+    ulps = ulps_of_scale(out, ref)
+    row = {"case": label, "C": c, "B": b, "T": t, "convs_per_unit": cpu, "launches": launches,
+           "bf16_ulps_of_scale": ulps, "finite": bool(torch.isfinite(out.float()).all())}
+    if timed:
+        taps = cpu * sum(k * len(d) for k, d in zip(ks, dils))
+        ops_ms = 1e3 * 2.0 * b * t * c * c * taps / BF16_PEAK_FLOPS
+        bytes_ms = 1e3 * 2 * (2 * b * t * c + stage.wpack.numel()) / HBM_BYTES_PER_S
+        row["ms"] = event_ms(lambda: mrf_block.mrf_section(x, stage))
+        row["bound_ms"] = max(ops_ms, bytes_ms)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(json.dumps(row), flush=True)
+    return 0 if ulps <= 2 and row["finite"] else 1
 
 
 def event_ms(fn, iters=10):
@@ -112,16 +227,16 @@ def smi(query):
                           capture_output=True, text=True).stdout.strip()
 
 
-def profile_generator(label) -> int:
+def profile_generator(label, dtype=torch.float32) -> int:
     from larynx_tpu_torch.models.hifi_gan import model as hifi
     from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
-    from larynx_tpu_torch.weights import init_params, params_from_jax, tree_to
+    from larynx_tpu_torch.weights import cast, init_params, params_from_jax, tree_to
 
     cfg = HiFiGanConfig()
     gen = torch.Generator().manual_seed(1)
     params = hifi.pack_params(
-        tree_to(params_from_jax(init_params(gen, cfg), "hifi_gan"), "cuda"), cfg)
-    mel = (torch.randn((8, 1024, 80), generator=gen) - 4.0).cuda()
+        cast(tree_to(params_from_jax(init_params(gen, cfg), "hifi_gan"), "cuda"), dtype), cfg)
+    mel = (torch.randn((8, 1024, 80), generator=gen) - 4.0).cuda().to(dtype)
 
     # CUDA events around each phase: every call of the wrapped names made
     # outside another wrapped call
@@ -194,7 +309,8 @@ def profile_generator(label) -> int:
                       if dev_us(e) > 0 and e.device_type.name == "CUDA"), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     print(json.dumps({
-        "label": label, "card": smi("name,power.limit"), "rows": 8, "frames": 1024,
+        "label": label, "card": smi("name,power.limit"), "dtype": str(dtype), "rows": 8,
+        "frames": 1024,
         "generator_ms": window_ms, "phases_ms": split,
         "profiler_window_ms": prof_window / 3, "busy_share": busy_ms / prof_window,
         "kernels_ms_per_call": [[e.key[:90], dev_us(e) / 1e3 / 3, e.count // 3]

@@ -469,7 +469,7 @@ def test_mrf_wrapper_launches_or_raises_for_cuda(monkeypatch, dtype):
     def no_plain(*args, **kwargs):
         raise AssertionError("plain version taken for a CUDA tensor")
 
-    def no_library():
+    def no_library(*args):  # the float32 or the bfloat16 kernel's library
         raise RuntimeError("kernel library unavailable")
 
     monkeypatch.setattr(mrf_block, "mrf_section_plain", no_plain)

@@ -464,60 +464,226 @@ def test_pack_weights_bf16_layout(rs_out):
             assert v[1, kps2 - 1, c, ngrp, 1, r8, 3].item() == (c * n2 + 8 * ngrp + r8) % 128
 
 
-def test_unit_geometry_bf16():
-    """The bf16 tile is one 2-byte plane and a stage one 16-channel k-step
-    (32*C bytes): at C=128, (11, 5) the 184-row tile takes 46 KB and the
-    ring 16 stages of 4 KB; at C=8 the tile is padded to 16 channels."""
-    fixed = 1024 + 184 * 128 * 2 + 8 * 33
-    assert mrf_block.unit_b_stages(128, 178, BF16) == 16
-    assert mrf_block.unit_smem_bytes(128, 178, BF16) == fixed + 16 * 4096
-    assert mrf_block.unit_smem_bytes(8, 178, BF16) == 1024 + 184 * 16 * 2 + 8 * 33 + 16 * 256
-    assert mrf_block.unit_b_stages(64, 178, BF16) == 16
-    assert mrf_block.unit_smem_bytes(64, 178, BF16) <= mrf_block.PAIR_SMEM
-    # float32 as before
-    assert mrf_block.unit_b_stages(128, 178) == 5
+# Released geometries: (vocoder, C, ResBlock geometry); every one of them
+# runs the bf16 kernel (universal_large stages 2-4, vctk_medium 1-4,
+# vctk_small 1-4).
+RELEASED = [(name, c, geometry) for name, cs, geometry in (
+    ("universal_large", (128, 64, 32), RESBLOCK1),
+    ("vctk_medium", (64, 32, 16, 8), RESBLOCK1),
+    ("vctk_small", (128, 64, 32, 16), RESBLOCK2),
+) for c in cs]
 
 
-def test_unit_launch_plan_bf16():
-    """The bf16 plan steps its weight offsets by one plane (half the f32
-    plan's), over 16-channel inputs at C=8; the rest of the plan is the
-    f32 one."""
+@pytest.mark.parametrize("name,channels,geometry", RELEASED,
+                         ids=[f"{n}-C{c}" for n, c, _g in RELEASED])
+def test_bf16_geometry_fits(name, channels, geometry):
+    """The bf16 kernel's shared-memory budget (``csrc/mrf_bf16.cu``,
+    mirrored): every released geometry fits a block's 227 KB with a ring of
+    at least 4 weight stages.  A C <= 64 section tile: 256 output rows, the
+    section's halo (60 rows for universal_large's ResBlock1, 45 for
+    vctk_small's ResBlock2) on each side, half an SM at C <= 32.  A C = 128
+    unit block: 256 first-conv rows, 256 - (k - 1) output rows."""
+    ks, dils, cpu = geometry
+    if mrf_block.bf16_plan(channels) == "section":
+        tiles = [mrf_block.bf16_tile(channels, ks, dils, cpu)]
+        halo = max(mrf_block.chain_halo(k, d, cpu) for k, d in zip(ks, dils))
+        assert tiles[0][:2] == (256, halo) and halo == (60 if cpu == 2 else 45)
+    else:
+        tiles = [mrf_block.bf16_tile(channels, (k,), ((d,),), cpu) for k, dd in zip(ks, dils)
+                 for d in dd]
+        assert [r for r, _s, _p in tiles] == [256 - (k - 1 if cpu == 2 else 0) for k, dd in
+                                            zip(ks, dils) for _d in dd]
+    for r, s, p in tiles:
+        smem = mrf_block.bf16_smem_bytes(channels, r, p)
+        assert p == (r + 2 * s + 15) // 16 * 16 and p // 2 <= mrf_block.MAX_ROWS
+        assert mrf_block.bf16_fits(channels, r, p)
+        assert mrf_block.bf16_ring_stages(channels, r, p) >= 4
+        assert smem <= (mrf_block.PAIR_SMEM if channels <= 32 else mrf_block.MAX_SMEM)
+
+
+def test_bf16_smem_bytes():
+    """C=64, universal_large: 1 KB slack + the header (34 barriers, the
+    chains' 128 B, 32 convs' biases; padded to 128 B) + H and A (8 planes
+    each of 384 rows x 16 B) + the f32 chain sum (256 x 64 x 4), then 8 KB
+    weight stages (a tap's four k-steps): 7.  C=32: half an SM, 2 KB stages
+    (a tap).  C=8: A padded to two planes, 256 B stages.  C=128 (11, 5): H
+    and A of 320 rows, two convs' biases, no chain sum in shared memory,
+    8 KB stages (two k-steps)."""
+    header = lambda c, convs: (8 * 34 + 128 + convs * c * 2 + 127) // 128 * 128  # noqa: E731
+    fixed = 1024 + header(64, 32) + 16 * 384 * 16 + 256 * 64 * 4
+    assert header(64, 32) == 4608
+    assert mrf_block.bf16_ring_stages(64, 256, 384) == (mrf_block.MAX_SMEM - fixed) // 8192 == 7
+    assert mrf_block.bf16_smem_bytes(64, 256, 384) == fixed + 7 * 8192
+    fixed32 = 1024 + header(32, 32) + 8 * 384 * 16 + 256 * 32 * 4
+    assert mrf_block.bf16_ring_stages(32, 256, 384) == (mrf_block.PAIR_SMEM - fixed32) // 2048
+    assert mrf_block.bf16_smem_bytes(8, 256, 384) == (1024 + header(8, 32) + 3 * 384 * 16
+                                                      + 256 * 8 * 4 + 16 * 256)
+    assert mrf_block.bf16_tile(128, (11,), ((5,),)) == (246, 30, 320)
+    fixed128 = 1024 + header(128, 2) + 32 * 320 * 16
+    assert mrf_block.bf16_smem_bytes(128, 246, 320) == fixed128 + 8 * 8192 <= mrf_block.MAX_SMEM
+    # a section halo past 160 rows leaves no 64-row output block
+    assert mrf_block.bf16_tile(32, (3,), ((80, 80),)) == (0, 162, 336)
+    assert not mrf_block.bf16_fits(32, 0, 336)
+
+
+def test_bf16_launch_plan():
+    """bf16: one launch per section at C <= 64, one per unit at C = 128,
+    where the unit plan's weight offsets step by one bf16 plane (half the
+    float32 plan's, over 16-channel inputs at C=8); float32: one per unit.
+    universal_large's generator makes 9 + 1 + 1 launches in bf16, 27 in
+    float32."""
     gen = torch.Generator().manual_seed(0)
-    c = 8
-    conv = lambda k: {"w": torch.randn((c, c, k), generator=gen),  # noqa: E731
-                      "b": torch.randn(c, generator=gen)}
-    blocks = [{"convs1": [conv(k) for _ in range(3)], "convs2": [conv(k) for _ in range(3)]}
-              for k in (3, 7, 11)]
-    f32, bf16 = mrf_block.pack_mrf_stage(blocks), mrf_block.pack_mrf_stage(cast(blocks, BF16))
+
+    def stage(c, dtype):
+        conv = lambda k: {"w": torch.randn((c, c, k), generator=gen),  # noqa: E731
+                          "b": torch.randn(c, generator=gen)}
+        blocks = [{"convs1": [conv(k) for _ in range(3)], "convs2": [conv(k) for _ in range(3)]}
+                  for k in (3, 7, 11)]
+        return mrf_block.pack_mrf_stage(cast(blocks, dtype))
+
+    assert [mrf_block.bf16_plan(c) for c in (8, 16, 32, 64, 128)] == ["section"] * 4 + ["units"]
+    units = [len(mrf_block.unit_launches(stage(c, BF16))) for c in (128, 64, 32)]
+    assert units == [9, 9, 9]
+    assert sum(1 if mrf_block.bf16_plan(c) == "section" else n
+               for c, n in zip((128, 64, 32), units)) == 9 + 1 + 1
+    f32, bf16 = stage(8, torch.float32), stage(8, BF16)
     p32, p16 = mrf_block.unit_launches(f32), mrf_block.unit_launches(bf16)
     assert [p[:4] + p[5:] for p in p32] == [p[:4] + p[5:] for p in p16]
     assert [p[4] for p in p16] == [p[4] * 16 // (2 * 8) for p in p32]
     assert p16[-1][4] + 2 * 11 * 16 * 8 == bf16.wpack.numel()
 
 
+def _conv_rows(a, w, bias, dd, lo, hi, pos, inside, t):
+    """Rows [lo, hi) of one conv over a tile buffer ``a`` [B, P, C] whose
+    row j holds position ``pos[j]``: the buffer's rows inside [0, T) placed
+    at their positions in a sequence of NaN (so a row read outside the ones
+    given shows), the conv taken there with F.conv1d as the plain version
+    takes it (the same shapes, so the same float32 sums), rounded to bf16
+    and zero outside [0, T)."""
+    b, _p, c = a.shape
+    half = (w.shape[-1] - 1) // 2
+    seq = torch.full((b, t, c), float("nan"))
+    seq[:, pos[inside]] = a[:, inside]
+    y = torch.nn.functional.conv1d(seq.transpose(1, 2), w, bias, padding=half * dd,
+                                   dilation=dd).transpose(1, 2)
+    out = torch.zeros((b, hi - lo, c))
+    keep = inside[lo:hi]
+    out[:, keep] = y[:, pos[lo:hi][keep]].to(BF16).float()
+    return out
+
+
+def _tiled_chains(x: torch.Tensor, stage: mrf_block.MRFStage, r_rows: int, s: int,
+                  short: int = 0):
+    """The bf16 kernel's plan on the CPU, tile by tile: each tile of
+    ``r_rows`` output rows loads the positions [t0 - s, t0 - s + P) (zero
+    outside [0, T)) once per chain; each conv computes only the rows that
+    the chain's later convs still need (its halo less what it used), every
+    other row of its output NaN; each conv's output is zeroed outside [0, T)
+    and rounded to bf16, the leaky-ReLU is JAX's bf16 one, h + conv is
+    rounded.  ``short`` computes that many rows fewer on each side of every
+    conv.  Returns each chain's output [B, T, C] (bf16 values in
+    float32)."""
+    b, t, c = x.shape
+    ks, dils, cpu = stage.kernel_sizes, stage.dilations_per_block, stage.convs_per_unit
+    p = (r_rows + 2 * s + 15) // 16 * 16
+    units = list(mrf_block._unpacked_convs(stage.w_flat, stage.b_flat, c, ks, dils, cpu))
+    lrelu = lambda v: torch.where(v >= 0, v, (v * mrf_block.LRELU_SLOPE_BF16).to(BF16).float())  # noqa: E731,E501
+    outs = [torch.full((b, t, c), float("nan")) for _ in ks]
+    for t0 in range(0, t, r_rows):
+        pos = torch.arange(t0 - s, t0 - s + p)
+        inside = (pos >= 0) & (pos < t)
+        tile = torch.zeros((b, p, c))
+        tile[:, inside] = x.float()[:, pos[inside]]
+        for r, (k, d) in enumerate(zip(ks, dils)):
+            half = (k - 1) // 2
+            rem = mrf_block.chain_halo(k, d, cpu) - short
+            h = tile.clone()
+            for _r, _u, convs in (u for u in units if u[0] == r):
+                a = lrelu(h)
+                for i, (w, bias, dd) in enumerate(convs):
+                    rem -= half * dd
+                    lo, hi = s - rem, s + r_rows + rem
+                    y = _conv_rows(a, w.float(), bias.float(), dd, lo, hi, pos, inside, t)
+                    if i < len(convs) - 1:
+                        a = torch.full_like(a, float("nan"))
+                        a[:, lo:hi] = lrelu(y)
+                    else:
+                        hn = torch.full_like(h, float("nan"))
+                        hn[:, lo:hi] = (h[:, lo:hi] + y).to(BF16).float()
+                        h = hn
+            n = min(r_rows, t - t0)
+            outs[r][:, t0 : t0 + n] = h[:, s : s + n]
+    return outs
+
+
+@pytest.mark.parametrize("b,t", [(1, 2 * 256 + 100), (3, 100)], ids=["B1-T612", "B3-T100"])
+@pytest.mark.parametrize("channels", [8, 32, 64])
+@pytest.mark.parametrize("geometry", [RESBLOCK1, RESBLOCK2], ids=["resblock1", "resblock2"])
+def test_bf16_section_tiles_compose_to_the_section(geometry, channels, b, t):
+    """The bf16 section plan (C <= 64) on the CPU, tile by tile
+    (:func:`_tiled_chains` at the kernel's ``bf16_tile``): three tiles of
+    256 rows for T = 612, the last ragged, or one tile longer than T = 100;
+    the chains' sum in float32, divided by n_chains and rounded once: bit
+    for bit the plain section, which the tests above hold against fused_mrf.
+    No NaN survives, so no conv read a row outside the halo it was given."""
+    ks, dils, cpu = geometry
+    rng = np.random.default_rng(400 + channels + t)
+    stage = _bf16_stage(_random_stage(rng, channels, ks, dils, cpu), geometry)
+    x = torch.from_numpy(_bf16_np(rng.standard_normal((b, t, channels)))).to(BF16)
+    r_rows, s, _p = mrf_block.bf16_tile(channels, ks, dils, cpu)
+    assert r_rows == 256 and (t - 1) // r_rows + 1 == (3 if t > 256 else 1)
+    chains = _tiled_chains(x, stage, r_rows, s)
+    total = chains[0]
+    for h in chains[1:]:
+        total = total + h
+    out = (total / len(ks)).to(BF16)
+    assert not torch.isnan(out.float()).any()
+    plain = mrf_block.mrf_section_plain(x, stage.w_flat, stage.b_flat, ks, dils, cpu)
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+
+
+def test_bf16_section_tiles_need_the_whole_halo():
+    """The emulation catches a halo one row short: a conv then reads a row
+    that no conv before it computed, and NaN reaches the output."""
+    ks, dils, cpu = RESBLOCK1
+    rng = np.random.default_rng(5)
+    stage = _bf16_stage(_random_stage(rng, 32, ks, dils, cpu), RESBLOCK1)
+    x = torch.from_numpy(_bf16_np(rng.standard_normal((1, 600, 32)))).to(BF16)
+    r_rows, s, _p = mrf_block.bf16_tile(32, ks, dils, cpu)
+    assert not torch.isnan(_tiled_chains(x, stage, r_rows, s)[-1]).any()
+    assert torch.isnan(_tiled_chains(x, stage, r_rows, s, short=1)[-1]).any()
+
+
 @pytest.mark.parametrize("geometry", [RESBLOCK1, RESBLOCK2], ids=["resblock1", "resblock2"])
 def test_bf16_units_compose_to_the_section(geometry):
-    """The kernel's bf16 launch plan on the CPU: each unit as mrf_unit_plain
-    in bf16; a chain's last unit stores or adds into a float32 sum, and the
-    last chain's writes that sum times 1/n_chains (the kernel corrects the
-    product to the quotient) rounded once: bit for bit the plain section."""
+    """The bf16 unit plan (C = 128) on the CPU: each unit launch tile by
+    tile (:func:`_tiled_chains` on a one-unit stage at the kernel's
+    ``bf16_tile``: 256 first-conv rows, 256 - (k - 1) output rows), x or a
+    scratch buffer in and out; a chain's last unit stores or adds into a
+    float32 sum, and the last chain's writes that sum / n_chains rounded
+    once: bit for bit the plain section."""
     ks, dils, cpu = geometry
     rng = np.random.default_rng(11)
-    stage = _bf16_stage(_random_stage(rng, 32, ks, dils, cpu), geometry)
-    x = torch.from_numpy(_bf16_np(rng.standard_normal((2, 200, 32)))).to(BF16)
-    convs = list(mrf_block._unpacked_convs(stage.w_flat, stage.b_flat, 32, ks, dils, cpu))
+    stage = _bf16_stage(_random_stage(rng, 128, ks, dils, cpu), geometry)
+    x = torch.from_numpy(_bf16_np(rng.standard_normal((2, 300, 128)))).to(BF16)
+    convs = list(mrf_block._unpacked_convs(stage.w_flat, stage.b_flat, 128, ks, dils, cpu))
     buffers = {"x": x}
     total = None
-    for (r, _u, _k, _d, _w, _b, src, dst, mode, scale), (_r, _u2, unit) in zip(
+    for (r, _u, k, d, _w, b_row, src, dst, mode, _scale), (_r, _u2, unit) in zip(
             mrf_block.unit_launches(stage), convs):
-        h_new = mrf_block.mrf_unit_plain(buffers[src], unit)
-        assert h_new.dtype == BF16
+        one = mrf_block.MRFStage(
+            torch.cat([w.permute(2, 1, 0).reshape(-1) for w, _b, _d in unit]),
+            stage.b_flat[b_row : b_row + cpu], None, (k,), ((d,),), cpu)
+        r_rows, s, _p = mrf_block.bf16_tile(128, (k,), ((d,),), cpu)
+        assert r_rows == 256 - (k - 1 if cpu == 2 else 0)
+        h_new = _tiled_chains(buffers[src], one, r_rows, s)[0]
+        assert h_new.equal(mrf_block.mrf_unit_plain(buffers[src], unit).float())
         if mode == mrf_block.MODE_TO_SCRATCH:
-            buffers[dst] = h_new
+            buffers[dst] = h_new.to(BF16)
             continue
-        total = h_new.float() if mode == mrf_block.MODE_OUT_STORE else total + h_new.float()
+        total = h_new if mode == mrf_block.MODE_OUT_STORE else total + h_new
         if r == len(ks) - 1:
-            buffers[dst] = (total / round(1 / scale)).to(BF16)
+            buffers[dst] = (total / len(ks)).to(BF16)
     plain = mrf_block.mrf_section_plain(x, stage.w_flat, stage.b_flat, ks, dils, cpu)
     torch.testing.assert_close(buffers["out"], plain, rtol=0, atol=0)
 
