@@ -232,6 +232,15 @@ WN_TOLERANCE = 1e-4
 # stack carries such flips through h and skip for 8 layers: 4 ULPs.
 BF16_ULPS = 2
 BF16_STACK_ULPS = 4
+# T of the WaveGlow stacks at B=1 that the server, the fallback stream, the
+# trained voice and the mesh grid give the WN kernel (PERF.md section 6),
+# held in bf16 too, where the CUDA default runs them
+WN_B1_T = (2816, 8192, 12288, 14592, 16384, 24576, 32768)
+# (B, T) at which the bf16 WN kernel's launch plan is held against its
+# mirror: the main path, the B=1 stacks, ragged T with 13 and 39 tiles,
+# T under one tile
+WN_PLAN_SHAPES = ((4, 32768),) + tuple((1, t) for t in WN_B1_T) + (
+    (1, 64 * 13 - 5), (3, 777), (2, 40))
 # bf16 paths against their float32 runs, and CUDA bf16 against CPU bf16: an
 # LSB bound does not hold in bf16, so the JAX package's bar for its bf16
 # vocoder (tests/test_mixed_precision.py): correlation and RMS level.
@@ -678,6 +687,38 @@ def plan_waveglow_path(root: Path):
     return jobs, engine, y_lengths, plan, shapes
 
 
+def check_wn_bf16_plan(wn_layer):
+    """The bf16 WN kernel's launch plan as the kernel computes it on this
+    card against ops/wn_layer.py::bf16_launch_plan, at WN_PLAN_SHAPES."""
+    fit = wn_layer.bf16_active_clusters()
+    for b, t in WN_PLAN_SHAPES:
+        for rs_out in (512, 256):
+            got = wn_layer.bf16_geometry(b, t, 640, rs_out)
+            p = wn_layer.bf16_launch_plan(b, t, 640, rs_out, fit)
+            want = [p["grid"], p["cluster"], fit, p["tiles_per_block"], p["stage_bytes"],
+                    p["stages_per_tile"], p["ring_stages"], p["smem_bytes"]]
+            if got != want:
+                raise AssertionError(f"wn_bf16 plan at B={b} T={t} rs {rs_out}: kernel {got}, "
+                                     f"ops/wn_layer.py mirrors {want}")
+        log(f"wn_bf16 plan, B={b} T={t}: {p['tiles']} tiles in {p['items']} items of "
+            f"{p['cluster']}, grid {p['grid']} blocks ({p['clusters']} clusters), at most "
+            f"{p['tiles_per_block']} tiles a block, {p['ring_stages']} weight stages of "
+            f"{p['stage_bytes']} bytes in flight, {p['stages_per_tile']} a tile (rs 256), dynamic "
+            f"shared memory {p['smem_bytes']} bytes, L2 weight bytes a launch "
+            f"{p['l2_weight_bytes'] / 1e9:.4f} GB")
+    log(f"wn_bf16: {fit} clusters of {wn_layer.BF16_CLUSTER} blocks fit at once "
+        f"(cudaOccupancyMaxActiveClusters): {fit * wn_layer.BF16_CLUSTER} of "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+
+
+def wn_bf16_traffic(wn_layer, b, t, layer, ms):
+    """A bf16 row's L2 weight bytes (the kernel's plan) and their rate."""
+    fit = wn_layer.bf16_active_clusters()
+    l2 = wn_layer.bf16_launch_plan(b, t, layer.w_cond.shape[1], layer.b_rs.numel(),
+                                   fit)["l2_weight_bytes"]
+    return {"l2_weight_gb": l2 / 1e9, "l2_weight_tb_s": l2 / (ms * 1e-3) / 1e12}
+
+
 def random_wn_layer(wn_layer, gen, rs_out, ch=256, cc=640, dtype=torch.float32):
     """One WN layer packed on the card, with the init's scales."""
     def n(*shape, scale=0.05):
@@ -729,6 +770,12 @@ def check_wn(wn_layer, main_shapes, dtype=torch.float32):
         ("ragged T, K4 rs 256", 2, 1000, 64, False, False, 256, False),
         ("B=1, T=64*16+1 (one-step tail), middle layer", 1, 1025, 16, False, False, None, False),
     ]
+    if bf16:  # the bf16 kernel's plan: an odd tile count in one row, T under one tile
+        cases += [
+            ("ragged T, 13 tiles, middle layer", 1, 64 * 13 - 5, 128, False, False, None, False),
+            ("T under one tile, middle layer", 2, 40, 8, False, False, None, False),
+            ("T under one tile, last layer", 1, 63, 128, False, True, None, False),
+        ]
     rows = []
     for label, b, t, d, first, last, k4, main in cases:
         layer = random_wn_layer(wn_layer, gen, k4 or (256 if last else 512), dtype=dtype)
@@ -772,12 +819,18 @@ def check_wn(wn_layer, main_shapes, dtype=torch.float32):
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["hbm_gb"] = bytes_s * HBM_BYTES_PER_S / 1e9
+        traffic = ""
+        if bf16:
+            row.update(wn_bf16_traffic(wn_layer, b, t, layer, row["ms"]))
+            traffic = (f", HBM {row['hbm_gb']:.4f} GB, L2 weights {row['l2_weight_gb']:.4f} GB at "
+                       f"{row['l2_weight_tb_s']:.3f} TB/s")
         rows.append(row)
         tol = f"{ulps:.3g} bf16 ULPs of scale (tol {BF16_ULPS})" if bf16 else f"(tol {WN_TOLERANCE})"
         log(f"wn_layer {name} {label}: B={b} T={t} d={d} max_abs_err={err:.3g} {tol} "
             f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, cuDNN+cuBLAS products "
             f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
-            f"{row['bound_share']:.1%} of bound")
+            f"{row['bound_share']:.1%} of bound{traffic}")
 
     return rows, wn_stack_rows(wn_layer, main_shapes, gen, dtype, "main path, 8-layer WN stack")
 
@@ -837,13 +890,20 @@ def wn_stack_rows(wn_layer, shapes, gen, dtype, label):
             "bound_by": "operations" if ops_s > bytes_s else "bytes",
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["hbm_gb"] = bytes_s * HBM_BYTES_PER_S / 1e9
+        traffic = ""
+        if bf16:
+            l2 = sum(wn_bf16_traffic(wn_layer, b, t, layer, 1.0)["l2_weight_gb"] for layer in layers)
+            row.update({"l2_weight_gb": l2, "l2_weight_tb_s": l2 / row["ms"]})
+            traffic = (f", HBM {row['hbm_gb']:.4f} GB, L2 weights {l2:.4f} GB at "
+                       f"{row['l2_weight_tb_s']:.3f} TB/s")
         stacks.append(row)
         tol = (f"{ulps:.3g} bf16 ULPs of scale (tol {BF16_STACK_ULPS})" if bf16
                else f"(tol {WN_TOLERANCE})")
         log(f"wn_layer {name} {label} B={b} T={t} (dilations 1..128): max_abs_err={err:.3g} "
             f"{tol} kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"cuDNN+cuBLAS products {row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms, "
-            f"{row['bound_share']:.1%} of bound")
+            f"{row['bound_share']:.1%} of bound{traffic}")
     return stacks
 
 
@@ -4200,8 +4260,8 @@ def main() -> int:
     from larynx_tpu_torch.ops import build, mrf_block, wn_layer
 
     start = time.perf_counter()
-    build.build(["mrf_section", "wn_layer", "mrf_bf16"])
-    for name in ("mrf_section", "wn_layer", "mrf_bf16"):
+    build.build(["mrf_section", "wn_layer", "mrf_bf16", "wn_bf16"])
+    for name in ("mrf_section", "wn_layer", "mrf_bf16", "wn_bf16"):
         lines = build.BUILD_LOGS.get(name, "").splitlines()
         ptxas = sorted({line.split(":", 1)[-1].split(" for the function")[0].strip()
                         for line in lines
@@ -4225,8 +4285,7 @@ def main() -> int:
         log(f"mrf_section: unit (k={k}, d={d}) at C={c}: {rows} input rows, dynamic shared memory "
             f"{got[0]} bytes per block, {got[1]}-stage weight ring, 384 threads, stride "
             f"{mrf_block.unit_stride(k, 2)} rows")
-    log(f"wn_layer bf16: dynamic shared memory {wn_layer._library().wn_layer_smem_bytes_bf16()} "
-        "bytes per block")
+    check_wn_bf16_plan(wn_layer)
     # the bf16 kernel's own geometry against ops/mrf_block.py's mirror: the
     # unit plan's widest units at C=128, the section plan at C <= 64
     for c, (ks, dils, cpu) in ((128, ((11,), ((5,),), 2)), (128, ((7,), ((12,),), 1)), (64, R1),
@@ -4268,6 +4327,10 @@ def main() -> int:
         ]
         bf16_rows = check_mrf(mrf_block, bf16_cases, dtype=torch.bfloat16)
         bf16_wn_rows, bf16_wn_stacks = check_wn(wn_layer, wg_shapes, dtype=torch.bfloat16)
+        bf16_wn_stacks += wn_stack_rows(
+            wn_layer, [(1, t) for t in WN_B1_T if (1, t) not in wg_shapes],
+            torch.Generator().manual_seed(9), torch.bfloat16,
+            "B=1 (server, fallback stream, trained voice, mesh grid), 8-layer WN stack")
         launches = main_path(Path(tmp), mrf_block, jobs, engine, y_lengths)
         wn_launches = waveglow_path(Path(tmp), wn_layer, mrf_block, wg_jobs, wg_engine, wg_y,
                                     wg_plan)
@@ -4457,8 +4520,8 @@ def main() -> int:
     if any(r["bound_by"] != "operations" for r in wn_rows + wn_stacks):
         raise AssertionError("expected the WN layer to be bound by operations")
 
-    # the bf16 kernels: the MRF section's own source (csrc/mrf_bf16.cu), the
-    # WN layer's bf16 instantiation; bound_by from the main rows' summed
+    # the bf16 kernels, each its own source (csrc/mrf_bf16.cu,
+    # csrc/wn_bf16.cu); bound_by from the main rows' summed
     # operations and bytes (small rows may be bound by bytes at the bf16 peak)
     bf16_main = [r for r in bf16_rows if r["main_path"]]
     kernels.append(kernel_entry(
@@ -4472,15 +4535,30 @@ def main() -> int:
          "cli --half, pangram WAV": bf16["launches"]["cli --half"],
          **{k: v for k, v in meshed["launches"].items() if "bf16" in k}},
         bf16_rows, bf16_main))
+    # the bf16 WN kernel at every path's WaveGlow shapes (the paths ran in
+    # float32; the CUDA default runs them in bf16): the launches of one
+    # group call (flows x one 8-layer stack) at each (B, T) a path gave
+    path_wn = {"server": server_wn, "run_jobs": run_wn, "tacotron2": t2_wn,
+               "trained waveglow": train2_wn, "mesh windows": mesh_wn}
+    missing = sorted(set().union(*path_wn.values()) - {(r["B"], r["T"]) for r in bf16_wn_stacks})
+    bf16_wn_stacks += wn_stack_rows(wn_layer, missing, torch.Generator().manual_seed(10),
+                                    torch.bfloat16, "path shapes, 8-layer WN stack")
     bf16_stack_of = {(r["B"], r["T"]): r for r in bf16_wn_stacks}
-    kernels.append(kernel_entry(
-        "wn_layer (bf16)", "larynx_tpu_torch/csrc/wn_layer.cu",
+    bf16_wn = kernel_entry(
+        "wn_layer (bf16)", "larynx_tpu_torch/csrc/wn_bf16.cu",
         "larynx_tpu/ops/wn_layer.py:258; larynx_tpu/ops/wn_layer.py:332",
         bf16["launches"]["waveglow"],
         {"text_to_speech, pangram x8, waveglow, CUDA default": bf16["launches"]["waveglow"]},
         bf16_wn_rows + bf16_wn_stacks,
         [bf16_stack_of[(rows_g, frames * cfg.upsample_stride // cfg.groups)]
-         for _s, rows_g, frames in wg_plan], scale=cfg.flows))
+         for _s, rows_g, frames in wg_plan], scale=cfg.flows)
+    bf16_wn["ms_by_path"] = {
+        "text_to_speech, pangram x8, waveglow, CUDA default": bf16_wn["ms"],
+        **{f"{path}, one group call at B={b} T={t}": cfg.flows * bf16_stack_of[(b, t)]["ms"]
+           for path, shapes in path_wn.items() for b, t in sorted(shapes)}}
+    kernels.append(bf16_wn)
+    for path, ms in bf16_wn["ms_by_path"].items():
+        log(f"wn_layer (bf16) by path: {path}: {ms:.3f} ms")
     for k in kernels[2:]:
         log(f"{k['name']}, main path: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, "
             f"library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}, "

@@ -1,12 +1,12 @@
-// Fused WaveGlow WN layer for Hopper (sm_90a), f32 or bf16: wgmma, TMA,
-// mbarriers, clusters.
+// Fused WaveGlow WN layer in f32 for Hopper (sm_90a): wgmma, TMA, mbarriers,
+// clusters.
 //
-// Replaces both TPU kernels of larynx_tpu/ops/wn_layer.py:
+// Replaces, in f32, both TPU kernels of larynx_tpu/ops/wn_layer.py:
 //   K3  fused_wn_layer_state  (_kernel_state, pallas_call at :258)
 //   K4  fused_wn_layer        (_kernel,       pallas_call at :332)
-// One kernel, templated on the element type (f32, bf16) and the mode: the
-// layer alone (K4, writes rs), or the layer with its state update on the
-// first, a middle or the last layer of a WN stack (K3).
+// (csrc/wn_bf16.cu is the bf16 kernel.)  One kernel, templated on the mode:
+// the layer alone (K4, writes rs), or the layer with its state update on
+// the first, a middle or the last layer of a WN stack (K3).
 //
 // What it computes, for h [B, T, 256], cond [B, T, CC] (channels-last,
 // contiguous), ch = 256:
@@ -21,56 +21,46 @@
 //          skip_out = rs, h untouched                      (first and last)
 // h_out must not alias h: neighbouring tiles read h's halo.
 //
-// bf16 follows the Pallas kernel's rounding points (wn_layer.py:155-195):
-// every product sums in f32; bias_a arrives as bf16(b_in + b_cond); the
-// gate is formed in f32 and rounded to bf16 before the res/skip product;
-// rs + b_rs is rounded to bf16; h + rs[:ch] and skip + rs[ch:] are each
-// rounded to bf16.
-//
 // What bounds it: operations.  A time step costs 2 * (2ch * (3ch + CC) +
 // ch * RS) = 1.70 MFLOP at ch=256, CC=640, RS=512 against ~(3 * 256 + 640)
-// * 4 bytes of activation I/O (~300 FLOP/byte; bf16: half the bytes), and
-// the weights (3.4 MB f32) are shared by every time step.  In f32 each
-// product runs as three TF32 tensor-core products (3xTF32: a_lo*b_hi +
-// a_hi*b_lo + a_hi*b_hi, f32 accumulate), so the bound is 3 TF32
-// operations per FLOP at the dense TF32 peak; a bf16 product is one
-// operation at the dense bf16 peak.  The design keeps the tensor cores fed
-// from shared memory:
+// * 4 bytes of activation I/O (~300 FLOP/byte), and the weights (3.4 MB)
+// are shared by every time step.  Each product runs as three TF32
+// tensor-core products (3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, f32
+// accumulate), so the bound is 3 TF32 operations per FLOP at the dense TF32
+// peak.  The design keeps the tensor cores fed from shared memory:
 //
 //   * one block per 64-step time tile of one batch row (wgmma M = 64): a
 //     producer warpgroup and two consumer warpgroups; setmaxnreg moves the
 //     producer's registers to the consumers.  Consumer c owns channels
 //     [128c, 128c + 128): the first product's tanh and sigmoid columns of
-//     those channels (N = 256, wgmma m64n256k8 TF32 or m64n256k16 bf16, 128
-//     f32 accumulators a thread), so the gate is formed in registers.
-//   * every wgmma reads both operands from shared memory, in f32 as exact
-//     TF32 values (hardware TF32 drops the low 13 bits, so hi is rounded to
+//     those channels (N = 256, wgmma m64n256k8 TF32, 128 f32 accumulators a
+//     thread), so the gate is formed in registers.
+//   * every wgmma reads both operands from shared memory as exact TF32
+//     values (hardware TF32 drops the low 13 bits, so hi is rounded to
 //     nearest and lo is the rounded remainder).
 //   * A (activations): one producer thread brings each K chunk of 128 bytes
-//     a row (32 f32 or 64 bf16 columns) by TMA, a box of 64 rows of h at
+//     a row (32 columns) by TMA, a box of 64 rows of h at
 //     offset -d, 0 or +d (or of cond) from a 3-D tensor map [B, T, C],
 //     128-byte swizzled, into a 4-deep ring.  A box row outside [0, T) is
 //     zero-filled by the hardware, which is exactly the conv's zero
 //     padding, for any dilation (no halo is held), and never reads the
-//     neighbouring batch row.  In f32 two producer warps split each chunk in
-//     place into its TF32 hi plane and a lo plane beside it (in bf16 they
-//     have nothing to do); the swizzled layout is already the canonical
-//     K-major wgmma layout, and a k-step is 32 bytes of it in both types.
+//     neighbouring batch row.  Two producer warps split each chunk in place
+//     into its TF32 hi plane and a lo plane beside it; the swizzled layout
+//     is already the canonical K-major wgmma layout, and a k-step is 32
+//     bytes of it.
 //   * B (weights) is packed once at load (ops/wn_layer.py::pack_weights),
 //     K-major in the wgmma core-matrix order, one stage per k-step of the
-//     first product: exact TF32 hi and lo planes (32 KB) or one bf16 plane
-//     (16 KB), so each stage is one bulk TMA copy into a 4-deep mbarrier
-//     ring.  Blocks run as clusters of 2 neighbouring time tiles; each
+//     first product: exact TF32 hi and lo planes (32 KB), so each stage is
+//     one bulk TMA copy into a 4-deep mbarrier ring.  Blocks run as clusters of 2 neighbouring time tiles; each
 //     block copies half of every stage and multicasts it to both, so every
 //     weight byte leaves L2 once per pair of tiles.  A block whose tile
 //     lies past T (odd tile counts) runs the same protocol on zero-filled
 //     rows and stores nothing.
 //   * the second product, g @ Wrs, streams through the same weight ring and
 //     accumulates in the first product's registers; its A operand, the
-//     gated tile, goes through the idle A region: in f32 one channel half
-//     at a time as TF32 planes (consumer 1 parks its half meanwhile), in
-//     bf16 all of it at once.  Its accumulators feed the state update
-//     straight from registers.
+//     gated tile, goes through the idle A region one channel half at a time
+//     as TF32 planes (consumer 1 parks its half meanwhile).  Its
+//     accumulators feed the state update straight from registers.
 //   * one accumulator set, no register-held A fragments and no calls keep
 //     the consumers within their registers, so ptxas keeps the wgmma
 //     pipeline asynchronous: two groups of products in flight per
@@ -93,28 +83,27 @@ constexpr int kNW1 = 2 * kCh / kConsumers;    // first-product columns per consu
 
 enum Mode { kRs = 0, kMid = 1, kFirst = 2, kLast = 3, kFirstLast = 4 };
 
-// the layout of one element type
-template <typename E>
+// the layout
 struct Geom {
-  static constexpr int kPlanes = is_f32<E>() ? 2 : 1;  // TF32 hi and lo, or the value
-  static constexpr int kKStep = 32 / (int)sizeof(E);   // K per wgmma k-step
-  static constexpr int kKC = 128 / (int)sizeof(E);     // K columns per A chunk
+  static constexpr int kPlanes = 2;   // TF32 hi and lo
+  static constexpr int kKStep = 8;    // K per wgmma k-step
+  static constexpr int kKC = 32;      // K columns per A chunk
   static constexpr int kARegion = kPlanes * kAStages * kAChunkBytes;  // A rings, later the gated tile
   static constexpr int kBStageBytes = kConsumers * kPlanes * kNW1 * 32;  // one first-product k-step
-  // product 2 passes over the A region: f32 holds one channel half of the
-  // gated tile there (hi and lo), bf16 all of it
-  static constexpr int kPasses = kCh * (int)sizeof(E) * kTile * kPlanes / kARegion;
-  static constexpr int kStashBytes = kPasses > 1 ? kTile * kCh / kConsumers * 4 : 0;
+  // product 2 passes over the A region, which holds one channel half of the
+  // gated tile (hi and lo)
+  static constexpr int kPasses = kCh * 4 * kTile * kPlanes / kARegion;
+  static constexpr int kStashBytes = kTile * kCh / kConsumers * 4;
   static constexpr size_t kSmemBytes = 1024 + kARegion + kStashBytes + kBStages * kBStageBytes +
                                        (3 * kAStages + 2 * kBStages) * 8;
   static_assert(kSmemBytes <= 232448, "over the shared memory a block can have");
   static_assert(kKC / kKStep == 4, "an A chunk is four k-steps");
   static_assert(kCh / kPasses / kKStep == 16, "a product-2 pass is sixteen k-steps");
 };
-static_assert(Geom<float>::kPasses == 2 && Geom<__nv_bfloat16>::kPasses == 1, "passes");
-static_assert(2 * Geom<float>::kStashBytes <= Geom<float>::kARegion,
+static_assert(Geom::kPasses == 2, "passes");
+static_assert(2 * Geom::kStashBytes <= Geom::kARegion,
               "a half of the gated tile, hi and lo, must fit over the A rings");
-static_assert(Geom<float>::kBStageBytes == 32768 && Geom<float>::kSmemBytes == 230560, "f32 plan");
+static_assert(Geom::kBStageBytes == 32768 && Geom::kSmemBytes == 230560, "f32 plan");
 
 // ---- wrappers only this kernel uses (the rest: sm90.cuh)
 
@@ -143,26 +132,21 @@ __device__ __forceinline__ uint64_t desc_a_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// acc += a * b for one k-step: f32 as (a_hi + a_lo) * (b_hi + b_lo) less
-// the a_lo * b_lo term, bf16 as one product
-template <typename E, int N>
+// acc += a * b for one k-step, as (a_hi + a_lo) * (b_hi + b_lo) less the
+// a_lo * b_lo term
+template <int N>
 __device__ __forceinline__ void mma_step(float (&d)[N / 2], uint32_t a_hi, uint32_t a_lo,
                                          uint32_t b_hi, uint32_t b_lo) {
-  if constexpr (is_f32<E>()) {
-    wgmma_tf32<N>(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
-    wgmma_tf32<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
-    wgmma_tf32<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
-  } else {
-    wgmma_bf16<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
-  }
+  wgmma_tf32<N>(d, desc_a_sw128(a_lo), desc_kmajor(b_hi));
+  wgmma_tf32<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_lo));
+  wgmma_tf32<N>(d, desc_a_sw128(a_hi), desc_kmajor(b_hi));
 }
 
 // byte offset of channel pc (of the A region's channels) in row `row` of
 // the A chunks' swizzled layout
-template <typename E>
 __device__ __forceinline__ int swizzled(int pc, int row) {
-  const int in_row = (pc % Geom<E>::kKC) * (int)sizeof(E);
-  return (pc / Geom<E>::kKC) * kAChunkBytes + row * 128 + (((in_row / 16) ^ (row % 8)) * 16) +
+  const int in_row = (pc % Geom::kKC) * 4;
+  return (pc / Geom::kKC) * kAChunkBytes + row * 128 + (((in_row / 16) ^ (row % 8)) * 16) +
          in_row % 16;
 }
 
@@ -170,15 +154,15 @@ __device__ __forceinline__ int swizzled(int pc, int row) {
 // ulp, far below the 3xTF32 products' error
 __device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 
-template <typename E, int MODE, int RS>
+template <int MODE, int RS>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
-                const __grid_constant__ CUtensorMap tmap_cond, const E* __restrict__ h,
-                const E* __restrict__ skip, const E* __restrict__ wpack,
-                const E* __restrict__ bias_a, const E* __restrict__ b_rs,
-                E* __restrict__ h_out, E* __restrict__ skip_out,
-                E* __restrict__ rs_out, int T, int CC, int dil) {
-  using G = Geom<E>;
+                const __grid_constant__ CUtensorMap tmap_cond, const float* __restrict__ h,
+                const float* __restrict__ skip, const float* __restrict__ wpack,
+                const float* __restrict__ bias_a, const float* __restrict__ b_rs,
+                float* __restrict__ h_out, float* __restrict__ skip_out,
+                float* __restrict__ rs_out, int T, int CC, int dil) {
+  using G = Geom;
   constexpr int kPlanes = G::kPlanes;
   constexpr int kKC = G::kKC;
   constexpr int kBStageBytes = G::kBStageBytes;
@@ -189,8 +173,8 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms want 1 KB alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t a_hi = base;                             // kAStages chunks: raw, then (f32) hi
-  const uint32_t a_lo = base + kAStages * kAChunkBytes;   // f32: kAStages chunks of lo
+  const uint32_t a_hi = base;                             // kAStages chunks: raw, then hi
+  const uint32_t a_lo = base + kAStages * kAChunkBytes;   // kAStages chunks of lo
   const uint32_t b_ring = base + G::kARegion + G::kStashBytes;
   const uint32_t bars = b_ring + kBStages * kBStageBytes;
   auto full_b = [&](int i) { return bars + 8 * i; };
@@ -222,7 +206,7 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
 
   if (wg == 0) {
     // ---- producer warpgroup: warp 0 streams the weights, warp 1 the
-    // activations, warps 2-3 (f32) split each activation chunk into TF32 planes
+    // activations, warps 2-3 split each activation chunk into TF32 planes
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     const int warp = threadIdx.x / 32;
     if (threadIdx.x == 0) {  // the weight stages, multicast over the cluster
@@ -260,7 +244,7 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
         }
         if (++a_stage == kAStages) { a_stage = 0; a_phase ^= 1; }
       }
-    } else if (kPlanes == 2 && warp >= 4 - kSplitWarps) {
+    } else if (warp >= 4 - kSplitWarps) {
       // each chunk, in place: raw -> TF32 hi, and its lo into the lo ring
       // at the same offset (the layout is elementwise, swizzle and all)
       const int lane = threadIdx.x - 32 * (4 - kSplitWarps);
@@ -317,15 +301,15 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
     // released once the group after it has been issued and it is done, an
     // A chunk once its last group is done.
     for (int chunk = 0; chunk < n_chunks; ++chunk) {
-      // f32: the split warps' planes; bf16: the chunk as it landed
-      mbar_wait(kPlanes == 2 ? ready_a(a_stage) : full_a(a_stage), a_phase);
+      // the split warps' planes
+      mbar_wait(ready_a(a_stage), a_phase);
 #pragma unroll
       for (int kk = 0; kk < kKC / G::kKStep; ++kk) {
         mbar_wait(full_b(b_stage), b_phase);
         const uint32_t blk = b_ring + b_stage * kBStageBytes + c * kPlanes * (kNW1 * 32);
         const uint32_t aoff = a_stage * kAChunkBytes + 32 * kk;
         wgmma_fence();
-        mma_step<E, kNW1>(acc, a_hi + aoff, a_lo + aoff, blk, blk + kNW1 * 32);
+        mma_step<kNW1>(acc, a_hi + aoff, a_lo + aoff, blk, blk + kNW1 * 32);
         wgmma_commit();
         wgmma_wait<1>();
         if (chunk > 0 || kk > 0) release_b(prev(b_stage, kBStages));
@@ -353,9 +337,9 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
     // columns [c * kNW2, (c + 1) * kNW2), accumulated in the registers of
     // the first product's accumulators.  Its A operand, the gated tile,
     // goes through the A region (idle by now) in the A chunks' swizzled
-    // layout: f32 one channel half at a time as TF32 hi and lo planes (4
-    // chunks of 32 channels; consumer 1 parks its half, raw, in the stash
-    // meanwhile), bf16 all 256 channels as bf16 (4 chunks of 64).
+    // layout, one channel half at a time as TF32 hi and lo planes (4 chunks
+    // of 32 channels; consumer 1 parks its half, raw, in the stash
+    // meanwhile).
     named_sync_consumers();  // the A region is no longer read
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -364,20 +348,14 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
       for (int hr = 0; hr < 2; ++hr) {
         const int row = r0 + 8 * hr;
         const float x0 = gv[4 * i + 2 * hr], x1 = gv[4 * i + 2 * hr + 1];
-        if constexpr (kPlanes == 2) {
-          const int off = swizzled<E>(cl, row);
-          if (c == 0) {
-            const float h0 = to_tf32(x0), h1 = to_tf32(x1);
-            *reinterpret_cast<float2*>(smem + off) = make_float2(h0, h1);
-            *reinterpret_cast<float2*>(smem + kAStages * kAChunkBytes + off) =
-                make_float2(to_tf32(x0 - h0), to_tf32(x1 - h1));
-          } else {
-            *reinterpret_cast<float2*>(smem + G::kARegion + off) = make_float2(x0, x1);
-          }
+        const int off = swizzled(cl, row);
+        if (c == 0) {
+          const float h0 = to_tf32(x0), h1 = to_tf32(x1);
+          *reinterpret_cast<float2*>(smem + off) = make_float2(h0, h1);
+          *reinterpret_cast<float2*>(smem + kAStages * kAChunkBytes + off) =
+              make_float2(to_tf32(x0 - h0), to_tf32(x1 - h1));
         } else {
-          // the gate rounded to bf16 before the res/skip product
-          store2(reinterpret_cast<E*>(smem + swizzled<E>(128 * c + cl, row)),
-                 make_float2(x0, x1));
+          *reinterpret_cast<float2*>(smem + G::kARegion + off) = make_float2(x0, x1);
         }
       }
     }
@@ -393,25 +371,23 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
     int ks = 0;
 #pragma unroll 1
     for (int pass = 0; pass < G::kPasses; ++pass) {
-      if constexpr (kPlanes == 2) {
-        if (pass > 0) {
-          named_sync_consumers();  // both are done with the previous half
-          if (c == pass) {
-            const float4* src = reinterpret_cast<const float4*>(smem + G::kARegion);
-            float4* hi = reinterpret_cast<float4*>(smem);
-            float4* lo = reinterpret_cast<float4*>(smem + kAStages * kAChunkBytes);
+      if (pass > 0) {
+        named_sync_consumers();  // both are done with the previous half
+        if (c == pass) {
+          const float4* src = reinterpret_cast<const float4*>(smem + G::kARegion);
+          float4* hi = reinterpret_cast<float4*>(smem);
+          float4* lo = reinterpret_cast<float4*>(smem + kAStages * kAChunkBytes);
 #pragma unroll 4
-            for (int u = threadIdx.x % 128; u < G::kStashBytes / 16; u += 128) {
-              const float4 x = src[u];
-              const float4 xh = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
-              hi[u] = xh;
-              lo[u] = make_float4(to_tf32(x.x - xh.x), to_tf32(x.y - xh.y), to_tf32(x.z - xh.z),
-                                  to_tf32(x.w - xh.w));
-            }
-            fence_proxy_async();
+          for (int u = threadIdx.x % 128; u < G::kStashBytes / 16; u += 128) {
+            const float4 x = src[u];
+            const float4 xh = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+            hi[u] = xh;
+            lo[u] = make_float4(to_tf32(x.x - xh.x), to_tf32(x.y - xh.y), to_tf32(x.z - xh.z),
+                                to_tf32(x.w - xh.w));
           }
-          named_sync_consumers();
+          fence_proxy_async();
         }
+        named_sync_consumers();
       }
 #pragma unroll 2
       for (int kh = 0; kh < kCh / G::kPasses / G::kKStep; ++kh, ++ks) {
@@ -421,7 +397,7 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
             b_ring + b_stage * kBStageBytes + ((j * kConsumers + c) * kPlanes) * (kNW2 * 32);
         const uint32_t aoff = (kh / 4) * kAChunkBytes + 32 * (kh % 4);
         wgmma_fence();
-        mma_step<E, kNW2>(acc2, a_hi + aoff, a_lo + aoff, blk, blk + kNW2 * 32);
+        mma_step<kNW2>(acc2, a_hi + aoff, a_lo + aoff, blk, blk + kNW2 * 32);
         wgmma_commit();
         wgmma_wait<0>();
         if (j == kKps2 - 1) {
@@ -441,8 +417,7 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
       const size_t step = row0 + pos;
 #pragma unroll
       for (int i = 0; i < kNW2 / 8; ++i) {
-        // rs in the layer's type (bf16: rounded)
-        const float2 v = round_to<E>(make_float2(acc2[4 * i + 2 * hr], acc2[4 * i + 2 * hr + 1]));
+        const float2 v = make_float2(acc2[4 * i + 2 * hr], acc2[4 * i + 2 * hr + 1]);
         const int col = c * kNW2 + 8 * i + 2 * t;  // rs column
         if (MODE == kRs) {
           store2(rs_out + step * RS + col, v);
@@ -467,15 +442,14 @@ wn_layer_kernel(const __grid_constant__ CUtensorMap tmap_h,
 
 // [B, T, C] -> a map whose box is 128 bytes of channels x kTile steps of
 // one batch row, 128-byte swizzled, zero outside the tensor
-template <typename E>
-bool encode_activations(CUtensorMap* map, const E* base, int C, int T, int B) {
+bool encode_activations(CUtensorMap* map, const float* base, int C, int T, int B) {
   auto encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(E), (cuuint64_t)C * sizeof(E) * T};
-  const cuuint32_t box[3] = {(cuuint32_t)Geom<E>::kKC, kTile, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(float), (cuuint64_t)C * sizeof(float) * T};
+  const cuuint32_t box[3] = {(cuuint32_t)Geom::kKC, kTile, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, tensor_map_type<E>(), 3, const_cast<E*>(base), dims, strides, box, elem,
+  return encode(map, tensor_map_type<float>(), 3, const_cast<float*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -488,30 +462,30 @@ struct LayerArgs {
   cudaStream_t stream;
 };
 
-template <typename E, int MODE, int RS>
+template <int MODE, int RS>
 int launch(const LayerArgs& a) {
-  const E* h = static_cast<const E*>(a.h);
-  const E* cond = static_cast<const E*>(a.cond);
+  const float* h = static_cast<const float*>(a.h);
+  const float* cond = static_cast<const float*>(a.cond);
   CUtensorMap map_h, map_cond;
-  if (!encode_activations<E>(&map_h, h, kCh, a.T, a.B) ||
-      !encode_activations<E>(&map_cond, cond, a.CC, a.T, a.B))
+  if (!encode_activations(&map_h, h, kCh, a.T, a.B) ||
+      !encode_activations(&map_cond, cond, a.CC, a.T, a.B))
     return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = Geom<E>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(wn_layer_kernel<E, MODE, RS>,
+  constexpr size_t smem = Geom::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(wn_layer_kernel<MODE, RS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.T + kTile - 1) / kTile;
   const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, a.B);
-  wn_layer_kernel<E, MODE, RS><<<grid, kThreads, smem, a.stream>>>(
-      map_h, map_cond, h, static_cast<const E*>(a.skip), static_cast<const E*>(a.wpack),
-      static_cast<const E*>(a.bias_a), static_cast<const E*>(a.b_rs), static_cast<E*>(a.h_out),
-      static_cast<E*>(a.skip_out), static_cast<E*>(a.rs), a.T, a.CC, a.dil);
+  wn_layer_kernel<MODE, RS><<<grid, kThreads, smem, a.stream>>>(
+      map_h, map_cond, h, static_cast<const float*>(a.skip), static_cast<const float*>(a.wpack),
+      static_cast<const float*>(a.bias_a), static_cast<const float*>(a.b_rs),
+      static_cast<float*>(a.h_out), static_cast<float*>(a.skip_out), static_cast<float*>(a.rs),
+      a.T, a.CC, a.dil);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
 int layer(const LayerArgs& a, int rs_out, int mode) {
-  if (a.B < 1 || a.B > 65535 || a.T < 1 || a.CC < Geom<E>::kKC || a.CC % Geom<E>::kKC != 0 ||
+  if (a.B < 1 || a.B > 65535 || a.T < 1 || a.CC < Geom::kKC || a.CC % Geom::kKC != 0 ||
       a.dil < 1)
     return (int)cudaErrorInvalidValue;
   const bool wide = rs_out == 2 * kCh;
@@ -519,19 +493,19 @@ int layer(const LayerArgs& a, int rs_out, int mode) {
   switch (mode) {
     case kRs:
       if (!a.rs) return (int)cudaErrorInvalidValue;
-      return wide ? launch<E, kRs, 2 * kCh>(a) : launch<E, kRs, kCh>(a);
+      return wide ? launch<kRs, 2 * kCh>(a) : launch<kRs, kCh>(a);
     case kMid:
       if (!wide || !a.skip || !a.h_out || !a.skip_out) return (int)cudaErrorInvalidValue;
-      return launch<E, kMid, 2 * kCh>(a);
+      return launch<kMid, 2 * kCh>(a);
     case kFirst:
       if (!wide || !a.h_out || !a.skip_out) return (int)cudaErrorInvalidValue;
-      return launch<E, kFirst, 2 * kCh>(a);
+      return launch<kFirst, 2 * kCh>(a);
     case kLast:
       if (wide || !a.skip || !a.skip_out) return (int)cudaErrorInvalidValue;
-      return launch<E, kLast, kCh>(a);
+      return launch<kLast, kCh>(a);
     case kFirstLast:
       if (wide || !a.skip_out) return (int)cudaErrorInvalidValue;
-      return launch<E, kFirstLast, kCh>(a);
+      return launch<kFirstLast, kCh>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -552,22 +526,11 @@ int wn_layer_f32(const float* h, const float* cond, const float* skip, const flo
                  int B, int T, int CC, int rs_out, int dil, int mode, void* stream) {
   const LayerArgs a{h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B, T, CC, dil,
                     static_cast<cudaStream_t>(stream)};
-  return layer<float>(a, rs_out, mode);
-}
-
-// The same layer in bf16: every tensor bf16 (wpack: one bf16 plane per
-// stage), CC a multiple of 64.
-int wn_layer_bf16(const void* h, const void* cond, const void* skip, const void* wpack,
-                  const void* bias_a, const void* b_rs, void* h_out, void* skip_out, void* rs,
-                  int B, int T, int CC, int rs_out, int dil, int mode, void* stream) {
-  const LayerArgs a{h, cond, skip, wpack, bias_a, b_rs, h_out, skip_out, rs, B, T, CC, dil,
-                    static_cast<cudaStream_t>(stream)};
-  return layer<__nv_bfloat16>(a, rs_out, mode);
+  return layer(a, rs_out, mode);
 }
 
 // dynamic shared memory of a block, bytes
-int wn_layer_smem_bytes() { return (int)Geom<float>::kSmemBytes; }
-int wn_layer_smem_bytes_bf16() { return (int)Geom<__nv_bfloat16>::kSmemBytes; }
+int wn_layer_smem_bytes() { return (int)Geom::kSmemBytes; }
 
 const char* wn_layer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

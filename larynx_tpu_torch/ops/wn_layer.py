@@ -4,10 +4,10 @@ Counterpart of ``larynx_tpu/ops/wn_layer.py``: both its Pallas kernels,
 ``fused_wn_layer_state`` (the layer plus the residual/skip state update,
 the production path of ``models/waveglow/model.py::_wn``) and
 ``fused_wn_layer`` (the layer alone, returning rs).  Both wrappers launch
-the CUDA kernel ``csrc/wn_layer.cu`` for a CUDA tensor and run the plain
-torch version (:func:`wn_layer_state_plain`, :func:`wn_layer_plain`) for a
-CPU tensor.  There is no other route: a CUDA tensor the kernel cannot take
-raises.
+a CUDA kernel for a CUDA tensor, ``csrc/wn_layer.cu`` in float32 and
+``csrc/wn_bf16.cu`` in bfloat16, and run the plain torch version
+(:func:`wn_layer_state_plain`, :func:`wn_layer_plain`) for a CPU tensor.
+There is no other route: a CUDA tensor the kernel cannot take raises.
 
 One layer, for h [B, T, ch], cond [B, T, cc] (channels-last):
 
@@ -33,6 +33,11 @@ round where the Pallas kernel does (``larynx_tpu/ops/wn_layer.py:155-195``):
 the products sum in float32, ``bias_a = bf16(b_in + b_cond)``, the gate is
 formed in float32 and rounded before the res/skip product, ``rs + b_rs`` is
 rounded, and so are ``h + rs[..., :ch]`` and ``skip + rs[..., ch:]``.
+
+The bfloat16 kernel runs persistent clusters (:func:`bf16_launch_plan`
+mirrors its plan): as many clusters of :data:`BF16_CLUSTER` blocks as fit
+on the card at once, each walking items of :data:`BF16_CLUSTER` 64-row
+tiles and multicasting every weight stage to its blocks.
 """
 
 import ctypes
@@ -44,11 +49,22 @@ import torch.nn.functional as F
 
 from larynx_tpu_torch.ops.mrf_block import _tf32_split
 
-KERNEL_CHANNELS = 256  # ch the kernel is built for (csrc/wn_layer.cu kCh)
+KERNEL_CHANNELS = 256  # ch the kernels are built for (kCh)
 STAGE_BYTES = 32768  # one weight stage of the kernel's ring, float32 (Geom::kBStageBytes)
-STAGE_BYTES_BF16 = 16384  # ... bfloat16
+STAGE_BYTES_BF16 = 16384  # ... bfloat16 (csrc/wn_bf16.cu kBStageBytes)
 CONSUMERS = 2  # consumer warpgroups, each owning a half of every product's columns
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/wn_bf16.cu's plan
+BF16_TILE = 64  # time steps a tile (kTile)
+BF16_CLUSTER = 2  # blocks a cluster, sharing each weight stage (kCluster)
+BF16_RING_STAGES = 8  # weight ring depth (kBStages)
+BF16_CHUNK_BYTES = BF16_TILE * 128  # one activation chunk (kChunkBytes)
+# 1 KB of alignment, the activation ring (4 chunks, later the gated tile),
+# the centre tap of h and the skip tile (4 chunks each), the weight ring,
+# 27 mbarriers
+BF16_SMEM_BYTES = (1024 + 12 * BF16_CHUNK_BYTES + BF16_RING_STAGES * STAGE_BYTES_BF16
+                   + (2 * BF16_RING_STAGES + 2 * 4 + 3) * 8)
 
 # kernel modes (csrc/wn_layer.cu Mode)
 MODE_RS, MODE_MID, MODE_FIRST, MODE_LAST, MODE_FIRST_LAST = range(5)
@@ -80,6 +96,34 @@ def kernel_takes(ch: int, cc: int, dtype: torch.dtype = torch.float32) -> bool:
     """True when the CUDA kernel is built for this (ch, cc, dtype)."""
     return (dtype in KERNEL_DTYPES and ch == KERNEL_CHANNELS and cc > 0
             and cc % cond_align(dtype) == 0)
+
+
+def bf16_launch_plan(b: int, t: int, cc: int, rs_out: int, active_clusters: int) -> dict:
+    """The bfloat16 kernel's launch at (B, T, cc, rs_out) on a card where
+    ``active_clusters`` clusters fit at once (the kernel reports it:
+    :func:`bf16_geometry`).  ``grid`` blocks in clusters of ``cluster``;
+    an item is ``cluster`` consecutive 64-row tiles of the B * ceil(T / 64),
+    row major (the last item may run past them on zero-filled rows); each
+    block takes at most ``tiles_per_block`` tiles.  Every weight stage
+    (``stage_bytes``, ``stages_per_tile`` of them a tile, ``ring_stages`` in
+    flight) leaves L2 once an item: ``l2_weight_bytes`` a launch."""
+    if not (1 <= b <= 65535 and t >= 1 and cc > 0 and cc % cond_align(torch.bfloat16) == 0
+            and rs_out in (KERNEL_CHANNELS, 2 * KERNEL_CHANNELS) and active_clusters >= 1):
+        raise ValueError(f"no bf16 WN plan for B={b}, T={t}, cc={cc}, rs_out={rs_out}, "
+                         f"{active_clusters} clusters")
+    tiles = b * -(-t // BF16_TILE)
+    items = -(-tiles // BF16_CLUSTER)
+    clusters = min(items, active_clusters)
+    ch = KERNEL_CHANNELS
+    kps2 = 1 if rs_out == 2 * ch else 2  # second-product k-steps a stage
+    stages = (3 * ch + cc) // 16 + ch // 16 // kps2
+    return {
+        "tiles": tiles, "items": items, "cluster": BF16_CLUSTER, "clusters": clusters,
+        "grid": clusters * BF16_CLUSTER, "tiles_per_block": -(-items // clusters),
+        "stage_bytes": STAGE_BYTES_BF16, "stages_per_tile": stages,
+        "ring_stages": BF16_RING_STAGES, "smem_bytes": BF16_SMEM_BYTES,
+        "l2_weight_bytes": items * stages * STAGE_BYTES_BF16,
+    }
 
 
 def _stages(w: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -255,33 +299,59 @@ def _check(h, cond, skip, layer: WNLayer, rs_out: int, dilation: int) -> None:
         raise ValueError("the packed weights do not match the layer's geometry")
 
 
-def _setup(lib: ctypes.CDLL) -> None:
+def _setup(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("wn_layer_f32", "wn_layer_bf16"):
-        getattr(lib, name).restype = i
-        getattr(lib, name).argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.wn_layer_error_string.restype = ctypes.c_char_p
-    lib.wn_layer_error_string.argtypes = [i]
-    for name in ("wn_layer_smem_bytes", "wn_layer_smem_bytes_bf16"):
-        getattr(lib, name).restype = i
-        getattr(lib, name).argtypes = []
+    launch = getattr(lib, "wn_bf16" if name == "wn_bf16" else "wn_layer_f32")
+    launch.restype = i
+    launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    getattr(lib, f"{name}_error_string").argtypes = [i]
+    if name == "wn_bf16":
+        lib.wn_bf16_geometry.restype = i
+        lib.wn_bf16_geometry.argtypes = [i, i, i, i, p]
+    else:
+        lib.wn_layer_smem_bytes.restype = i
+        lib.wn_layer_smem_bytes.argtypes = []
 
 
-def _library() -> ctypes.CDLL:
+def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The float32 kernel's library (``wn_layer``) or the bfloat16
+    kernel's (``wn_bf16``), built at first use."""
     from larynx_tpu_torch.ops.build import load_library
 
-    lib = load_library("wn_layer")
+    name = "wn_bf16" if dtype == torch.bfloat16 else "wn_layer"
+    lib = load_library(name)
     if not hasattr(lib, "_larynx_ready"):
-        _setup(lib)
+        _setup(name, lib)
         lib._larynx_ready = True
     return lib
+
+
+def bf16_geometry(b: int, t: int, cc: int, rs_out: int) -> typing.List[int]:
+    """The bfloat16 kernel's own launch plan on the current CUDA device:
+    [grid blocks, cluster size, clusters that fit at once, tiles a block,
+    weight stage bytes, weight stages a tile, ring stages, dynamic shared
+    memory bytes] (mirrored by :func:`bf16_launch_plan`)."""
+    lib = _library(torch.bfloat16)
+    out = (ctypes.c_int * 8)()
+    err = lib.wn_bf16_geometry(b, t, cc, rs_out, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"wn_bf16_geometry: {lib.wn_bf16_error_string(err).decode()}")
+    return list(out)
+
+
+def bf16_active_clusters() -> int:
+    """Clusters of the bfloat16 kernel that fit on the current CUDA device
+    at once."""
+    return bf16_geometry(1, 1, cond_align(torch.bfloat16), 2 * KERNEL_CHANNELS)[2]
 
 
 def _launch(lib, mode, h, cond, skip, layer, dilation, h_out, skip_out, rs):
     b, t, _ = h.shape
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    launch = lib.wn_layer_bf16 if h.dtype == torch.bfloat16 else lib.wn_layer_f32
+    bf16 = h.dtype == torch.bfloat16
+    launch = lib.wn_bf16 if bf16 else lib.wn_layer_f32
     with torch.cuda.device(h.device):
         err = launch(
             h.data_ptr(), cond.data_ptr(), ptr(skip), layer.wpack.data_ptr(),
@@ -290,7 +360,8 @@ def _launch(lib, mode, h, cond, skip, layer, dilation, h_out, skip_out, rs):
             dilation, mode, stream,
         )
     if err != 0:
-        raise RuntimeError(f"wn_layer launch failed: {lib.wn_layer_error_string(err).decode()}")
+        text = (lib.wn_bf16_error_string if bf16 else lib.wn_layer_error_string)(err)
+        raise RuntimeError(f"wn_layer launch failed: {text.decode()}")
 
 
 def fused_wn_layer_state(
@@ -324,7 +395,7 @@ def fused_wn_layer_state(
         raise ValueError(f"fused_wn_layer_state runs on cpu or cuda tensors, got {h.device}")
     skip_in = None if first else skip
     _check(h, cond, skip_in, layer, rs_out, dilation)
-    lib = _library()
+    lib = _library(h.dtype)
     mode = {(False, False): MODE_MID, (True, False): MODE_FIRST,
             (False, True): MODE_LAST, (True, True): MODE_FIRST_LAST}[(first, last)]
     h_new = h if last else torch.empty_like(h)
@@ -353,7 +424,7 @@ def fused_wn_layer(
         raise ValueError(f"fused_wn_layer runs on cpu or cuda tensors, got {h.device}")
     rs_out = layer.b_rs.numel()
     _check(h, cond, None, layer, rs_out, dilation)
-    lib = _library()
+    lib = _library(h.dtype)
     rs = torch.empty(h.shape[:2] + (rs_out,), dtype=h.dtype, device=h.device)
     _launch(lib, MODE_RS, h, cond, None, layer, dilation, None, None, rs)
     fused_wn_layer.launches += 1

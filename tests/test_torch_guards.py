@@ -545,7 +545,7 @@ def test_wn_wrappers_launch_or_raise_for_cuda_in_either_dtype(monkeypatch, dtype
     def no_plain(*args, **kwargs):
         raise AssertionError("plain version taken for a CUDA tensor")
 
-    def no_library():
+    def no_library(*args):  # the float32 or the bfloat16 kernel's library
         raise RuntimeError("kernel library unavailable")
 
     monkeypatch.setattr(wn_layer, "wn_layer_plain", no_plain)

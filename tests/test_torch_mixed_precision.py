@@ -464,6 +464,86 @@ def test_pack_weights_bf16_layout(rs_out):
             assert v[1, kps2 - 1, c, ngrp, 1, r8, 3].item() == (c * n2 + 8 * ngrp + r8) % 128
 
 
+# (B, T) of the bf16 WN kernel's plan: the main path's group call, the B=1
+# stacks of the server, the fallback, the trained voice and the mesh grid,
+# a ragged T with an odd tile count (13 a row, 39 in all) and T under a tile
+WN_PLAN_SHAPES = ([(4, 32768)] + [(1, t) for t in (2816, 8192, 12288, 14592, 16384, 24576, 32768)]
+                  + [(3, 777), (1, 64 * 13 - 5), (2, 40), (1, 1)])
+
+
+@pytest.mark.parametrize("b,t", WN_PLAN_SHAPES, ids=[f"B{b}-T{t}" for b, t in WN_PLAN_SHAPES])
+@pytest.mark.parametrize("active", [66, 1])
+def test_bf16_wn_launch_plan(b, t, active):
+    """The bf16 WN kernel's plan (``csrc/wn_bf16.cu``, mirrored by
+    ``bf16_launch_plan``): clusters of 2 blocks, at most as many as fit;
+    walking items k, k + clusters, ... covers every 64-row tile once, the
+    tiles past the last on batch rows >= B; the weight stages of a tile are
+    the packed weights, and each leaves L2 once an item; the shared memory
+    fits a block."""
+    tiles_row = -(-t // 64)
+    n = wn_layer.BF16_CLUSTER
+    for rs_out in (512, 256):
+        plan = wn_layer.bf16_launch_plan(b, t, 640, rs_out, active)
+        assert plan["tiles"] == b * tiles_row and plan["cluster"] == n == 2
+        assert plan["items"] == -(-plan["tiles"] // n)
+        assert plan["clusters"] == min(plan["items"], active)
+        assert plan["grid"] == n * plan["clusters"]
+        seen = []
+        for k in range(plan["clusters"]):
+            walk = range(k, plan["items"], plan["clusters"])
+            assert len(walk) <= plan["tiles_per_block"]
+            seen += [item * n + rank for item in walk for rank in range(n)]
+        assert sorted(seen) == list(range(plan["items"] * n))
+        assert all(tile // tiles_row >= b for tile in seen if tile >= plan["tiles"])
+        assert max(len(range(k, plan["items"], plan["clusters"]))
+                   for k in range(plan["clusters"])) == plan["tiles_per_block"]
+        w = torch.zeros((3 * 256 + 640, 512), dtype=BF16)
+        wpack = wn_layer.pack_weights(w, torch.zeros((256, rs_out), dtype=BF16))
+        assert plan["stages_per_tile"] * plan["stage_bytes"] == 2 * wpack.numel()
+        assert plan["stages_per_tile"] == 88 + (16 if rs_out == 512 else 8)
+        assert plan["l2_weight_bytes"] == plan["items"] * 2 * wpack.numel()
+        assert plan["ring_stages"] == 8 and plan["stage_bytes"] == 16384
+        assert (12 * wn_layer.BF16_CHUNK_BYTES + plan["ring_stages"] * plan["stage_bytes"]
+                < plan["smem_bytes"] == 230616 <= mrf_block.MAX_SMEM)
+    if (b, t, active) == (4, 32768, 66):  # the main path: 16 tiles a block, 1.74 GB from L2
+        main = wn_layer.bf16_launch_plan(b, t, 640, 512, 66)
+        assert (main["grid"], main["tiles_per_block"]) == (132, 16)
+        assert main["l2_weight_bytes"] == 1744830464
+
+
+def test_bf16_wn_launch_plan_rejects_what_the_kernel_does_not_take():
+    for args in ((0, 10, 640, 512), (65536, 10, 640, 512), (1, 0, 640, 512), (1, 10, 32, 512),
+                 (1, 10, 640, 384)):
+        with pytest.raises(ValueError):
+            wn_layer.bf16_launch_plan(*args, active_clusters=66)
+
+
+def _gate_closed_form(a, b):
+    """The bf16 WN kernel's gate, csrc/wn_bf16.cu::gate, with exact exp2
+    and division: (1 - e^-2a) / ((1 + e^-2a)(1 + e^-b)), a clamped to
+    [-9, 9]."""
+    log2e = 1.4426950408889634
+    a = a.clamp(-9.0, 9.0)
+    ea = torch.exp2(-2.0 * log2e * a)
+    eb = torch.exp2(-log2e * b)
+    return (1.0 - ea) * (1.0 / ((1.0 + ea) * (1.0 + eb)))
+
+
+def test_bf16_wn_gate_closed_form():
+    """The kernel's form of tanh(a) * sigmoid(b), in float64, stays within
+    3.1e-8 of tanh(a) * sigmoid(b) (the clamp's tanh(9) = 1 - 3.05e-8) over
+    the range the pre-gate takes and far past it (|a|, |b| up to 1e4 at
+    float32 values: the clamp keeps e^-2a finite, an infinite e^-b gives
+    0), and rounds to the same bf16 gate but for a few ties."""
+    v = torch.cat([torch.linspace(-12, 12, 2401), torch.tensor([-1e4, -100.0, -30.0, 30.0, 100.0,
+                                                                  1e4, 0.0, 1e-6, -1e-6])])
+    a, b = torch.meshgrid(v.double(), v.double(), indexing="ij")
+    got, want = _gate_closed_form(a, b), torch.tanh(a) * torch.sigmoid(b)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < 3.1e-8
+    assert (got.to(BF16) != want.to(BF16)).float().mean().item() < 1e-3
+
+
 # Released geometries: (vocoder, C, ResBlock geometry); every one of them
 # runs the bf16 kernel (universal_large stages 2-4, vctk_medium 1-4,
 # vctk_small 1-4).

@@ -242,12 +242,13 @@ def test_wn_wrappers_launch_or_raise_for_cuda(monkeypatch):
 
     class CudaLike:
         device = torch.device("cuda", 0)
+        dtype = torch.float32
         shape = (1, 40, 256)
 
     def no_plain(*args, **kwargs):
         raise AssertionError("plain version taken for a CUDA tensor")
 
-    def no_library():
+    def no_library(*args):  # the float32 or the bfloat16 kernel's library
         raise RuntimeError("kernel library unavailable")
 
     monkeypatch.setattr(wn_layer, "wn_layer_plain", no_plain)
