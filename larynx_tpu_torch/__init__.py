@@ -47,6 +47,7 @@ from larynx_tpu_torch.constants import (
     VocoderType,
 )
 from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.runtime import trace
 from larynx_tpu_torch.text.frontend import sentences as frontend_sentences
 from larynx_tpu_torch.text.ids import load_phoneme_ids, phonemes_to_ids
 from larynx_tpu_torch.text.langs import resolve_lang
@@ -208,7 +209,8 @@ def _build_jobs(
 ):
     """Frontend + model resolution -> per-sentence job dicts; ``half`` and
     ``denoiser_strength`` are the loaded models' defaults, as in
-    ``larynx_tpu``."""
+    ``larynx_tpu``.  The text's sentences, words and phonemes are traced as
+    ``frontend.text``; the models' loads and the id lookup stay outside."""
     resolved_name = resolve_voice_name(voice_or_lang)
     try:
         voice_lang, _voice_name, _voice_type = split_voice_name(resolved_name)
@@ -217,7 +219,10 @@ def _build_jobs(
     voice_lang = resolve_lang(voice_lang)
 
     jobs: typing.List[typing.Dict[str, typing.Any]] = []
-    for sentence in frontend_sentences(text, lang=voice_lang, ssml=ssml, explicit_lang=False):
+    with trace.span("frontend.text"):
+        sentences = list(frontend_sentences(text, lang=voice_lang, ssml=ssml,
+                                            explicit_lang=False))
+    for sentence in sentences:
         tts_model_names = []
         if sentence.voice:
             tts_model_names.append(sentence.voice)

@@ -29,6 +29,7 @@ import torch
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
 from larynx_tpu_torch.models.nn import conv1d, conv_transpose1d, leaky_relu
 from larynx_tpu_torch.ops.mrf_block import mrf_section, pack_mrf_stage
+from larynx_tpu_torch.runtime import trace
 
 Params = typing.Dict[str, typing.Any]
 
@@ -84,7 +85,13 @@ def generator(params: Params, cfg: HiFiGanConfig, mel: torch.Tensor) -> torch.Te
         x = conv_transpose1d(x, up["w"], up["b"], stride=u, padding=(k - u) // 2)
         stage = params["mrf"][i] if "mrf" in params else None
         if stage is not None:
-            x = mrf_section(x.contiguous(), stage)
+            b, t, c = x.shape
+            with trace.span("kernel.mrf_section", profile=False, B=b, T=t, C=c,
+                            itemsize=x.element_size(),
+                            kernel_sizes=stage.kernel_sizes,
+                            dilations=stage.dilations_per_block,
+                            convs_per_unit=stage.convs_per_unit):
+                x = mrf_section(x.contiguous(), stage)
         else:
             acc = None
             for rb, ds in zip(params["resblocks"][i * nk : (i + 1) * nk], dilations):

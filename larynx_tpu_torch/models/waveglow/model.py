@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from larynx_tpu_torch.models.nn import conv1d
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 from larynx_tpu_torch.ops.wn_layer import fused_wn_layer_state, pack_wn_layer
+from larynx_tpu_torch.runtime import trace
 
 Params = typing.Dict[str, typing.Any]
 
@@ -81,11 +82,15 @@ def _wn(p: Params, cfg: WaveGlowConfig, x0: torch.Tensor, spect_g: torch.Tensor)
     x0 [B, blocks, n_half]; spect_g [B, blocks, n_mels*groups]."""
     h = F.linear(x0, p["start_w"], p["start_b"]).contiguous()
     skip = None
+    b, t, ch = h.shape
+    cc, itemsize = spect_g.shape[-1], h.element_size()
     for i, layer in enumerate(p["layers"]):
-        h, skip = fused_wn_layer_state(
-            h, spect_g, skip, layer, dilation=2**i,
-            first=i == 0, last=i == cfg.wn_layers - 1,
-        )
+        first, last = i == 0, i == cfg.wn_layers - 1
+        with trace.span("kernel.wn_layer", profile=False, B=b, T=t, ch=ch, cc=cc, first=first,
+                        last=last, itemsize=itemsize):
+            h, skip = fused_wn_layer_state(
+                h, spect_g, skip, layer, dilation=2**i, first=first, last=last,
+            )
     return F.linear(skip, p["end_w"], p["end_b"])
 
 

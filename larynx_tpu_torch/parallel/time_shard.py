@@ -36,6 +36,7 @@ from larynx_tpu_torch.audio import AudioSettings
 from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
 from larynx_tpu_torch.models.hifi_gan import model as hifi_model
 from larynx_tpu_torch.models.waveglow import model as wg_model
+from larynx_tpu_torch.runtime import trace
 from larynx_tpu_torch.runtime.engine import SILENCE_LOG_MEL, HostCopy, postprocess
 
 Replicas = typing.Mapping[torch.device, typing.Any]
@@ -97,6 +98,7 @@ def _grid_vocode(generate, upsample: int, blocks_per_frame: int, settings: Audio
         chunk = m // n_time
         width = min(chunk + 2 * halo, m)
         w_start = min(max(t * chunk - halo, 0), m - width)
+        trace.count("engine.vocode_frames", mel.shape[0] * width)
         mel_pp = postprocess(mel[:, w_start : w_start + width],
                              z_mask[:, w_start : w_start + width], settings)
         z_w = None

@@ -59,10 +59,12 @@ WaveGlow's prior, and the audio returns to float32 before the denoiser and
 int16.
 """
 
+import itertools
 import logging
 import math
 import os
 import threading
+import time
 import typing
 
 import numpy as np
@@ -81,6 +83,7 @@ from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
 from larynx_tpu_torch.models.waveglow import model as wg_model
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 from larynx_tpu_torch.ops.mrf_block import chain_halo
+from larynx_tpu_torch.runtime import trace
 from larynx_tpu_torch.runtime.buckets import BucketPolicy
 from larynx_tpu_torch.weights import cast, tree_to
 
@@ -361,6 +364,7 @@ class SynthesisEngine:
         self._bias_spec = None  # lazy denoiser bias, built once under _bias_lock
         self._bias_lock = threading.Lock()
         self.generator_calls = 0  # vocoder runs (generator or WaveGlow infer), bias included
+        self._calls = itertools.count()  # synthesize_batch / stream calls: their spans' id
         # the predicted mel bucket's state: an upper bound on mel frames per
         # input token at length scale 1 (0: nothing observed yet), and the
         # decodes launched again because a prediction fell short
@@ -538,37 +542,51 @@ class SynthesisEngine:
 
     def _mesh_encode(self, id_seqs, length_scale, speaker_ids):
         """Each position encodes its rows of the batch, on its device."""
-        ids, lengths, b_bucket = self._pad_id_arrays(id_seqs, self._n_data)
-        idx = self._speaker_index(speaker_ids, b_bucket)
-        scales = self._row_values(length_scale, b_bucket)
+        with trace.span("engine.pad"):
+            ids, lengths, b_bucket = self._pad_id_arrays(id_seqs, self._n_data)
+            idx = self._speaker_index(speaker_ids, b_bucket)
+            scales = self._row_values(length_scale, b_bucket)
         s = b_bucket // self._n_data
         outs, gs = [], []
-        for k, dev in enumerate(self.mesh.positions):
-            rows = slice(k * s, (k + 1) * s)
-            glow = self._replicas[dev][0]
-            g = None if idx is None else glow_model.speaker_embedding(
-                glow, to_device(idx[rows], dev))
-            outs.append(glow_model.encode(
-                glow, self.glow_cfg, to_device(ids[rows], dev), to_device(lengths[rows], dev),
-                length_scale=to_device(scales[rows].reshape(s, 1), dev), g=g,
-            ))
-            gs.append(g)
-        return MeshEncodeOutput(outs), (None if idx is None else RowShards(gs))
+        with trace.span("engine.encode", rows=b_bucket, text_bucket=ids.shape[1]):
+            for k, dev in enumerate(self.mesh.positions):
+                rows = slice(k * s, (k + 1) * s)
+                glow = self._replicas[dev][0]
+                g = None if idx is None else glow_model.speaker_embedding(
+                    glow, to_device(idx[rows], dev))
+                outs.append(glow_model.encode(
+                    glow, self.glow_cfg, to_device(ids[rows], dev), to_device(lengths[rows], dev),
+                    length_scale=to_device(scales[rows].reshape(s, 1), dev), g=g,
+                ))
+                gs.append(g)
+            return MeshEncodeOutput(outs), (None if idx is None else RowShards(gs))
 
     def _encode_one(self, id_seqs, length_scale=1.0, speaker_ids=None):
         """:meth:`encode_launch` on the engine's device alone."""
-        ids, lengths, b_bucket = self._pad_id_batch(id_seqs)
-        g = self._speaker_embedding(speaker_ids, b_bucket)
-        out = glow_model.encode(
-            self.glow_params, self.glow_cfg, ids, lengths,
-            length_scale=self._row_param(length_scale, b_bucket, 2), g=g,
-        )
-        return EncodeOutput(out), g
+        with trace.span("engine.pad"):
+            ids, lengths, b_bucket = self._pad_id_batch(id_seqs)
+        with trace.span("engine.encode", rows=b_bucket, text_bucket=ids.shape[1]):
+            g = self._speaker_embedding(speaker_ids, b_bucket)
+            out = glow_model.encode(
+                self.glow_params, self.glow_cfg, ids, lengths,
+                length_scale=self._row_param(length_scale, b_bucket, 2), g=g,
+            )
+            return EncodeOutput(out), g
 
     def encode_batch(self, id_seqs, length_scale=1.0, speaker_ids=None):
         """Blocking encode -> (outputs, y_lengths numpy, g)."""
         out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
-        return out, out.lengths.numpy(), g
+        return out, self.host_lengths(out, len(id_seqs)), g
+
+    @staticmethod
+    def host_lengths(enc_out, n: int) -> np.ndarray:
+        """Wait for the copy of an encode's y_lengths -> numpy; counts the
+        ``n`` valid rows' frames in ``engine.valid_frames``, once per batch
+        decoded."""
+        with trace.span("engine.lengths_wait"):
+            y_lengths = enc_out.lengths.numpy()
+        trace.count("engine.valid_frames", int(np.sum(y_lengths[:n])))
+        return y_lengths
 
     @torch.inference_mode()
     def decode_launch(
@@ -582,6 +600,7 @@ class SynthesisEngine:
         batch_index: int = 0,
         row_seeds: typing.Optional[typing.Sequence[typing.Optional[int]]] = None,
         mel_bucket_override: typing.Optional[int] = None,
+        redo: bool = False,
     ):
         """Flow decode at ``policy.mel_bucket(max y_length)``, or at
         ``mel_bucket_override`` (then ``y_lengths`` may be None: the rows'
@@ -589,29 +608,32 @@ class SynthesisEngine:
 
         ``row_seeds`` (one entry per sentence, None = unseeded) switches to
         per-row noise (:meth:`row_noise`), so seeded rows reproduce whatever
-        their batchmates; it replaces the scalar ``seed``."""
+        their batchmates; it replaces the scalar ``seed``.  ``redo`` marks
+        the decode again of a prediction that fell short, in its span."""
         x_m, x_logs, _logw, w_ceil, y_dev, _mask = enc_out
         b, _t, c = x_m.shape
         mel_bucket = (
             mel_bucket_override if mel_bucket_override is not None
             else self.policy.mel_bucket(int(y_lengths[:n].max()))
         )
-        if isinstance(enc_out, MeshEncodeOutput):
-            return self._mesh_decode(enc_out, g, n, mel_bucket, noise_scale, seed, batch_index,
-                                     row_seeds)
-        noise = generator = None
-        if row_seeds is not None:
-            noise = self.row_noise(row_seeds, b, mel_bucket, c, batch_index)
-        else:
-            generator = self._noise_generator(seed, batch_index)
-        return glow_model.expand_and_decode(
-            self.glow_params, self.glow_cfg, x_m, x_logs, w_ceil, y_dev,
-            mel_max_length=mel_bucket,
-            noise_scale=self._row_param(noise_scale, b, 3),
-            noise=noise,
-            generator=generator,
-            g=g,
-        )
+        trace.count("engine.decode_frames", b * mel_bucket)
+        with trace.span("engine.decode", rows=b, mel_bucket=mel_bucket, redo=redo):
+            if isinstance(enc_out, MeshEncodeOutput):
+                return self._mesh_decode(enc_out, g, n, mel_bucket, noise_scale, seed,
+                                         batch_index, row_seeds)
+            noise = generator = None
+            if row_seeds is not None:
+                noise = self.row_noise(row_seeds, b, mel_bucket, c, batch_index)
+            else:
+                generator = self._noise_generator(seed, batch_index)
+            return glow_model.expand_and_decode(
+                self.glow_params, self.glow_cfg, x_m, x_logs, w_ceil, y_dev,
+                mel_max_length=mel_bucket,
+                noise_scale=self._row_param(noise_scale, b, 3),
+                noise=noise,
+                generator=generator,
+                g=g,
+            )
 
     def _mesh_decode(self, enc_out, g, n, mel_bucket, noise_scale, seed, batch_index, row_seeds):
         """Each position decodes its rows.  The noise is drawn once on the
@@ -706,7 +728,7 @@ class SynthesisEngine:
                 enc_out, None, g, n, noise_scale=noise_scale, batch_index=batch_index,
                 mel_bucket_override=bucket,
             )
-        y_lengths = enc_out.lengths.numpy()
+        y_lengths = self.host_lengths(enc_out, n)
         actual = int(y_lengths[:n].max())
         self._observe_frames_per_token(actual, max_id_len, ls)
         if decoded is not None and actual <= bucket:
@@ -716,7 +738,7 @@ class SynthesisEngine:
                 self._bucket_mispredicts += 1
             mel, z_mask = self.decode_launch(
                 enc_out, y_lengths, g, n, noise_scale=noise_scale, seed=seed,
-                batch_index=batch_index, row_seeds=row_seeds,
+                batch_index=batch_index, row_seeds=row_seeds, redo=decoded is not None,
             )
         return mel, z_mask, y_lengths
 
@@ -758,15 +780,19 @@ class SynthesisEngine:
         if self.vocoder_kind == "none":
             raise RuntimeError("an engine with vocoder_kind='none' cannot vocode "
                                "(mel-only surface; use phonemes_to_mels)")
-        if isinstance(mel, RowShards):
-            return self._mesh_vocode(mel, z_mask, n_valid, denoiser_strength, seed, batch_index)
-        if self.vocoder_kind == "griffin_lim":
-            part = self._vocode_griffin_lim(mel, z_mask, seed, batch_index)
-            return [(HostCopy(part), list(range(mel.shape[0])))]
-        z_full = None
-        if self.vocoder_kind == "waveglow":
-            z_full = self._waveglow_prior(mel.shape[0], mel.shape[1], z_mask, seed, batch_index)
-        return self._vocode_groups(mel, z_mask, n_valid, denoiser_strength, y_lengths, z_full)
+        with trace.span("engine.vocode", rows=n_valid):
+            if isinstance(mel, RowShards):
+                return self._mesh_vocode(mel, z_mask, n_valid, denoiser_strength, seed,
+                                         batch_index)
+            if self.vocoder_kind == "griffin_lim":
+                part = self._vocode_griffin_lim(mel, z_mask, seed, batch_index)
+                return [(HostCopy(part), list(range(mel.shape[0])))]
+            z_full = None
+            if self.vocoder_kind == "waveglow":
+                z_full = self._waveglow_prior(mel.shape[0], mel.shape[1], z_mask, seed,
+                                              batch_index)
+            return self._vocode_groups(mel, z_mask, n_valid, denoiser_strength, y_lengths,
+                                       z_full)
 
     def _waveglow_prior(self, b: int, m: int, z_mask, seed, batch_index,
                         drawn: typing.Optional[int] = None) -> torch.Tensor:
@@ -792,6 +818,7 @@ class SynthesisEngine:
         magnitudes through the mel basis (last frame dropped), Griffin-Lim
         from a random phase (or ``initial_phase``), each row normalised over
         its (y - 1) * hop + fft samples."""
+        trace.count("engine.vocode_frames", mel.shape[0] * mel.shape[1])
         fft, hop = self.audio_settings.filter_length, self.audio_settings.hop_length
         mel_pp = postprocess(mel, z_mask, self.audio_settings)
         basis = self._replicas[mel.device][2] if mel.device in self._replicas else self._gl_basis
@@ -807,18 +834,21 @@ class SynthesisEngine:
     def _vocode(self, mel, z_mask, bias_spec, strength, denoise: bool, z=None,
                 params=None) -> torch.Tensor:
         """mel [B, M, C] -> int16 audio [B, M * upsample (+ STFT tail)];
-        ``params`` a mesh position's vocoder replica."""
-        mel_pp = postprocess(mel, z_mask, self.audio_settings)
-        audio = self._generate(mel_pp.transpose(1, 2), z, params)
-        n_valid = (z_mask > 0).sum(dim=1) * self.upsample
-        if denoise:
-            fft = self.audio_settings.filter_length
-            hop = self.audio_settings.hop_length
-            audio = hifi_denoiser.denoise(audio, bias_spec, strength, fft, hop)
-            # denoised length per row: frames(n_valid) * hop + fft
-            nf = torch.clamp(n_valid - fft, min=0)
-            n_valid = (nf + hop - 1) // hop * hop + fft
-        return to_int16(audio, n_valid)
+        ``params`` a mesh position's vocoder replica.  Traced as
+        ``engine.vocode_group``, one row group's launches."""
+        trace.count("engine.vocode_frames", mel.shape[0] * mel.shape[1])
+        with trace.span("engine.vocode_group", rows=mel.shape[0], width=mel.shape[1]):
+            mel_pp = postprocess(mel, z_mask, self.audio_settings)
+            audio = self._generate(mel_pp.transpose(1, 2), z, params)
+            n_valid = (z_mask > 0).sum(dim=1) * self.upsample
+            if denoise:
+                fft = self.audio_settings.filter_length
+                hop = self.audio_settings.hop_length
+                audio = hifi_denoiser.denoise(audio, bias_spec, strength, fft, hop)
+                # denoised length per row: frames(n_valid) * hop + fft
+                nf = torch.clamp(n_valid - fft, min=0)
+                n_valid = (nf + hop - 1) // hop * hop + fft
+            return to_int16(audio, n_valid)
 
     def _vocode_groups(self, mel, z_mask, n_valid, denoiser_strength, y_lengths, z_full):
         """Length-sorted ragged row groups, each at its own bucketed width;
@@ -1108,11 +1138,12 @@ class SynthesisEngine:
         """Vocode parts -> per-row int16 arrays in original row order; waits
         on each part's copy."""
         rows: typing.List[typing.Optional[np.ndarray]] = [None] * b
-        for part, idxs in parts:
-            arr = part.numpy()
-            for j, i in enumerate(idxs):
-                if i < b:
-                    rows[i] = arr[j]
+        with trace.span("engine.collect", parts=len(parts)):
+            for part, idxs in parts:
+                arr = part.numpy()
+                for j, i in enumerate(idxs):
+                    if i < b:
+                        rows[i] = arr[j]
         return [r if r is not None else np.zeros((0,), np.int16) for r in rows]
 
     def crop_rows(self, audio_rows, y_lengths: np.ndarray, n: int, denoiser_strength):
@@ -1121,15 +1152,16 @@ class SynthesisEngine:
         fft = self.audio_settings.filter_length
         hop = self.audio_settings.hop_length
         out = []
-        for i in range(n):
-            n_samples = int(y_lengths[i]) * self.upsample
-            if self.vocoder_kind == "griffin_lim":
-                # (frames - 1) usable spectrogram frames
-                n_samples = max(int(y_lengths[i]) - 1, 1) * hop + fft
-            elif denoised:
-                n_samples = dsp.num_frames(n_samples, fft, hop) * hop + fft
-            n_samples = min(n_samples, audio_rows[i].shape[-1])
-            out.append(np.ascontiguousarray(audio_rows[i][:n_samples]))
+        with trace.span("engine.crop", rows=n):
+            for i in range(n):
+                n_samples = int(y_lengths[i]) * self.upsample
+                if self.vocoder_kind == "griffin_lim":
+                    # (frames - 1) usable spectrogram frames
+                    n_samples = max(int(y_lengths[i]) - 1, 1) * hop + fft
+                elif denoised:
+                    n_samples = dsp.num_frames(n_samples, fft, hop) * hop + fft
+                n_samples = min(n_samples, audio_rows[i].shape[-1])
+                out.append(np.ascontiguousarray(audio_rows[i][:n_samples]))
         return out
 
     @torch.inference_mode()
@@ -1198,26 +1230,28 @@ class SynthesisEngine:
         the gated encode + decode, else encode then the predicted decode,
         then vocode."""
         n = len(id_seqs)
-        fused = None
-        if seed is None:
-            fused = self.encode_decode_launch_predicted(
-                id_seqs, length_scale, speaker_ids=speaker_ids, noise_scale=noise_scale,
-                batch_index=batch_index,
-            )
-        if fused is not None:
-            mel, z_mask, y_lengths, _g = fused
-            parts = self.vocode_launch(mel, z_mask, n, denoiser_strength, y_lengths=y_lengths,
-                                       batch_index=batch_index)
-            b_rows = mel.shape[0]
-        else:
-            enc_out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
-            parts, b_rows, y_lengths = self.synthesize_launch_predicted(
-                enc_out, g, n, max((len(s) for s in id_seqs), default=0),
-                noise_scale=noise_scale, length_scale=length_scale, seed=seed,
-                batch_index=batch_index, denoiser_strength=denoiser_strength,
-            )
-        audio_rows = self.vocode_collect(parts, b_rows)
-        return self.crop_rows(audio_rows, y_lengths, n, denoiser_strength)
+        with trace.span("engine.batch", id=next(self._calls), rows=n) as span:
+            fused = None
+            if seed is None:
+                fused = self.encode_decode_launch_predicted(
+                    id_seqs, length_scale, speaker_ids=speaker_ids, noise_scale=noise_scale,
+                    batch_index=batch_index,
+                )
+            if fused is not None:
+                mel, z_mask, y_lengths, _g = fused
+                parts = self.vocode_launch(mel, z_mask, n, denoiser_strength,
+                                           y_lengths=y_lengths, batch_index=batch_index)
+                b_rows = mel.shape[0]
+            else:
+                enc_out, g = self.encode_launch(id_seqs, length_scale, speaker_ids=speaker_ids)
+                parts, b_rows, y_lengths = self.synthesize_launch_predicted(
+                    enc_out, g, n, max((len(s) for s in id_seqs), default=0),
+                    noise_scale=noise_scale, length_scale=length_scale, seed=seed,
+                    batch_index=batch_index, denoiser_strength=denoiser_strength,
+                )
+            span.set(bucket=b_rows)
+            audio_rows = self.vocode_collect(parts, b_rows)
+            return self.crop_rows(audio_rows, y_lengths, n, denoiser_strength)
 
     # ------------------------------------------------------------------
     # streaming
@@ -1228,6 +1262,7 @@ class SynthesisEngine:
         -> int16 [1, window * upsample (+ STFT tail)]: no per-utterance peak
         normalisation (the generator's tanh already bounds the waveform)."""
         mel_c, mask_c = mel[:, start : start + window], z_mask[:, start : start + window]
+        trace.count("engine.vocode_frames", mel_c.shape[0] * mel_c.shape[1])
         audio = self._generate(postprocess(mel_c, mask_c, self.audio_settings).transpose(1, 2))
         if denoise:
             fft, hop = self.audio_settings.filter_length, self.audio_settings.hop_length
@@ -1255,14 +1290,35 @@ class SynthesisEngine:
         Chunk i + 1 is launched before chunk i is copied to the host (a
         blocking copy).  ``speaker_ids`` ([k]) picks a multi-speaker voice's
         speaker.  The decode runs at the exact mel bucket.  On a mesh the
-        stream runs on the first position alone."""
+        stream runs on the first position alone.
+
+        Traced as ``engine.stream`` (the call to its last chunk) and one
+        ``engine.stream_chunk`` per chunk: the generator's own time from the
+        call (chunk 0: the time to the first chunk) or from its resumption
+        to the chunk's yield, the consumer's time between them left out."""
         if self.vocoder_kind != "hifi_gan":
             raise ValueError(
                 "streaming synthesis requires a HiFi-GAN vocoder "
                 f"(engine has vocoder_kind={self.vocoder_kind!r})"
             )
+        call = next(self._calls)
+        t_call = t_chunk = time.perf_counter_ns()
+        chunk = 0
+        try:
+            for audio in self._stream_chunks(ids, noise_scale, length_scale, seed,
+                                             denoiser_strength, chunk_frames, speaker_ids):
+                trace.record("engine.stream_chunk", t_chunk, id=call, chunk=chunk)
+                yield audio
+                t_chunk = time.perf_counter_ns()
+                chunk += 1
+        finally:
+            trace.record("engine.stream", t_call, id=call, chunks=chunk)
+
+    def _stream_chunks(self, ids, noise_scale, length_scale, seed, denoiser_strength,
+                       chunk_frames, speaker_ids):
+        """:meth:`synthesize_stream`'s chunks, each copied to the host."""
         enc_out, g = self._encode_one([ids], length_scale, speaker_ids=speaker_ids)
-        y_lengths = enc_out.lengths.numpy()
+        y_lengths = self.host_lengths(enc_out, 1)
         n_frames = int(y_lengths[0])
         mel, z_mask = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale,
                                          seed=seed)
@@ -1300,7 +1356,7 @@ class SynthesisEngine:
         On a mesh it runs on the first position."""
         speaker_ids = None if speaker_id is None else [int(speaker_id)]
         enc_out, g = self._encode_one([np.asarray(ids)], length_scale, speaker_ids=speaker_ids)
-        y_lengths = enc_out.lengths.numpy()
+        y_lengths = self.host_lengths(enc_out, 1)
         mel, _ = self.decode_launch(enc_out, y_lengths, g, 1, noise_scale=noise_scale, seed=seed)
         frames = int(y_lengths[0])
         return mel[0:1, :frames].float().transpose(1, 2).cpu().numpy()

@@ -1,6 +1,7 @@
 # Copied from larynx_tpu/runtime/scheduler.py, driving the port's engine:
-# only the package names, the logger and the launch comments differ, and
-# y_lengths is read through the copy that encode_launch started.
+# only the package names, the logger and the launch comments differ,
+# y_lengths is read through the copy that encode_launch started, and the
+# queue waits and groups are traced (runtime/trace.py).
 """Request-coalescing batch scheduler.
 
 Concurrent requests enqueue sentence-level jobs into a shared scheduler; a
@@ -10,8 +11,13 @@ each group as one batched engine call, so many concurrent requests become
 a handful of batched device calls.  All device work runs on the worker
 thread: the engine's launch methods enter ``torch.inference_mode``
 themselves, which is per thread.
+
+Traced as ``scheduler.queue`` (a job's wait from its submit to the worker
+taking it, id the job's) and ``scheduler.group`` (a group's encode launch
+to its audio set).
 """
 
+import itertools
 import logging
 import queue
 import threading
@@ -21,6 +27,8 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from larynx_tpu_torch.runtime import trace
 
 _LOGGER = logging.getLogger("larynx_tpu_torch.scheduler")
 
@@ -33,6 +41,8 @@ class _Job:
     length_scale: float
     denoiser_strength: float
     seed: typing.Optional[int]
+    id: int = 0
+    submitted_ns: int = 0  # time.perf_counter_ns() at submit
     future: "Future[np.ndarray]" = field(default_factory=Future)
 
     def group_key(self):
@@ -75,6 +85,7 @@ class BatchScheduler:
         self._started = False
         self._lock = threading.Lock()
         self._batch_counter = 0
+        self._job_ids = itertools.count()
         self.batches_run = 0
         self.jobs_run = 0
 
@@ -97,7 +108,8 @@ class BatchScheduler:
         """Queue one sentence; the future resolves to int16 audio."""
         self._ensure_started()
         job = _Job(engine, np.asarray(ids), noise_scale, length_scale,
-                   denoiser_strength, seed)
+                   denoiser_strength, seed, id=next(self._job_ids),
+                   submitted_ns=time.perf_counter_ns())
         self._queue.put(job)
         return job.future
 
@@ -113,6 +125,7 @@ class BatchScheduler:
         first = self._queue.get()
         if first is None:
             raise StopIteration
+        trace.record("scheduler.queue", first.submitted_ns, id=first.id)
         jobs = [first]
         deadline = time.monotonic() + self.max_wait_s
         while len(jobs) < self.max_batch:
@@ -126,6 +139,7 @@ class BatchScheduler:
             if job is None:
                 self._queue.put(None)  # re-signal shutdown
                 break
+            trace.record("scheduler.queue", job.submitted_ns, id=job.id)
             jobs.append(job)
         return jobs
 
@@ -144,7 +158,11 @@ class BatchScheduler:
             # vocode is launched before group j's audio is collected, so the
             # device works on the next group while the host copies this one
             ordered = list(groups.values())
-            launched = [self._launch_encode(g) for g in ordered]
+            started = []
+            launched = []
+            for g in ordered:
+                started.append(time.perf_counter_ns())
+                launched.append(self._launch_encode(g))
             tails: typing.List[typing.Any] = [None] * len(ordered)
             if ordered:
                 tails[0] = self._launch_tail(ordered[0], launched[0])
@@ -154,6 +172,8 @@ class BatchScheduler:
                         ordered[j + 1], launched[j + 1]
                     )
                 self._collect_group(group, tails[j])
+                trace.record("scheduler.group", started[j], rows=len(group),
+                             jobs=[job.id for job in group])
 
     def _launch_encode(self, group: typing.List[_Job]):
         engine = group[0].engine
@@ -172,7 +192,7 @@ class BatchScheduler:
         self._batch_counter += 1
         try:
             enc_out, g = enc
-            y_lengths = enc_out.lengths.numpy()
+            y_lengths = engine.host_lengths(enc_out, len(group))
             strengths = [job.denoiser_strength for job in group]
             deterministic_vocoder = (
                 getattr(engine, "vocoder_kind", "") == "hifi_gan"

@@ -14,7 +14,11 @@ loop's thread.
 ``/api/stats`` reports the scheduler's counters, the version and one entry
 per cached engine: its predicted mel bucket's state (``frames_per_token``,
 ``bucket_mispredicts``) as the JAX route has it, and its vocoder kind,
-device and vocoder dtype.
+device and vocoder dtype; and ``trace``, the port's trace registry
+(``runtime/trace.py``): its counters, and while tracing is on
+(``LARYNX_TPU_TRACE=1``) each span name's count and total, self, p50, p95
+and max ms.  Every request is traced as ``server.request`` (its route and
+status).
 """
 
 import asyncio
@@ -33,6 +37,7 @@ from aiohttp import web
 import larynx_tpu_torch
 from larynx_tpu_torch import text_to_speech
 from larynx_tpu_torch.device import resolve_device
+from larynx_tpu_torch.runtime import trace
 
 if typing.TYPE_CHECKING:
     from larynx_tpu_torch.runtime.scheduler import BatchScheduler
@@ -593,6 +598,7 @@ def create_app(settings: typing.Optional[ServerSettings] = None) -> web.Applicat
                 ),
                 "engines": engines,
                 "version": larynx_tpu_torch.__version__,
+                "trace": trace.stats(),
             }
         )
 
@@ -635,6 +641,22 @@ def create_app(settings: typing.Optional[ServerSettings] = None) -> web.Applicat
     # ------------------------------------------------------------------
 
     @web.middleware
+    async def trace_middleware(request, handler):
+        start = time.perf_counter_ns()
+        status = 500
+        try:
+            response = await handler(request)
+            status = response.status
+            return response
+        except web.HTTPException as err:
+            status = err.status
+            raise
+        finally:
+            resource = request.match_info.route.resource
+            trace.record("server.request", start, route=request.method + " " + (
+                resource.canonical if resource is not None else request.path), status=status)
+
+    @web.middleware
     async def error_middleware(request, handler):
         try:
             return await handler(request)
@@ -652,7 +674,7 @@ def create_app(settings: typing.Optional[ServerSettings] = None) -> web.Applicat
         response.headers["Access-Control-Allow-Origin"] = "*"
         return response
 
-    app = web.Application(middlewares=[error_middleware, cors_middleware])
+    app = web.Application(middlewares=[trace_middleware, error_middleware, cors_middleware])
     app[SCHEDULER_KEY] = scheduler
     app[EXECUTOR_KEY] = executor
     app.router.add_get("/api/tts", app_say)
