@@ -85,9 +85,11 @@ Phases (any failure exits non-zero):
  13. Tacotron2 and checkpoint import, in float32: a Tacotron2 voice at
      NVIDIA's hparams (random weights, the gate held off so that every decode
      runs its 1000 steps) through ``text_to_speech`` with HiFi-GAN
-     universal_large (27 MRF launches) and WaveGlow (96 WN launches), the
-     stream and ``/api/tts``, all through the unfused fallback; the decode's
-     time and kernel launches per step and the card's busy share over it; the
+     universal_large (27 MRF launches) and WaveGlow (96 WN launches) and
+     ``/api/tts``, through the engine's autoregressive batch path (one vocoder
+     group call a sentence), and the stream through the unfused fallback (one
+     chunk, the same audio); the engine's blocked decode alone, its time,
+     stop reads and kernel launches per step and the card's busy share over it; the
      CUDA path against the CPU path under the same prenet keep masks (one
      ``_decoder_step`` from identical states, the whole decode's mel per 100
      steps, the audio by correlation); the same Tacotron2 and universal_large
@@ -2774,13 +2776,16 @@ def stage_tacotron2_voices(root: Path):
 
 def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: set):
     """Phase 13, float32: a Tacotron2 voice at full width through
-    ``text_to_speech`` (HiFi-GAN universal_large and WaveGlow), the stream and
-    ``/api/tts``, all through the unfused fallback; the decode's time and
-    launches per step and the card's busy share over it; the CUDA path against
-    the CPU path under the same prenet keep masks (dropout on, p = 0.5); the
-    same weights from NVIDIA-named ``.pth`` files.  Adds the shapes that the
-    CUDA runs give the kernels to ``mrf_shapes`` and ``wn_shapes``; returns
-    launches and measurements."""
+    ``text_to_speech`` (HiFi-GAN universal_large and WaveGlow) and
+    ``/api/tts``, both through the engine's autoregressive batch path
+    (``runtime/tacotron2_engine.py``: one vocoder group call a sentence), and
+    the stream through the unfused fallback (one chunk, the same audio); the
+    engine's blocked decode alone, its time and launches per step and the
+    card's busy share over it; the CUDA path against the CPU path under the
+    same prenet keep masks (dropout on, p = 0.5); the same weights from
+    NVIDIA-named ``.pth`` files.  Adds the shapes that the CUDA runs give the
+    kernels to ``mrf_shapes`` and ``wn_shapes``; returns launches and
+    measurements."""
     import collections
 
     import larynx_tpu_torch
@@ -2835,7 +2840,9 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
             f"phonemes_to_mels {t_acoustic:.3f} ms, mels_to_audio {t_vocode:.3f} ms; MRF launches "
             f"{n_mrf}")
 
-        # the decode alone, on the voice's device params and the model's masks
+        # the engine's blocked decode alone (its stops read once a block), on
+        # the voice's device params and the engine's masks for a row of a call
+        # without seeds
         params = model._device_params.get(cuda, torch.float32)
         ids_t = torch.zeros((1, t_bucket), dtype=torch.long)
         ids_t[0, : len(ids)] = torch.from_numpy(ids)
@@ -2843,13 +2850,14 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
         keep = t2_model.draw_keep_masks(cfg, steps, 1, _DEFAULT_SEED)  # the model's masks
 
         def decode():
-            return t2_model.decode_inference(params, cfg, memory, mask, steps, keep.cuda())
+            return t2_model.decode_blocked(params, cfg, memory, mask, np.array([steps]),
+                                           keep.cuda())
 
         with torch.inference_mode():
             (memory, mask), t_encode = timed_once(
                 lambda: t2_model.encode(params, cfg, ids_t.cuda(), len_t.cuda()))
             decode()
-            (mel_gpu, _, lengths), t_decode = timed_once(decode)
+            (mel_gpu, lengths, _steps, blocks), t_decode = timed_once(decode)
             _, t_postnet = timed_once(lambda: t2_model.postnet(params, cfg, mel_gpu))
             events = collections.Counter()
             _, traced, busy = device_busy_ms(decode, events)
@@ -2864,7 +2872,8 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
                          "memset": events["gpu_memset"], "host_syncs": events["host_sync"]}
         log(f"tacotron2 encode (B=1, T={t_bucket}, BiLSTM step by step) {t_encode:.3f} ms, "
             f"postnet {t_postnet:.3f} ms (host clock)")
-        log(f"tacotron2 decode, {steps} steps, B=1, T={t_bucket}: {t_decode:.3f} ms "
+        log(f"tacotron2 blocked decode, {steps} steps ({blocks} stop reads), B=1, "
+            f"T={t_bucket}: {t_decode:.3f} ms "
             f"({t_decode / steps:.4f} ms per step, host clock); traced {traced:.3f} ms, the card "
             f"busy {busy if busy is None else round(busy, 3)} ms "
             f"({'not measured' if busy_share is None else f'{busy_share:.1%}'}); "
@@ -2872,7 +2881,7 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
             f"{events['gpu_memcpy']} copies, {events['gpu_memset']} memsets, "
             f"{events['host_sync']} host waits for the card (the trace's closing one included)")
 
-        # WaveGlow through the fallback: one bucketed call of the 1000-frame mel
+        # WaveGlow through the engine: one group call of the 1000-frame mel
         tts(vocoder_or_quality="waveglow")
         wn_layer.fused_wn_layer_state.launches = 0
         (wg_audio,), t_wg = timed_once(lambda: tts(vocoder_or_quality="waveglow"))
@@ -2969,8 +2978,9 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
                              f"(tol {T2_STEP_TOLERANCE})")
     start = time.perf_counter()
     with torch.inference_mode():
-        mel_cpu, _, lengths_cpu = t2_model.decode_inference(
-            cpu_params, cfg, *t2_model.encode(cpu_params, cfg, ids_t, len_t), steps, keep)
+        mel_cpu, lengths_cpu, _steps, _blocks = t2_model.decode_blocked(
+            cpu_params, cfg, *t2_model.encode(cpu_params, cfg, ids_t, len_t), np.array([steps]),
+            keep)
         t_cpu_decode = 1e3 * (time.perf_counter() - start)
         post_cpu = (mel_cpu + t2_model.postnet(cpu_params, cfg, mel_cpu)).transpose(1, 2)
     err = (mel_gpu.cpu() - mel_cpu).abs()[0].amax(dim=-1)  # [steps]

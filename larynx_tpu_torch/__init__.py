@@ -154,8 +154,9 @@ def stream_text_to_speech(
     chunks as the vocoder produces them, at fixed gain (no per-utterance
     peak normalisation); SSML pauses become silence chunks and sentence i
     takes ``seed + i``.  ``half`` runs GlowTTS and the vocoder in bfloat16.
-    Another vocoder than HiFi-GAN (WaveGlow, Griffin-Lim) yields one chunk
-    per sentence through the unfused fallback, as the JAX stream does.
+    Another vocoder than HiFi-GAN (WaveGlow, Griffin-Lim), or a Tacotron2
+    voice, yields one chunk per sentence through the unfused fallback, as the
+    JAX stream does.
     """
     device = resolve_device(device)
     noise_scale = 0.667
@@ -175,7 +176,8 @@ def stream_text_to_speech(
             before, after = _pause_samples(job)
             if before:
                 yield np.zeros(before, dtype=np.int16)
-            if engine is not None and engine.vocoder_kind == "hifi_gan":
+            if engine is not None and engine.vocoder_kind == "hifi_gan" \
+                    and not engine.autoregressive:
                 yield from engine.synthesize_stream(
                     job["ids"],
                     noise_scale=noise_scale,
@@ -352,7 +354,8 @@ def _plan_units(jobs, max_batch, device, half=False, interleaved=False):
 def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch, seed, device,
               scheduler=None, half=False, interleaved=False):
     """Batch same-(voice, vocoder) jobs; yield in document order
-    (``larynx_tpu/__init__.py::_run_jobs``, step for step).
+    (``larynx_tpu/__init__.py::_run_jobs``, step for step; a Tacotron2
+    voice's units decode inside their encode launches, under ``seed``).
 
     With a ``scheduler`` every sentence is submitted to it instead, so
     sentences of concurrent requests share its batches.  Otherwise the
@@ -367,11 +370,21 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
 
     noise_scale = 0.667
     length_scale = 1.0
+    max_decoder_steps = None  # a Tacotron2 voice's, as its fallback reads it
     if tts_settings:
         noise_scale = float(tts_settings.get("noise_scale", noise_scale))
         length_scale = float(tts_settings.get("length_scale", length_scale))
+        max_decoder_steps = tts_settings.get("max_decoder_steps")
+    given_strength = bool(vocoder_settings) and "denoiser_strength" in vocoder_settings
     if vocoder_settings:
         denoiser_strength = float(vocoder_settings.get("denoiser_strength", denoiser_strength))
+
+    def strength_of(engine, job):
+        """An autoregressive voice's denoiser strength follows its fallback:
+        the request's vocoder settings', else the vocoder model's own."""
+        if engine.autoregressive and not given_strength:
+            return float(job["vocoder_model"].denoiser_strength)
+        return denoiser_strength
 
     if scheduler is not None:
         futures = []
@@ -382,8 +395,9 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
                 job["ids"],
                 noise_scale=noise_scale,
                 length_scale=length_scale,
-                denoiser_strength=denoiser_strength,
+                denoiser_strength=strength_of(engine, job),
                 seed=seed,
+                max_decoder_steps=max_decoder_steps,
             ))
         for job, future in zip(jobs, futures):
             if future is None:
@@ -395,6 +409,8 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
         return
 
     units = _plan_units(jobs, max_batch, device, half=half, interleaved=interleaved)
+    strengths = [None if engine is None else strength_of(engine, jobs[indices[0]])
+                 for engine, indices in units]
 
     # every unit's encode first; each starts its lengths' copy to the host
     encodes: typing.List[typing.Any] = []
@@ -404,7 +420,8 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             continue
         t0 = time.perf_counter()
         enc_out, g = engine.encode_launch([jobs[i]["ids"] for i in indices],
-                                          length_scale=length_scale)
+                                          length_scale=length_scale, seed=seed,
+                                          max_decoder_steps=max_decoder_steps)
         encodes.append((enc_out, g, t0))
 
     # pools: units that can share one vocode launch (unseeded, same
@@ -421,7 +438,8 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             and engine.mesh is None
             and engine.vocoder_kind in ("hifi_gan", "waveglow")
         ):
-            key = (id(jobs[indices[0]]["vocoder_model"]), engine.vocoder_half)
+            key = (id(jobs[indices[0]]["vocoder_model"]), engine.vocoder_half,
+                   engine.autoregressive)
         if key is not None and key in pool_key_of:
             p = pool_key_of[key]
             pools[p].append(j)
@@ -467,7 +485,7 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             mel_p, mask_p = _pool_rows([d[0] for d in decs], [d[1] for d in decs], n_valids,
                                        m_pool)
             y_pool = np.concatenate([d[2][:nv] for d, nv in zip(decs, n_valids)])
-            parts = eng0.vocode_launch(mel_p, mask_p, int(sum(n_valids)), denoiser_strength,
+            parts = eng0.vocode_launch(mel_p, mask_p, int(sum(n_valids)), strengths[members[0]],
                                        y_lengths=y_pool, seed=seed, batch_index=members[0])
             offs = np.concatenate([[0], np.cumsum(n_valids)])
             tail.update(
@@ -480,7 +498,7 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
             for j, (mel, z_mask, y_lengths) in zip(members, decs):
                 engine, indices = units[j]
                 per[j] = (
-                    engine.vocode_launch(mel, z_mask, len(indices), denoiser_strength,
+                    engine.vocode_launch(mel, z_mask, len(indices), strengths[j],
                                          y_lengths=y_lengths, seed=seed, batch_index=j),
                     y_lengths,
                     mel.shape[0],
@@ -533,11 +551,11 @@ def _run_jobs(jobs, tts_settings, vocoder_settings, denoiser_strength, max_batch
                                                                   tail["total_rows"])
                 off, nv = tail["span"][j]
                 audios = engine.crop_rows(tail["rows_np"][off : off + nv],
-                                          tail["y_pool"][off : off + nv], nv, denoiser_strength)
+                                          tail["y_pool"][off : off + nv], nv, strengths[j])
             else:
                 parts, y_lengths, b_rows = tail["per"][j]
                 audios = engine.crop_rows(engine.vocode_collect(parts, b_rows), y_lengths, n,
-                                          denoiser_strength)
+                                          strengths[j])
             inflight_bytes -= tail_bytes(j)
             elapsed = time.perf_counter() - encodes[j][2]
 
@@ -605,17 +623,21 @@ def _engine_mesh(device):
 def _get_engine(tts_model, vocoder_model, device, half: bool = False):
     """One engine per (voice params, vocoder params, device, serving mesh,
     precision): the precision is ``half`` and the vocoder's dtype, ``half``
-    or the default on the device, read at the call.  None, where the JAX
-    package has no engine either (another acoustic model or vocoder class):
-    the caller then takes the unfused fallback."""
+    or the default on the device, read at the call.  A GlowTTS voice with
+    any vocoder class, or a Tacotron2 voice with HiFi-GAN or WaveGlow (on one
+    device, float32 whatever ``half``: ``runtime/tacotron2_engine.py``).
+    None for another acoustic model or vocoder class: the caller then takes
+    the unfused fallback."""
     from larynx_tpu_torch.glow_tts import GlowTextToSpeech
     from larynx_tpu_torch.griffin_lim import GriffinLimVocoder
     from larynx_tpu_torch.hifi_gan import HiFiGanVocoder
     from larynx_tpu_torch.runtime.engine import SynthesisEngine, default_vocoder_half
+    from larynx_tpu_torch.tacotron2 import Tacotron2TextToSpeech
     from larynx_tpu_torch.waveglow import WaveGlowVocoder
 
     vocoder_half = half or default_vocoder_half(device)
-    mesh = _engine_mesh(device)
+    tacotron2 = isinstance(tts_model, Tacotron2TextToSpeech)
+    mesh = None if tacotron2 else _engine_mesh(device)
     with _CACHE_LOCK:
         key = (id(tts_model), id(vocoder_model), str(device), half, vocoder_half, mesh)
         if key in _ENGINE_CACHE:
@@ -631,7 +653,8 @@ def _get_engine(tts_model, vocoder_model, device, half: bool = False):
         elif isinstance(vocoder_model, GriffinLimVocoder):
             extra = {"vocoder_kind": "griffin_lim"}
         engine = None
-        if isinstance(tts_model, GlowTextToSpeech) and extra is not None:
+        if extra is not None and (isinstance(tts_model, GlowTextToSpeech) or (
+                tacotron2 and extra["vocoder_kind"] != "griffin_lim")):
             engine = SynthesisEngine(
                 tts_model.params,
                 tts_model.model_config,

@@ -29,8 +29,15 @@ def denoise(
     strength,
     fft_size: int = 1024,
     hop: int = 256,
+    n_frames=None,
 ) -> torch.Tensor:
-    """audio [B, T]; bias_spec [B or 1, n_freq, 1]; strength scalar or [B, 1, 1]."""
+    """audio [B, T]; bias_spec [B or 1, n_freq, 1]; strength scalar or [B, 1, 1].
+    ``n_frames`` [B] (None: every frame) drops each row's STFT frames from
+    its ``n_frames``-th on: the row's output is then that of the row cut,
+    before the STFT, to a length of ``n_frames`` frames."""
     mag, phase = dsp.stft_magnitude_phase(audio.float(), fft_size, hop)
     mag = torch.clamp(mag - bias_spec * strength, min=0.0)
+    if n_frames is not None:
+        kept = torch.arange(mag.shape[-1], device=mag.device)[None, :] < n_frames[:, None]
+        mag = mag * kept[:, None, :]
     return dsp.inverse_magnitude_phase(mag, phase, fft_size, hop)

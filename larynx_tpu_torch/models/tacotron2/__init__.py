@@ -5,7 +5,7 @@ from larynx_tpu_torch.models.tacotron2.config import (  # noqa: F401
     tacotron2_config_from_voice_json,
 )
 from larynx_tpu_torch.models.tacotron2.model import (  # noqa: F401
-    decode_inference,
+    decode_blocked,
     draw_keep_masks,
     encode,
     infer,

@@ -10,12 +10,15 @@ as PyTorch ops.
   ``encode``            ids [B, T] -> (memory [B, T, E], mask [B, T]):
                         embedding, conv + BatchNorm + ReLU layers, a BiLSTM
                         whose padded steps carry the state unchanged.
-  ``decode_inference``  every one of ``max_steps`` autoregressive steps
-                        (prenet, attention LSTM, location-sensitive
-                        attention, decoder LSTM, projection and gate), with
-                        no host sync inside the loop: the stop token flips a
-                        ``finished`` mask and the lengths come back as a
-                        tensor, as the JAX scan's do.
+  ``decode_blocked``    the autoregressive steps (prenet, attention LSTM,
+                        location-sensitive attention, decoder LSTM,
+                        projection and gate) over a batch whose rows each
+                        have a step cap, ended early: the host reads the
+                        rows' stops once per block of steps, and the decode
+                        ends at the first block boundary where every row has
+                        stopped and its postnet halo is decoded.
+  ``infer``             ``encode``, ``decode_blocked`` at one cap for every
+                        row, and the postnet.
   ``postnet``           the 5-conv residual refiner.
   ``forward_teacher``   training: ``encode`` and ``postnet`` in train mode
                         (BatchNorm over the batch, encoder dropout) around
@@ -26,7 +29,10 @@ The NVIDIA quirk of prenet dropout at inference is kept.  The JAX package
 draws its masks per step from ``fold_in`` keys, whose bits torch cannot
 reproduce; the port takes the whole decode's keep masks as one tensor
 (:func:`draw_keep_masks`, or injected by a caller), so the decode has no
-per-step random launch and the CUDA and CPU runs use the same masks.
+per-step random launch and the CUDA and CPU runs use the same masks.  Each
+row's masks are drawn on the CPU from a generator of its own
+(:func:`row_keep_masks`), so they depend neither on the row's batchmates
+nor on how many steps are drawn.
 Training's dropout masks (encoder and prenet) enter the same way, drawn per
 step by ``models/tacotron2/training.py::draw_train_masks``.  Train mode
 only applies the two dropouts the JAX package applies: the config's
@@ -39,12 +45,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from larynx_tpu_torch.device import to_device
 from larynx_tpu_torch.models.nn import conv1d, sequence_mask
 from larynx_tpu_torch.models.tacotron2.config import Tacotron2Config
 
 Params = typing.Dict[str, typing.Any]
 
 _MASK_VALUE = -1e9
+
+# decoder steps between two host reads of the rows' stops (decode_blocked):
+# a read waits for the card to finish the block, and the card then idles
+# while the host launches the next (about a fifth of the time at 16 steps a
+# block and batch 8 on an H100); the decode's end overshoots the last stop
+# plus the postnet halo by half a block on average
+STOP_CHECK_STEPS = 32
 
 
 # -----------------------------------------------------------------------------
@@ -173,14 +187,56 @@ def encode(
 # Decoder
 
 
+class RowKeepMasks:
+    """The prenet keep masks of a batch's rows, drawn on the CPU a block of
+    steps at a time: row r keeps u < 1 - p, with u [steps, 2, prenet_dim]
+    uniform from a ``torch.Generator`` seeded by
+    ``SeedSequence(entropies[r])`` (None: a padding row, all False).
+    ``masks[a:b]`` -> [b - a, 2, B, prenet_dim] bool on ``device`` (None:
+    the CPU), the blocks asked for in order.  The CPU generator fills u in
+    order, so the blocks join into one draw, whatever their sizes and
+    however many steps are drawn."""
+
+    def __init__(self, cfg: Tacotron2Config,
+                 entropies: typing.Sequence[typing.Optional[typing.Sequence[int]]], device=None):
+        self.cfg, self.device = cfg, device
+        self._gens = []
+        for entropy in entropies:
+            gen = None
+            if entropy is not None:
+                state = np.random.SeedSequence(
+                    [int(e) & 0xFFFFFFFF for e in entropy]).generate_state(1)
+                gen = torch.Generator().manual_seed(int(state[0]))
+            self._gens.append(gen)
+        self._drawn = 0
+
+    def __getitem__(self, steps: slice) -> torch.Tensor:
+        if steps.start != self._drawn:
+            raise ValueError(f"keep masks drawn from step {self._drawn}, asked from {steps.start}")
+        shape = (steps.stop - steps.start, 2, self.cfg.prenet_dim)
+        rows = [torch.zeros(shape, dtype=torch.bool) if gen is None
+                else torch.rand(shape, generator=gen) < 1.0 - self.cfg.p_prenet_dropout
+                for gen in self._gens]
+        self._drawn = steps.stop
+        out = torch.stack(rows, dim=2)
+        return out if self.device is None else to_device(out.numpy(), self.device)
+
+
+def row_keep_masks(
+    cfg: Tacotron2Config, steps: int,
+    entropies: typing.Sequence[typing.Optional[typing.Sequence[int]]],
+) -> torch.Tensor:
+    """The first ``steps`` of :class:`RowKeepMasks`, [steps, 2, B, prenet_dim]
+    bool on the CPU."""
+    return RowKeepMasks(cfg, entropies)[0:steps]
+
+
 def draw_keep_masks(cfg: Tacotron2Config, max_steps: int, bsz: int, seed: int) -> torch.Tensor:
     """The whole decode's prenet keep masks, [max_steps, 2, B, prenet_dim]
-    bool on the CPU: keep = u < 1 - p, with u uniform from a
-    ``torch.Generator`` seeded by ``SeedSequence([seed])``."""
-    state = np.random.SeedSequence([seed & 0xFFFFFFFF]).generate_state(1)
-    gen = torch.Generator().manual_seed(int(state[0]))
-    u = torch.rand((max_steps, 2, bsz, cfg.prenet_dim), generator=gen)
-    return u < 1.0 - cfg.p_prenet_dropout
+    bool on the CPU: row r's from ``SeedSequence([seed, r])``
+    (:func:`row_keep_masks`); row 0's are ``SeedSequence([seed])``'s, since
+    a trailing zero word leaves a SeedSequence's state as it was."""
+    return row_keep_masks(cfg, max_steps, [[seed, r] for r in range(bsz)])
 
 
 def _prenet(p, x: torch.Tensor, keep: typing.Optional[torch.Tensor], p_dropout: float):
@@ -263,42 +319,98 @@ def _decoder_step(
     return new_state, mel, gate
 
 
-def decode_inference(
+def postnet_halo(cfg: Tacotron2Config) -> int:
+    """Frames past a row's last one that its postnet output reads: each of
+    the postnet's 'same' convs reaches k // 2 frames ahead (10 at 5 x k5)."""
+    return cfg.postnet_n_convolutions * (cfg.postnet_kernel_size // 2)
+
+
+def _read_host(stops: torch.Tensor) -> np.ndarray:
+    return stops.cpu().numpy()
+
+
+def decode_steps(
+    params: Params,
+    cfg: Tacotron2Config,
+    state: dict,
+    prev: torch.Tensor,
+    memory: torch.Tensor,
+    processed_memory: torch.Tensor,
+    mask: torch.Tensor,
+    n: int,
+    keep: typing.Optional[torch.Tensor] = None,
+):
+    """``n`` decoder steps from ``state`` and the last frame ``prev`` ->
+    (state, last frame, mels [B, n, M], gate logits [B, n]); ``keep``
+    [n, 2, B, prenet_dim] (bool) or None."""
+    dec = params["decoder"]
+    mels, gates = [], []
+    for i in range(n):
+        pre = _prenet(dec["prenet"], prev, None if keep is None else keep[i],
+                      cfg.p_prenet_dropout)
+        state, prev, gate = _decoder_step(params, cfg, state, pre, memory, processed_memory, mask)
+        mels.append(prev)
+        gates.append(gate)
+    return state, prev, torch.stack(mels, dim=1), torch.stack(gates, dim=1)
+
+
+def decode_blocked(
     params: Params,
     cfg: Tacotron2Config,
     memory: torch.Tensor,
     mask: torch.Tensor,
-    max_steps: int,
+    caps: np.ndarray,
     keep_masks: typing.Optional[torch.Tensor] = None,
+    block: int = STOP_CHECK_STEPS,
+    read: typing.Callable[[torch.Tensor], np.ndarray] = _read_host,
+    steps_fn=decode_steps,
 ):
-    """Autoregressive decode over every one of ``max_steps`` steps.
+    """Autoregressive decode of a batch whose row r stops at its gate or
+    at ``caps[r]`` steps (0: a padding row, stopped from the start).
 
-    ``keep_masks`` [max_steps, 2, B, prenet_dim] (bool) turns the prenet
-    dropout on; None runs without it.  Returns (mels [B, S, M], gate_logits
-    [B, S], lengths [B] int32), where a length counts frames up to and
-    including the stop-token frame, or ``max_steps`` if the gate never
-    fired.  Frames after the stop are computed too (the postnet sees them):
-    crop on the host."""
+    A row's length counts frames up to and including its stop frame, as
+    the JAX package's ``decode_inference`` counts them.  The stops [B]
+    int32 (-1 while a row runs) stay on the device; after every ``block``
+    steps ``read`` copies them to the host, and the decode ends at the
+    first block boundary where every row is done: its stop plus
+    :func:`postnet_halo` frames decoded, or its cap reached; never past
+    ``max(caps)``.  A row's frames up to that point
+    are those of its own decode over all of its cap's steps, so with the
+    postnet masked at the caps (:func:`postnet`'s ``mask``) its frames up
+    to its stop are too.  ``keep_masks``: [max(caps), 2, B, prenet_dim] on
+    the device, or :class:`RowKeepMasks`, whose next block the host draws
+    while the card runs this one; or None.  ``steps_fn`` runs each block's
+    steps, as :func:`decode_steps` does.  Returns (mels [B, S, M], lengths
+    [B] numpy, S, blocks read)."""
     dec = params["decoder"]
     bsz, t, _ = memory.shape
+    budget = int(np.max(caps))
+    caps_dev = torch.as_tensor(np.asarray(caps, dtype=np.int32)).to(memory.device)
     processed_memory = F.linear(memory, dec["attention"]["memory"]["w"])
     state = _decoder_state0(cfg, bsz, t, memory)
     prev = memory.new_zeros((bsz, cfg.mel_channels))
-    finished = torch.zeros((bsz,), dtype=torch.bool, device=memory.device)
-    lengths = torch.zeros((bsz,), dtype=torch.int32, device=memory.device)
-    mels, gates = [], []
-    for i in range(max_steps):
-        keep = None if keep_masks is None else keep_masks[i]
-        pre = _prenet(dec["prenet"], prev, keep, cfg.p_prenet_dropout)
-        state, prev, gate = _decoder_step(
-            params, cfg, state, pre, memory, processed_memory, mask
-        )
-        # length = where(finished, length, i + 1), before finished |= stop
-        lengths += (~finished).to(torch.int32)
-        finished = finished | (torch.sigmoid(gate) > cfg.gate_threshold)
-        mels.append(prev)
-        gates.append(gate)
-    return torch.stack(mels, dim=1), torch.stack(gates, dim=1), lengths
+    stops = torch.where(caps_dev > 0, -1, 0).to(torch.int32)
+    halo = postnet_halo(cfg)
+    mels = []
+    steps = blocks = 0
+    keep_next = None if keep_masks is None else keep_masks[0:min(block, budget)]
+    while steps < budget:
+        end = min(steps + block, budget)
+        state, prev, mel, gates = steps_fn(
+            params, cfg, state, prev, memory, processed_memory, mask, end - steps, keep_next)
+        mels.append(mel)
+        frame = torch.arange(steps + 1, end + 1, device=memory.device, dtype=torch.int32)
+        fired = (torch.sigmoid(gates) > cfg.gate_threshold) \
+            | (frame[None, :] >= caps_dev[:, None])
+        first = fired.to(torch.int8).argmax(dim=1).to(torch.int32) + (steps + 1)
+        stops = torch.where((stops < 0) & fired.any(dim=1), first, stops)
+        steps, blocks = end, blocks + 1
+        if keep_masks is not None and end < budget:
+            keep_next = keep_masks[end:min(end + block, budget)]
+        lengths = read(stops)
+        if np.all((lengths >= 0) & (steps >= np.minimum(lengths + halo, caps))):
+            break
+    return torch.cat(mels, dim=1), lengths, steps, blocks
 
 
 def decode_teacher(
@@ -337,12 +449,19 @@ def decode_teacher(
 
 
 def postnet(params: Params, cfg: Tacotron2Config, mels: torch.Tensor, train: bool = False,
-            bn_stats: typing.Optional[list] = None, reduce=None) -> torch.Tensor:
+            bn_stats: typing.Optional[list] = None, reduce=None,
+            mask: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
     """5-conv residual refiner: mels [B, S, M] -> residual [B, S, M]; in
-    ``train`` mode with batch statistics, as :func:`encode`."""
+    ``train`` mode with batch statistics, as :func:`encode`.  ``mask``
+    [B, S] zeroes each conv's input where it is 0, as the end of a shorter
+    decode would: row r then reads as its own decode of its first
+    ``mask[r].sum()`` frames."""
     x = mels
     convs = params["postnet"]["convs"]
+    keep = None if mask is None else mask[..., None]
     for i, conv in enumerate(convs):
+        if keep is not None:
+            x = x * keep
         x, stats = _bn(conv["bn"], conv1d(x, conv["w"], conv["b"]), train, reduce=reduce)
         _collect(bn_stats, conv["bn"], stats, x, reduce)
         if i < len(convs) - 1:
@@ -358,12 +477,16 @@ def infer(
     max_steps: typing.Optional[int] = None,
     keep_masks: typing.Optional[torch.Tensor] = None,
 ):
-    """Full inference: ids [B, T] -> (mel_post [B, S, M], lengths [B])."""
+    """Full inference: ids [B, T] -> (mel_post [B, S, M], lengths [B] int32),
+    every row capped at ``max_steps`` (the config's when None); the decode
+    ends early as :func:`decode_blocked` does, so S <= ``max_steps``, and a
+    row's frames up to its stop are those of the whole budget's decode."""
     if max_steps is None:
         max_steps = cfg.max_decoder_steps
     memory, mask = encode(params, cfg, ids, lengths)
-    mels, _, out_lengths = decode_inference(params, cfg, memory, mask, max_steps, keep_masks)
-    return mels + postnet(params, cfg, mels), out_lengths
+    mels, out_lengths, _steps, _blocks = decode_blocked(
+        params, cfg, memory, mask, np.full((ids.shape[0],), max_steps), keep_masks)
+    return mels + postnet(params, cfg, mels), torch.as_tensor(out_lengths, dtype=torch.int32)
 
 
 def forward_teacher(

@@ -51,6 +51,11 @@ rows x time grid of ``_grid_vocode_plan`` (``parallel/time_shard.py``),
 as there.  The stream, and ``phonemes_to_mels``, run on the first position
 alone (JAX computes the same values on every position).
 
+A Tacotron2 voice builds :class:`Tacotron2Engine`
+(``runtime/tacotron2_engine.py``): its encode launch runs the encode, the
+autoregressive decode of the batch's rows and the postnet, and hands the mel
+and the stop lengths to the same staged calls and vocode path.
+
 On a CUDA device GlowTTS's encode and flow decode replay CUDA graphs, one
 per bucket key (:class:`GlowGraphs`, ``runtime/glow_graphs.py``): their
 ~1280 small kernels a batch of 8 run faster than the host can launch
@@ -86,6 +91,7 @@ from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.hifi_gan import denoiser as hifi_denoiser
 from larynx_tpu_torch.models.hifi_gan import model as hifi_model
 from larynx_tpu_torch.models.hifi_gan.config import HiFiGanConfig
+from larynx_tpu_torch.models.tacotron2.config import Tacotron2Config
 from larynx_tpu_torch.models.waveglow import model as wg_model
 from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
 from larynx_tpu_torch.ops.mrf_block import chain_halo
@@ -297,10 +303,20 @@ def to_int16(audio: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
 class SynthesisEngine:
     """Parameters and staged inference for one (GlowTTS voice, vocoder) pair;
     the vocoder is HiFi-GAN, WaveGlow or Griffin-Lim, or none (mels only).
+    Built from a ``Tacotron2Config``, the engine is a :class:`Tacotron2Engine`.
 
     ``half`` casts both models to bfloat16; ``vocoder_half`` (None: ``half``
     or :func:`default_vocoder_half` on the engine's device) the vocoder.
     ``dtype`` and ``voc_dtype`` are the resulting compute dtypes."""
+
+    autoregressive = False  # the output length is known only once the model has run
+
+    def __new__(cls, glow_params=None, glow_cfg=None, *args, **kwargs):
+        if cls is SynthesisEngine and isinstance(glow_cfg, Tacotron2Config):
+            from larynx_tpu_torch.runtime.tacotron2_engine import Tacotron2Engine
+
+            cls = Tacotron2Engine
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -325,6 +341,8 @@ class SynthesisEngine:
         neural = vocoder_kind in ("hifi_gan", "waveglow")
         if neural and (vocoder_cfg is None or vocoder_params is None):
             raise ValueError(f"the {vocoder_kind} engine needs vocoder params and config")
+        if self.autoregressive and mesh is not None:
+            raise ValueError("an autoregressive voice runs on one device: pass no mesh")
         # the serving mesh (parallel/mesh.py::ServingMesh): rows over its
         # positions; None is one device.  Its first position is the
         # engine's device.
@@ -335,7 +353,8 @@ class SynthesisEngine:
         self.audio_settings = audio_settings
         self.vocoder_kind = vocoder_kind
         self.vocoder_cfg = vocoder_cfg
-        self.policy = policy or BucketPolicy(n_sqz=glow_cfg.n_sqz)
+        # an autoregressive decode emits one frame a step
+        self.policy = policy or BucketPolicy(n_sqz=1 if self.autoregressive else glow_cfg.n_sqz)
         self.seed = seed
         self.waveglow_sigma = waveglow_sigma
         self.half = half
@@ -343,12 +362,13 @@ class SynthesisEngine:
             vocoder_half if vocoder_half is not None
             else (half or default_vocoder_half(self.device))
         )
-        self.dtype = torch.bfloat16 if half else torch.float32
+        # Tacotron2 runs in float32 whatever ``half``, as its voice does
+        self.dtype = torch.bfloat16 if half and not self.autoregressive else torch.float32
         self.voc_dtype = torch.bfloat16 if self.vocoder_half else torch.float32
         self.glow_params = cast(tree_to(glow_params, self.device), self.dtype)
         # GlowTTS's encode and flow decode as CUDA graphs per bucket key
         self._glow_graphs = (GlowGraphs(self.glow_params, glow_cfg, self.policy, self.device)
-                             if self.device.type == "cuda" else None)
+                             if self.device.type == "cuda" and not self.autoregressive else None)
         self.griffin_lim_iters = griffin_lim_iters
         if griffin_lim_momentum is None:
             griffin_lim_momentum = float(os.environ.get("LARYNX_TPU_GL_MOMENTUM", "0.99"))
@@ -535,12 +555,16 @@ class SynthesisEngine:
         return glow_model.speaker_embedding(self.glow_params, to_device(idx, self.device))
 
     @torch.inference_mode()
-    def encode_launch(self, id_seqs, length_scale=1.0, speaker_ids=None):
+    def encode_launch(self, id_seqs, length_scale=1.0, speaker_ids=None, seed=None,
+                      max_decoder_steps=None):
         """Encode a batch -> (:class:`EncodeOutput`, g), without waiting for
         the card: the output's ``lengths`` is the copy of y_lengths to the
         host, already started.  ``g`` is the speaker conditioning of
         ``speaker_ids`` (one per sentence), None for a single-speaker voice.
-        On a mesh: (:class:`MeshEncodeOutput`, g as :class:`RowShards`)."""
+        On a mesh: (:class:`MeshEncodeOutput`, g as :class:`RowShards`).
+        ``seed`` and ``max_decoder_steps`` are an autoregressive voice's,
+        whose decode runs inside its encode launch (:class:`Tacotron2Engine`);
+        GlowTTS draws its noise at the decode and takes neither."""
         if self.mesh is not None:
             return self._mesh_encode(id_seqs, length_scale, speaker_ids)
         return self._encode_one(id_seqs, length_scale, speaker_ids)
@@ -872,10 +896,13 @@ class SynthesisEngine:
             if denoise:
                 fft = self.audio_settings.filter_length
                 hop = self.audio_settings.hop_length
-                audio = hifi_denoiser.denoise(audio, bias_spec, strength, fft, hop)
+                frames = (torch.clamp(n_valid - fft, min=0) + hop - 1) // hop
+                # an autoregressive voice's rows are cut to their frames before
+                # the STFT, as its fallback's vocoders cut them
+                audio = hifi_denoiser.denoise(audio, bias_spec, strength, fft, hop,
+                                              n_frames=frames if self.autoregressive else None)
                 # denoised length per row: frames(n_valid) * hop + fft
-                nf = torch.clamp(n_valid - fft, min=0)
-                n_valid = (nf + hop - 1) // hop * hop + fft
+                n_valid = frames * hop + fft
             return to_int16(audio, n_valid)
 
     def _vocode_groups(self, mel, z_mask, n_valid, denoiser_strength, y_lengths, z_full):

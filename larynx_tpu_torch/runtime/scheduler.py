@@ -1,7 +1,8 @@
 # Copied from larynx_tpu/runtime/scheduler.py, driving the port's engine:
 # only the package names, the logger and the launch comments differ,
-# y_lengths is read through the copy that encode_launch started, and the
-# queue waits and groups are traced (runtime/trace.py).
+# y_lengths is read through the copy that encode_launch started, the encode
+# launch takes the rows' seeds and step caps (a Tacotron2 voice decodes
+# inside it), and the queue waits and groups are traced (runtime/trace.py).
 """Request-coalescing batch scheduler.
 
 Concurrent requests enqueue sentence-level jobs into a shared scheduler; a
@@ -41,6 +42,7 @@ class _Job:
     length_scale: float
     denoiser_strength: float
     seed: typing.Optional[int]
+    max_decoder_steps: typing.Optional[int] = None  # an autoregressive voice's step cap
     id: int = 0
     submitted_ns: int = 0  # time.perf_counter_ns() at submit
     future: "Future[np.ndarray]" = field(default_factory=Future)
@@ -104,11 +106,12 @@ class BatchScheduler:
         length_scale: float = 1.0,
         denoiser_strength: float = 0.0,
         seed: typing.Optional[int] = None,
+        max_decoder_steps: typing.Optional[int] = None,
     ) -> "Future[np.ndarray]":
         """Queue one sentence; the future resolves to int16 audio."""
         self._ensure_started()
         job = _Job(engine, np.asarray(ids), noise_scale, length_scale,
-                   denoiser_strength, seed, id=next(self._job_ids),
+                   denoiser_strength, seed, max_decoder_steps, id=next(self._job_ids),
                    submitted_ns=time.perf_counter_ns())
         self._queue.put(job)
         return job.future
@@ -181,6 +184,8 @@ class BatchScheduler:
             return engine.encode_launch(
                 [job.ids for job in group],
                 length_scale=[job.length_scale for job in group],
+                seed=[job.seed for job in group],
+                max_decoder_steps=[job.max_decoder_steps for job in group],
             )
         except Exception as err:
             return err

@@ -3,11 +3,14 @@ per-model ``phonemes_to_mels`` surface.
 
 Counterpart of ``larynx_tpu/tacotron2.py``.  Checkpoint preference, as in
 ``larynx_tpu``: native ``generator.npz`` > ``generator.pth`` (NVIDIA
-layout, converted).  The family has no engine: every entry point reaches it
-through the unfused fallback (``_sentence_task_fallback``), one sentence at a
-time, on the caller's device.  Phoneme ids are padded to a text bucket, and
-the bucket sets the decode's step count, ``min(max_decoder_steps, 10 *
-bucket)``, which is the length of a row whose gate never fires.
+layout, converted).  The entry points reach the voice through the engine
+(``runtime/tacotron2_engine.py``), which decodes a batch's rows at once;
+``phonemes_to_mels`` is the model's own surface and the stream's (the
+unfused fallback, ``_sentence_task_fallback``).  Phoneme ids are padded to a
+text bucket, and the bucket caps the decode's steps at
+:func:`step_budget`, ``min(max_decoder_steps, 10 * bucket)``, the length of
+a row whose gate never fires.  The decode ends early once every row has
+stopped (``models/tacotron2/model.py::decode_blocked``).
 """
 
 import typing
@@ -35,6 +38,15 @@ _DEFAULT_SEED = 1234
 def text_bucket(t: int) -> int:
     """The padded width of ``t`` phoneme ids (``t`` itself past the last bucket)."""
     return next((b for b in _TEXT_BUCKETS if b >= t), t)
+
+
+def step_budget(cfg, n_ids: int, max_decoder_steps: typing.Optional[int] = None) -> int:
+    """The decoder steps a sentence of ``n_ids`` ids may run:
+    ``min(max_decoder_steps, 10 * its text bucket)``, ``max_decoder_steps``
+    the config's unless given."""
+    if max_decoder_steps is None:
+        max_decoder_steps = cfg.max_decoder_steps
+    return min(int(max_decoder_steps), _MAX_FRAMES_PER_TOKEN * text_bucket(n_ids))
 
 
 def load_tacotron2_artifacts(model_dir: Path, backend: typing.Optional[InferenceBackend] = None):
@@ -81,10 +93,10 @@ class Tacotron2TextToSpeech:
         dropout's masks, :func:`models.tacotron2.model.draw_keep_masks`)."""
         device = resolve_device(device)
         cfg = self.model_config
-        max_decoder_steps = cfg.max_decoder_steps
+        max_decoder_steps = None
         seed = _DEFAULT_SEED
         if settings:
-            max_decoder_steps = int(settings.get("max_decoder_steps", max_decoder_steps))
+            max_decoder_steps = settings.get("max_decoder_steps")
             seed = int(settings.get("seed", seed))
 
         ids = np.asarray(phoneme_ids)
@@ -94,16 +106,16 @@ class Tacotron2TextToSpeech:
         t_bucket = text_bucket(t)
         padded = np.zeros((bsz, t_bucket), dtype=np.int64)
         padded[:, :t] = ids
-        max_steps = min(max_decoder_steps, _MAX_FRAMES_PER_TOKEN * t_bucket)
+        max_steps = step_budget(cfg, t, max_decoder_steps)
         keep_masks = None
-        if cfg.p_prenet_dropout > 0.0:
-            keep_masks = to_device(t2_model.draw_keep_masks(cfg, max_steps, bsz, seed).numpy(),
-                                   device)
+        if cfg.p_prenet_dropout > 0.0:  # draw_keep_masks's rows, a block at a time
+            keep_masks = t2_model.RowKeepMasks(cfg, [[seed, r] for r in range(bsz)], device)
 
-        mel, lengths = t2_model.infer(
-            self._device_params.get(device, torch.float32), cfg,
-            to_device(padded, device), to_device(np.full((bsz,), t, dtype=np.int32), device),
-            max_steps=max_steps, keep_masks=keep_masks,
-        )
+        params = self._device_params.get(device, torch.float32)
+        memory, mask = t2_model.encode(params, cfg, to_device(padded, device),
+                                       to_device(np.full((bsz,), t, dtype=np.int32), device))
+        mels, lengths, _steps, _blocks = t2_model.decode_blocked(
+            params, cfg, memory, mask, np.full((bsz,), max_steps), keep_masks)
+        mel = mels + t2_model.postnet(params, cfg, mels)
         n = max(int(lengths.max()), 1)
         return np.ascontiguousarray(mel[:, :n].cpu().numpy().transpose(0, 2, 1))

@@ -7,7 +7,9 @@ cell, the masked BiLSTM, ``encode``, ``postnet``, the whole ``infer`` with
 the prenet dropout off and on (the JAX side draws its masks from
 ``fold_in`` keys; the port is given the same masks through
 ``keep_masks``), the stop lengths, and a voice dir through
-``text_to_speech``, the stream, the scheduler, the CLI and ``/api/tts``.
+``text_to_speech``, the stream, the scheduler, the CLI and ``/api/tts`` (the
+port's engine against the JAX package's fallback; the stream is the
+fallback's in both).
 
 Tolerances:
   * cell, BiLSTM, encoder, postnet: 1e-5 absolute on O(1) values.  Both
