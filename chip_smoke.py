@@ -94,8 +94,13 @@ Phases (any failure exits non-zero):
      ``_decoder_step`` from identical states, the whole decode's mel per 100
      steps, the audio by correlation); the same Tacotron2 and universal_large
      weights as NVIDIA/HiFi-GAN-named ``generator.pth`` files, loaded with
-     ``backend="pytorch"``: equal trees, 0 LSB from the ``.npz`` voice; then
-     both kernels at every shape the phase gave them.
+     ``backend="pytorch"``: equal trees, 0 LSB from the ``.npz`` voice; the
+     decoder step kernel (``csrc/tacotron2_step.cu``) against its plain
+     version at t2wg_batch8's shapes (B=8, text buckets 64-192) and at B=1,
+     bit for bit against itself and a batch row alone, its time a step
+     against the step's bound, the plain version and the cuBLAS step as a
+     CUDA graph, and its launches a block; then both other kernels at every
+     shape the phase gave them.
  14. training, in float32: ``python -m larynx_tpu_torch.train`` (``main``) at
      the harvard dimensions on 96 wavs that the port's ``text_to_speech``
      writes (batch 32, ids padded to 192, mels to 1024 x 80, ``--ddi``, 3
@@ -324,6 +329,17 @@ T2_DECODE_TOLERANCE = 1e-6
 # The audio of those mels (the CUDA text_to_speech against the CPU mel
 # vocoded on the CPU): measured 1 - 1.5e-9, 1 LSB.
 T2_AUDIO_CORRELATION = 0.9999
+# The decoder step kernel (csrc/tacotron2_step.cu) against its plain version
+# (ops/tacotron2_step.py::decode_steps_plain, cuBLAS in float32, TF32 off)
+# over a block of 32 steps at the benchmark's voice (NVIDIA's widths, the mel
+# projection x30 with a bias of -3.5 to -7.5: mels over a voice's range), on
+# t2wg_batch8's shapes (B 8, the text buckets 64-192) and at B=1: the two
+# sum up to 2560 products in other orders and feed each frame back through
+# the prenet; the largest error relative to each output's scale, the bound
+# of tests/test_torch_tacotron2_step.py::CARD_TOL
+T2_KERNEL_SHAPES = ((8, 64), (8, 96), (8, 128), (8, 192), (1, 96), (1, 192))
+T2_KERNEL_STEPS = 32
+T2_KERNEL_TOLERANCE = 2e-4
 
 
 def log(*args):
@@ -1795,14 +1811,14 @@ def counting_vocode_launches(calls: list):
         SynthesisEngine.vocode_launch = launch
 
 
-def device_busy_ms(fn, counts=None):
+def device_busy_ms(fn, counts=None, kernel_names=None):
     """(fn's result, host wall ms, the card's busy ms) of one traced run:
     the union of the device intervals (kernels, copies, memsets) in
     torch.profiler's trace, so that a copy that overlaps a kernel counts
     once; None when the trace holds no device activity.  ``counts`` (a
     Counter), when given, gets the number of intervals of each kind and, as
     ``host_sync``, of the host's waits for the card (synchronisations and
-    blocking copies)."""
+    blocking copies); ``kernel_names`` (a Counter) the kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1822,6 +1838,9 @@ def device_busy_ms(fn, counts=None):
                       if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
         counts["host_sync"] += sum(1 for e in events if e.get("cat") == "cuda_runtime" and (
             "Synchronize" in e.get("name", "") or e.get("name") == "cudaMemcpy"))
+    if kernel_names is not None:
+        kernel_names.update(e["name"] for e in events
+                            if e.get("ph") == "X" and e.get("cat") == "kernel")
     busy, end = 0.0, float("-inf")
     for s0, s1 in spans:
         if s1 > end:
@@ -2788,8 +2807,12 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
     measurements."""
     import collections
 
+    import re
+
     import larynx_tpu_torch
     from larynx_tpu_torch.models.tacotron2 import model as t2_model
+    from larynx_tpu_torch.ops import tacotron2_step
+    from larynx_tpu_torch.runtime import trace as port_trace
     from larynx_tpu_torch.server.app import ServerSettings
     from larynx_tpu_torch.tacotron2 import _DEFAULT_SEED, _MAX_FRAMES_PER_TOKEN, text_bucket
 
@@ -2819,13 +2842,29 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
     with recording_mrf_shapes(mrf_shapes), recording_wn_shapes(wn_shapes):
         tts()  # warm-up: cuDNN plans, the voice's params on the card
         mrf_block.mrf_section.launches = 0
+        tacotron2_step.decode_steps.launches = 0
+        counted = dict(port_trace.counters())
         (audio,), wall = timed_once(tts)
         n_mrf = mrf_block.mrf_section.launches
+        n_step = tacotron2_step.decode_steps.launches
+        moved = {k: port_trace.counters().get(k, 0) - counted.get(k, 0)
+                 for k in ("engine.ar_steps", "engine.ar_kernel_steps", "engine.ar_stop_checks")}
         check_audio(audio, "text_to_speech")
         if n_mrf != per_call:
             raise AssertionError(f"tacotron2 text_to_speech: {n_mrf} MRF launches, "
                                  f"expected {per_call}")
+        # the engine's decode: one step kernel launch a block (a stop read),
+        # every step in the kernel
+        if not (moved["engine.ar_steps"] == moved["engine.ar_kernel_steps"] == steps
+                and n_step == moved["engine.ar_stop_checks"] > 0):
+            raise AssertionError(f"tacotron2 text_to_speech: {n_step} step kernel launches and "
+                                 f"counters {moved}, expected {steps} steps in the kernel and "
+                                 "a launch a stop read")
         out["launches"]["tacotron2 text_to_speech, pangram"] = n_mrf
+        out["launches"]["tacotron2 text_to_speech, pangram, step kernel"] = n_step
+        out["engine_decode"] = {"steps": steps, "step_kernel_launches": n_step,
+                                "blocks": moved["engine.ar_stop_checks"],
+                                "kernel_steps": moved["engine.ar_kernel_steps"]}
         mels, t_acoustic = timed_once(lambda: model.phonemes_to_mels(ids, device="cuda"))
         if mels.shape != (1, cfg.mel_channels, steps) or not np.isfinite(mels).all():
             raise AssertionError(f"tacotron2 phonemes_to_mels: {mels.shape}")
@@ -2838,7 +2877,9 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
             f"{steps} decoder steps, {n_samples / 22050:.2f} s of audio), HiFi-GAN "
             f"universal_large, f32: wall {wall:.3f} ms, RTF {wall / 1e3 / (n_samples / 22050):.6f}; "
             f"phonemes_to_mels {t_acoustic:.3f} ms, mels_to_audio {t_vocode:.3f} ms; MRF launches "
-            f"{n_mrf}")
+            f"{n_mrf}; the engine's decode: {n_step} step kernel launches for "
+            f"{moved['engine.ar_stop_checks']} blocks, {moved['engine.ar_kernel_steps']} of "
+            f"{moved['engine.ar_steps']} steps in the kernel")
 
         # the engine's blocked decode alone (its stops read once a block), on
         # the voice's device params and the engine's masks for a row of a call
@@ -2857,19 +2898,35 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
             (memory, mask), t_encode = timed_once(
                 lambda: t2_model.encode(params, cfg, ids_t.cuda(), len_t.cuda()))
             decode()
+            tacotron2_step.decode_steps.launches = 0
             (mel_gpu, lengths, _steps, blocks), t_decode = timed_once(decode)
+            step_launches = tacotron2_step.decode_steps.launches
             _, t_postnet = timed_once(lambda: t2_model.postnet(params, cfg, mel_gpu))
-            events = collections.Counter()
-            _, traced, busy = device_busy_ms(decode, events)
+            events, names = collections.Counter(), collections.Counter()
+            _, traced, busy = device_busy_ms(decode, events, names)
         if lengths.tolist() != [steps]:
             raise AssertionError(f"tacotron2 decode: lengths {lengths.tolist()}, expected [{steps}]")
+        # a block is one step kernel launch: in the trace, the step kernel once
+        # a block, no cuBLAS kernel but the memory's projection (once a
+        # decode), and the stop's few elementwise kernels a block, not a step
+        traced_steps = sum(v for k, v in names.items() if "steps_kernel" in k)
+        cublas = sum(v for k, v in names.items() if re.search("gemm|gemv|xmma", k))
+        others = events["kernel"] - traced_steps
+        if not (step_launches == blocks == traced_steps and cublas <= 1
+                and others <= 20 * blocks):
+            raise AssertionError(f"tacotron2 decode: {step_launches} step kernel launches, "
+                                 f"{traced_steps} traced, {cublas} cuBLAS and {others} other "
+                                 f"kernels for {blocks} blocks of {steps} steps")
         busy_share = None if busy is None else busy / traced
         out["ms"].update({"tacotron2 encode": t_encode, "tacotron2 decode": t_decode,
                           "tacotron2 decode per step": t_decode / steps,
                           "tacotron2 postnet": t_postnet})
-        out["decode"] = {"steps": steps, "ms": t_decode, "traced_ms": traced, "busy_ms": busy,
-                         "kernels": events["kernel"], "memcpy": events["gpu_memcpy"],
-                         "memset": events["gpu_memset"], "host_syncs": events["host_sync"]}
+        out["decode"] = {"steps": steps, "blocks": blocks, "ms": t_decode, "traced_ms": traced,
+                         "busy_ms": busy, "kernels": events["kernel"],
+                         "step_kernel_launches": step_launches,
+                         "step_kernels_traced": traced_steps, "cublas_kernels": cublas,
+                         "memcpy": events["gpu_memcpy"], "memset": events["gpu_memset"],
+                         "host_syncs": events["host_sync"]}
         log(f"tacotron2 encode (B=1, T={t_bucket}, BiLSTM step by step) {t_encode:.3f} ms, "
             f"postnet {t_postnet:.3f} ms (host clock)")
         log(f"tacotron2 blocked decode, {steps} steps ({blocks} stop reads), B=1, "
@@ -2877,7 +2934,9 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
             f"({t_decode / steps:.4f} ms per step, host clock); traced {traced:.3f} ms, the card "
             f"busy {busy if busy is None else round(busy, 3)} ms "
             f"({'not measured' if busy_share is None else f'{busy_share:.1%}'}); "
-            f"{events['kernel']} kernel launches ({events['kernel'] / steps:.1f} per step), "
+            f"{events['kernel']} kernel launches ({events['kernel'] / steps:.1f} per step): "
+            f"the step kernel {traced_steps} ({step_launches} launches by the wrapper), cuBLAS "
+            f"{cublas}, {others} others ({others / blocks:.1f} a block); "
             f"{events['gpu_memcpy']} copies, {events['gpu_memset']} memsets, "
             f"{events['host_sync']} host waits for the card (the trace's closing one included)")
 
@@ -3006,6 +3065,137 @@ def tacotron2_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: 
         f"{t_cpu_decode / 1e3:.1f} s); audio correlation {corr:.6f} (bar {T2_AUDIO_CORRELATION}), "
         f"{lsb(audio, cpu_audio)} LSB (CPU vocode {t_cpu / 1e3:.1f} s)")
     return out
+
+
+def t2_step_voice(seed: int = T2_SEED):
+    """(cfg, packed params) of a Tacotron2 at NVIDIA's widths on the card,
+    random weights from ``seed`` with the benchmark's projection
+    (portbench/kinds/nvidia_tacotron2.py::calibrate) and a held-off gate."""
+    from larynx_tpu_torch.models.tacotron2 import Tacotron2Config
+    from larynx_tpu_torch.models.tacotron2 import model as t2_model
+    from larynx_tpu_torch.weights import init_params, params_from_jax, tree_to
+
+    cfg = Tacotron2Config()
+    tree = init_params(torch.Generator().manual_seed(seed), cfg)
+    tree["decoder"]["projection"]["w"] *= 30.0
+    tree["decoder"]["projection"]["b"][:] = torch.linspace(-3.5, -7.5, cfg.mel_channels)
+    tree["decoder"]["gate"]["b"][:] = T2_GATE_BIAS
+    params = tree_to(params_from_jax(tree, "tacotron2"), torch.device("cuda"))
+    return cfg, t2_model.pack_params(params, cfg)
+
+
+def t2_step_batch(cfg, params, b: int, t: int, n: int, seed: int):
+    """A decode's block on the card: the encoder's memory of b random rows at
+    text bucket t (row 1 five ids short), the processed memory and mask, a
+    random state and last frame, and the engine's per-row keep masks."""
+    from larynx_tpu_torch.models.tacotron2 import model as t2_model
+
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.full((b,), t, dtype=torch.int32)
+    if b > 1:
+        lengths[1] = t - 5
+    ids = torch.randint(1, cfg.num_symbols, (b, t), generator=gen)
+    memory, mask = t2_model.encode(params, cfg, ids.cuda(), lengths.cuda())
+    processed = torch.nn.functional.linear(memory, params["decoder"]["attention"]["memory"]["w"])
+    state = {k: (torch.randn(v.shape, generator=gen).abs() * 0.02 if k.startswith("attn_w")
+                 else torch.randn(v.shape, generator=gen) * 0.5).cuda()
+             for k, v in t2_model._decoder_state0(cfg, b, t, memory.cpu()).items()}
+    prev = torch.randn((b, cfg.mel_channels), generator=gen).cuda() * 2.0 - 5.0
+    keep = t2_model.row_keep_masks(cfg, n, [[seed, r] for r in range(b)]).cuda()
+    return state, prev, memory, processed, mask, keep
+
+
+def t2_step_rel_err(got, want) -> float:
+    """The largest error of a block's outputs and state, each relative to
+    the larger of 1 and its largest magnitude."""
+    (sa, pa, ma, ga), (sb, pb, mb, gb) = got, want
+    pairs = [(ma, mb), (ga, gb), (pa, pb)] + [(sa[k], sb[k]) for k in sb]
+    return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max())) for x, y in pairs)
+
+
+def check_t2_step(shapes=T2_KERNEL_SHAPES, n: int = T2_KERNEL_STEPS):
+    """The decoder step kernel at each (B, T): against its plain version
+    (``T2_KERNEL_TOLERANCE``), bit for bit against itself and, in a batch,
+    three of its rows decoded alone; a block's device time a step against
+    the step's bound (portbench/counts/tacotron2.py), the plain version's,
+    and the step's PyTorch ops replayed as a CUDA graph (cuBLAS: the decode
+    before the kernel, ``library_ms``); the launches of a block (the
+    wrapper's count; phase 13's traced decode names the kernels).  Times
+    are per step; ``main_path`` marks t2wg_batch8's shapes."""
+    import dataclasses
+
+    from larynx_tpu_torch.models.tacotron2 import model as t2_model
+    from larynx_tpu_torch.ops import tacotron2_step as ts
+    from larynx_tpu_torch.runtime.glow_graphs import capture_cuda_graph
+    from portbench.counts import tacotron2 as t2_counts
+
+    cfg, params = t2_step_voice()
+    packed = params["decoder"]["step_kernel"]
+    counts_cfg = dataclasses.asdict(cfg)
+    rows = []
+    for b, t in shapes:
+        with torch.inference_mode():
+            state, prev, memory, processed, mask, keep = t2_step_batch(
+                cfg, params, b, t, n, seed=1000 * b + t)
+            geo = ts.geometry(packed, b, t)
+
+            def kernel():
+                return ts.decode_steps(packed, state, prev, memory, processed, mask, n, keep)
+
+            def plain():
+                return ts.decode_steps_plain(packed, state, prev, memory, processed, mask, n, keep)
+
+            def library():
+                st, pv = dict(state), prev
+                for i in range(n):
+                    pre = t2_model._prenet(params["decoder"]["prenet"], pv, keep[i],
+                                           cfg.p_prenet_dropout)
+                    st, pv, _gate = t2_model._decoder_step(params, cfg, st, pre, memory,
+                                                          processed, mask)
+                return (pv,)
+
+            ts.decode_steps.launches = 0
+            got = kernel()
+            launched = ts.decode_steps.launches
+            want = plain()
+            err = t2_step_rel_err(got, want)
+            if not err <= T2_KERNEL_TOLERANCE:
+                raise AssertionError(f"tacotron2_step B={b} T={t}: {err:.3g} from the plain "
+                                     f"version (tol {T2_KERNEL_TOLERANCE})")
+            again = kernel()
+            if not (all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
+                    and all(torch.equal(got[0][k], again[0][k]) for k in got[0])):
+                raise AssertionError(f"tacotron2_step B={b} T={t}: two runs differ")
+            for r in sorted({0, b // 2, b - 1}) if b > 1 else ():
+                one = slice(r, r + 1)
+                alone = ts.decode_steps(packed, {k: v[one].contiguous() for k, v in state.items()},
+                                        prev[one].contiguous(), memory[one].contiguous(),
+                                        processed[one].contiguous(), mask[one].contiguous(), n,
+                                        keep[:, :, one].contiguous())
+                if not (torch.equal(alone[2], got[2][one]) and torch.equal(alone[3], got[3][one])
+                        and all(torch.equal(alone[0][k], got[0][k][one]) for k in got[0])):
+                    raise AssertionError(f"tacotron2_step B={b} T={t}: row {r} alone differs "
+                                         "from its batch row")
+            graph, _out = capture_cuda_graph(library)
+            ms = time_ms(kernel, iters=20) / n
+            plain_ms = time_ms(plain, iters=3) / n
+            library_ms = time_ms(graph.replay, iters=5) / n
+        ops_ms = 1e3 * t2_counts.step_flops(counts_cfg, b, t) / t2_counts.F32_FLOPS
+        bytes_ms = 1e3 * t2_counts.step_bytes(counts_cfg, b, t) / 3.35e12
+        bound_ms = max(ops_ms, bytes_ms)
+        rows.append({"name": f"decoder step, B={b}, T={t}", "B": b, "T": t, "steps": n,
+                     "main_path": b == 8, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms, "ops_ms": ops_ms,
+                     "bytes_ms": bytes_ms, "launches_per_block": launched, "geometry": geo})
+        log(f"tacotron2_step B={b} T={t} ({geo['grid']} blocks x {geo['threads']}, "
+            f"{geo['smem_bytes']} B shared, {geo['attn_parts']} context parts a row): "
+            f"{1e3 * ms:.2f} us a step ({n}-step block), bound {1e3 * bound_ms:.2f} us "
+            f"({bound_ms / ms:.1%}), plain {1e3 * plain_ms:.1f} us, cuBLAS graph "
+            f"{1e3 * library_ms:.1f} us; error {err:.3g} (tol {T2_KERNEL_TOLERANCE}); "
+            f"{launched} launch a block")
+        if launched != -(-b // ts.MAX_ROWS):
+            raise AssertionError(f"tacotron2_step: {launched} launches a block at B={b}")
+    return rows
 
 
 # Phase 14: training on the card.  The corpus: the chapter's 16 pangram rows
@@ -4257,6 +4447,28 @@ def kernel_entry(name, source, replaces, launches, by_path, rows, main_rows, sca
     }
 
 
+def t2_step_entry(t2, t2_step_rows):
+    """The decoder step kernel's entry of the kernels line: a step's time
+    averaged over t2wg_batch8's text buckets at B=8, and its launches as
+    phase 13's main path counted them (``tacotron2_path``)."""
+    t2_main = [r for r in t2_step_rows if r["main_path"]]
+    t2_dec, t2_engine = t2["decode"], t2["engine_decode"]
+    return kernel_entry(
+        "tacotron2_step", "larynx_tpu_torch/csrc/tacotron2_step.cu",
+        "none: the JAX package leaves Tacotron2's decoder step to XLA",
+        t2_engine["step_kernel_launches"],
+        {f"tacotron2 text_to_speech, pangram, {t2_engine['steps']} steps "
+         f"({t2_engine['blocks']} blocks)": t2_engine["step_kernel_launches"],
+         f"tacotron2 blocked decode, B=1, {t2_dec['steps']} steps ({t2_dec['blocks']} blocks)":
+             t2_dec["step_kernel_launches"],
+         "the same decode traced, step kernels": t2_dec["step_kernels_traced"],
+         "the same decode traced, cuBLAS kernels": t2_dec["cublas_kernels"],
+         "launches a block, blocked decode": t2_dec["step_kernel_launches"] / t2_dec["blocks"],
+         f"launches a {T2_KERNEL_STEPS}-step block at B=8":
+             max(r["launches_per_block"] for r in t2_main)},
+        t2_step_rows, t2_main, scale=1 / len(t2_main))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -4270,8 +4482,8 @@ def main() -> int:
     from larynx_tpu_torch.ops import build, mrf_block, wn_layer
 
     start = time.perf_counter()
-    build.build(["mrf_section", "wn_layer", "mrf_bf16", "wn_bf16"])
-    for name in ("mrf_section", "wn_layer", "mrf_bf16", "wn_bf16"):
+    build.build(["mrf_section", "wn_layer", "mrf_bf16", "wn_bf16", "tacotron2_step"])
+    for name in ("mrf_section", "wn_layer", "mrf_bf16", "wn_bf16", "tacotron2_step"):
         lines = build.BUILD_LOGS.get(name, "").splitlines()
         ptxas = sorted({line.split(":", 1)[-1].split(" for the function")[0].strip()
                         for line in lines
@@ -4395,6 +4607,7 @@ def main() -> int:
         stage_tacotron2_voices(Path(tmp))
         t2_mrf, t2_wn = set(), set()
         t2 = tacotron2_path(Path(tmp), mrf_block, wn_layer, t2_mrf, t2_wn)
+        t2_step_rows = check_t2_step()
         t_path = time.perf_counter() - start13
         rows += check_mrf(mrf_block, path_mrf_cases(
             mrf_cases + phase8_cases + server_cases + run_cases, {"tacotron2": t2_mrf}))
@@ -4567,6 +4780,7 @@ def main() -> int:
         **{f"{path}, one group call at B={b} T={t}": cfg.flows * bf16_stack_of[(b, t)]["ms"]
            for path, shapes in path_wn.items() for b, t in sorted(shapes)}}
     kernels.append(bf16_wn)
+    kernels.append(t2_step_entry(t2, t2_step_rows))
     for path, ms in bf16_wn["ms_by_path"].items():
         log(f"wn_layer (bf16) by path: {path}: {ms:.3f} ms")
     for k in kernels[2:]:

@@ -5,11 +5,18 @@ Plain functions on the port's parameter tree (``weights.params_from_jax``):
 linears and LSTM gates ``[out, in]``, convs ``[C_out, C_in, k]``; the
 activations keep the JAX package's channels-last layout.  The JAX package
 leaves every product here to XLA (no Pallas kernel), so the port runs them
-as PyTorch ops.
+as PyTorch ops, but for the decoder's steps on a CUDA device: those run in
+one hand-written kernel a call (``ops/tacotron2_step.py``), on weights that
+:func:`pack_params` packs once per loaded voice.
 
   ``encode``            ids [B, T] -> (memory [B, T, E], mask [B, T]):
                         embedding, conv + BatchNorm + ReLU layers, a BiLSTM
                         whose padded steps carry the state unchanged.
+  ``pack_params``       the params with the step kernel's packed weights
+                        (``decoder["step_kernel"]``) on a CUDA device.
+  ``decode_steps``      a block of decoder steps: the step kernel on CUDA,
+                        ``_prenet`` and ``_decoder_step`` per step on the
+                        CPU (training's ``decode_teacher`` runs those too).
   ``decode_blocked``    the autoregressive steps (prenet, attention LSTM,
                         location-sensitive attention, decoder LSTM,
                         projection and gate) over a batch whose rows each
@@ -39,6 +46,9 @@ only applies the two dropouts the JAX package applies: the config's
 attention and decoder dropout rates are declared there and never used.
 """
 
+import collections
+import concurrent.futures
+import threading
 import typing
 
 import numpy as np
@@ -48,17 +58,22 @@ import torch.nn.functional as F
 from larynx_tpu_torch.device import to_device
 from larynx_tpu_torch.models.nn import conv1d, sequence_mask
 from larynx_tpu_torch.models.tacotron2.config import Tacotron2Config
+from larynx_tpu_torch.ops import tacotron2_step
 
 Params = typing.Dict[str, typing.Any]
 
 _MASK_VALUE = -1e9
 
 # decoder steps between two host reads of the rows' stops (decode_blocked):
-# a read waits for the card to finish the block, and the card then idles
-# while the host launches the next (about a fifth of the time at 16 steps a
-# block and batch 8 on an H100); the decode's end overshoots the last stop
-# plus the postnet halo by half a block on average
+# on CUDA the next block is launched before a block's stops are read, so the
+# host's work between blocks (the keep masks' draw, the launch, the read)
+# has to fit in a block's device time; the decode's end overshoots the last
+# stop plus the postnet halo by half a block on average
 STOP_CHECK_STEPS = 32
+# threads that draw the rows' keep masks of a block (RowKeepMasks): the
+# CPU generators' draws, ~0.2 ms a row a block at NVIDIA's widths, release
+# the GIL and run side by side
+KEEP_DRAW_THREADS = 4
 
 
 # -----------------------------------------------------------------------------
@@ -187,6 +202,19 @@ def encode(
 # Decoder
 
 
+_draw_pool = None
+_draw_pool_lock = threading.Lock()
+
+
+def _keep_draw_pool() -> concurrent.futures.ThreadPoolExecutor:
+    global _draw_pool
+    with _draw_pool_lock:
+        if _draw_pool is None:
+            _draw_pool = concurrent.futures.ThreadPoolExecutor(
+                KEEP_DRAW_THREADS, thread_name_prefix="keep-masks")
+        return _draw_pool
+
+
 class RowKeepMasks:
     """The prenet keep masks of a batch's rows, drawn on the CPU a block of
     steps at a time: row r keeps u < 1 - p, with u [steps, 2, prenet_dim]
@@ -195,7 +223,10 @@ class RowKeepMasks:
     ``masks[a:b]`` -> [b - a, 2, B, prenet_dim] bool on ``device`` (None:
     the CPU), the blocks asked for in order.  The CPU generator fills u in
     order, so the blocks join into one draw, whatever their sizes and
-    however many steps are drawn."""
+    however many steps are drawn.  The rows are drawn side by side (each
+    from its own generator, :data:`KEEP_DRAW_THREADS` threads); for a CUDA
+    device into one of two pinned staging buffers, reused once the copy
+    out of it has ended, so no block allocates or stacks on the host."""
 
     def __init__(self, cfg: Tacotron2Config,
                  entropies: typing.Sequence[typing.Optional[typing.Sequence[int]]], device=None):
@@ -209,17 +240,56 @@ class RowKeepMasks:
                 gen = torch.Generator().manual_seed(int(state[0]))
             self._gens.append(gen)
         self._drawn = 0
+        self._cuda = device is not None and torch.device(device).type == "cuda"
+        self._staging = collections.deque()  # [pinned buffer, its copy's event], oldest first
+
+    def _buffer(self, shape) -> torch.Tensor:
+        """A host tensor to draw a block into: on CUDA the older of the two
+        staging buffers once its copy has ended (a new one while fewer than
+        two, or the older too short)."""
+        if not self._cuda:
+            return torch.empty(shape, dtype=torch.bool)
+        buf = None
+        if len(self._staging) == 2:
+            buf, event = self._staging.popleft()
+            if buf.shape[0] < shape[0]:
+                buf = None
+            elif event is not None:
+                event.synchronize()
+        if buf is None:
+            buf = torch.empty((max(shape[0], STOP_CHECK_STEPS), *shape[1:]), dtype=torch.bool,
+                              pin_memory=True)
+        self._staging.append([buf, None])
+        return buf[: shape[0]]
 
     def __getitem__(self, steps: slice) -> torch.Tensor:
         if steps.start != self._drawn:
             raise ValueError(f"keep masks drawn from step {self._drawn}, asked from {steps.start}")
         shape = (steps.stop - steps.start, 2, self.cfg.prenet_dim)
-        rows = [torch.zeros(shape, dtype=torch.bool) if gen is None
-                else torch.rand(shape, generator=gen) < 1.0 - self.cfg.p_prenet_dropout
-                for gen in self._gens]
+        out = self._buffer((shape[0], 2, len(self._gens), shape[2]))
+        keep = 1.0 - self.cfg.p_prenet_dropout
+        inference = torch.is_inference_mode_enabled()  # the pool's threads take the caller's
+
+        def draw(r):
+            gen = self._gens[r]
+            with torch.inference_mode(inference):
+                if gen is None:
+                    out[:, :, r].zero_()
+                else:
+                    torch.lt(torch.rand(shape, generator=gen), keep, out=out[:, :, r])
+
+        if len(self._gens) > 1:
+            list(_keep_draw_pool().map(draw, range(len(self._gens))))
+        else:
+            draw(0)
         self._drawn = steps.stop
-        out = torch.stack(rows, dim=2)
-        return out if self.device is None else to_device(out.numpy(), self.device)
+        if not self._cuda:
+            return out if self.device is None else out.to(self.device)
+        dev = out.to(self.device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev.device))
+        self._staging[-1][1] = event
+        return dev
 
 
 def row_keep_masks(
@@ -319,6 +389,17 @@ def _decoder_step(
     return new_state, mel, gate
 
 
+def pack_params(params: Params, cfg: Tacotron2Config) -> Params:
+    """``params`` with the decoder step kernel's weights
+    (``ops/tacotron2_step.py::pack_decoder``) as ``decoder["step_kernel"]``
+    when they lie on a CUDA device; CPU params come back as they are."""
+    dec = params["decoder"]
+    if dec["projection"]["w"].device.type != "cuda":
+        return params
+    packed = tacotron2_step.pack_decoder(dec, cfg.p_prenet_dropout)
+    return {**params, "decoder": {**dec, "step_kernel": packed}}
+
+
 def postnet_halo(cfg: Tacotron2Config) -> int:
     """Frames past a row's last one that its postnet output reads: each of
     the postnet's 'same' convs reaches k // 2 frames ahead (10 at 5 x k5)."""
@@ -342,8 +423,16 @@ def decode_steps(
 ):
     """``n`` decoder steps from ``state`` and the last frame ``prev`` ->
     (state, last frame, mels [B, n, M], gate logits [B, n]); ``keep``
-    [n, 2, B, prenet_dim] (bool) or None."""
+    [n, 2, B, prenet_dim] (bool) or None.  On a CUDA device the steps run in
+    the step kernel (one launch), on params from :func:`pack_params`."""
     dec = params["decoder"]
+    if memory.device.type == "cuda":
+        packed = dec.get("step_kernel")
+        if packed is None:
+            raise ValueError("decoder steps on CUDA need the step kernel's weights: "
+                             "pack the params with pack_params")
+        return tacotron2_step.decode_steps(packed, state, prev, memory, processed_memory, mask,
+                                           n, keep)
     mels, gates = [], []
     for i in range(n):
         pre = _prenet(dec["prenet"], prev, None if keep is None else keep[i],
@@ -363,7 +452,7 @@ def decode_blocked(
     keep_masks: typing.Optional[torch.Tensor] = None,
     block: int = STOP_CHECK_STEPS,
     read: typing.Callable[[torch.Tensor], np.ndarray] = _read_host,
-    steps_fn=decode_steps,
+    ahead: typing.Optional[bool] = None,
 ):
     """Autoregressive decode of a batch whose row r stops at its gate or
     at ``caps[r]`` steps (0: a padding row, stopped from the start).
@@ -379,38 +468,68 @@ def decode_blocked(
     postnet masked at the caps (:func:`postnet`'s ``mask``) its frames up
     to its stop are too.  ``keep_masks``: [max(caps), 2, B, prenet_dim] on
     the device, or :class:`RowKeepMasks`, whose next block the host draws
-    while the card runs this one; or None.  ``steps_fn`` runs each block's
-    steps, as :func:`decode_steps` does.  Returns (mels [B, S, M], lengths
-    [B] numpy, S, blocks read)."""
+    while the card runs this one; or None.  Each block's steps run in
+    :func:`decode_steps` (on CUDA, one launch of the step kernel).
+
+    ``ahead`` (default: on a CUDA device) launches the next block before a
+    block's stops are read, so that the card runs it while the host reads
+    and draws: the read then waits on an event behind the block's stops, on
+    a stream of its own, and a block launched past the end is dropped.
+    Returns (mels [B, S, M], lengths [B] numpy, S, blocks read)."""
     dec = params["decoder"]
     bsz, t, _ = memory.shape
     budget = int(np.max(caps))
-    caps_dev = torch.as_tensor(np.asarray(caps, dtype=np.int32)).to(memory.device)
+    if ahead is None:
+        ahead = memory.device.type == "cuda"
+    side = torch.cuda.Stream(memory.device) if ahead and memory.device.type == "cuda" else None
+    caps_dev = to_device(np.asarray(caps, dtype=np.int32), memory.device)
     processed_memory = F.linear(memory, dec["attention"]["memory"]["w"])
     state = _decoder_state0(cfg, bsz, t, memory)
     prev = memory.new_zeros((bsz, cfg.mel_channels))
     stops = torch.where(caps_dev > 0, -1, 0).to(torch.int32)
     halo = postnet_halo(cfg)
-    mels = []
-    steps = blocks = 0
+    mels, inflight = [], collections.deque()  # (end, stops, event) of blocks not read yet
+    launched = steps = blocks = 0
     keep_next = None if keep_masks is None else keep_masks[0:min(block, budget)]
-    while steps < budget:
-        end = min(steps + block, budget)
-        state, prev, mel, gates = steps_fn(
-            params, cfg, state, prev, memory, processed_memory, mask, end - steps, keep_next)
+
+    def launch():
+        nonlocal state, prev, stops, launched, keep_next
+        end = min(launched + block, budget)
+        state, prev, mel, gates = decode_steps(
+            params, cfg, state, prev, memory, processed_memory, mask, end - launched, keep_next)
         mels.append(mel)
-        frame = torch.arange(steps + 1, end + 1, device=memory.device, dtype=torch.int32)
+        frame = torch.arange(launched + 1, end + 1, device=memory.device, dtype=torch.int32)
         fired = (torch.sigmoid(gates) > cfg.gate_threshold) \
             | (frame[None, :] >= caps_dev[:, None])
-        first = fired.to(torch.int8).argmax(dim=1).to(torch.int32) + (steps + 1)
+        first = fired.to(torch.int8).argmax(dim=1).to(torch.int32) + (launched + 1)
         stops = torch.where((stops < 0) & fired.any(dim=1), first, stops)
-        steps, blocks = end, blocks + 1
+        event = None
+        if side is not None:
+            event = torch.cuda.Event()
+            event.record()
+        inflight.append((end, stops, event))
+        launched = end
         if keep_masks is not None and end < budget:
             keep_next = keep_masks[end:min(end + block, budget)]
-        lengths = read(stops)
-        if np.all((lengths >= 0) & (steps >= np.minimum(lengths + halo, caps))):
+
+    launch()
+    while True:
+        if ahead and launched < budget:
+            launch()
+        steps, done, event = inflight.popleft()
+        blocks += 1
+        if event is None:
+            lengths = read(done)
+        else:
+            with torch.cuda.stream(side):
+                side.wait_event(event)
+                lengths = read(done)
+        if steps >= budget or np.all((lengths >= 0) & (steps >= np.minimum(lengths + halo, caps))):
             break
-    return torch.cat(mels, dim=1), lengths, steps, blocks
+        if not ahead:
+            launch()
+    mel = torch.cat(mels, dim=1)
+    return (mel if mel.shape[1] == steps else mel[:, :steps]), lengths, steps, blocks
 
 
 def decode_teacher(

@@ -14,10 +14,9 @@ batch padded to the batch and text buckets:
            is decoded (``models/tacotron2/model.py::decode_blocked``)
   postnet  over the decoded frames, each row's input zeroed from its cap on
 
-On a CUDA device the encode and the blocks of decoder steps replay CUDA
-graphs (:class:`Tacotron2Graphs`): the encoder's BiLSTM steps and a decoder
-step's 59 small kernels run faster than the host can launch them one by
-one, so eagerly the card would wait on the launches.
+On a CUDA device the decoder steps of a block run in one launch of the step
+kernel (``ops/tacotron2_step.py``, on weights the engine packs once), and
+the encode replays a CUDA graph (:class:`Tacotron2Graphs`).
 
 and returns the mel and the stop lengths, the lengths already on the host
 (:class:`ARDecodeOutput`).  The staged calls take it as they take a GlowTTS
@@ -47,15 +46,15 @@ The rules that decide a row's output, beside the engine's noise rules:
 - Denoiser: a row's audio is cut to its frames before the denoiser's STFT,
   as the fallback's ``mels_to_audio`` cuts it (``SynthesisEngine._vocode``).
 
-Tacotron2 runs in float32 (TF32 as the caller sets it, as for the
-fallback); the vocoder follows :func:`default_vocoder_half`.  The engine
+Tacotron2 runs in float32 (the encode and the postnet take TF32 as the
+caller sets it, as for the fallback; the step kernel never does); the
+vocoder follows :func:`default_vocoder_half`.  The engine
 runs on one device.  It has no stream (``stream_text_to_speech`` keeps the
 fallback's one peak-normalised chunk per sentence, as the JAX package
 streams this voice) and no ``phonemes_to_mels`` (the voice's own surface
 is the fallback's).
 """
 
-import contextlib
 import threading
 import typing
 
@@ -70,39 +69,16 @@ from larynx_tpu_torch.runtime.glow_graphs import capture_cuda_graph
 from larynx_tpu_torch.tacotron2 import step_budget
 
 
-class _Block:
-    """A whole block's static buffers at one key, the graph that reads them,
-    and the block's outputs it writes."""
-
-    def __init__(self, state: dict, prev, memory, processed_memory, mask, keep):
-        self.state = {k: torch.empty_like(v) for k, v in state.items()}
-        self.prev = torch.empty_like(prev)
-        self.memory, self.processed_memory, self.mask = (
-            torch.empty_like(x) for x in (memory, processed_memory, mask))
-        self.keep = None if keep is None else torch.empty_like(keep)
-        self.sources = ()  # the batch's (memory, processed memory, mask) last copied in
-        self.graph = self.outputs = None
-
-
 class Tacotron2Graphs:
-    """Tacotron2's encode and its blocks of decoder steps replayed as CUDA
-    graphs, captured on first use per key: the encode per (rows, text
-    bucket), a block per (rows, text bucket, steps, dropout on).  As
-    ``decode_blocked``'s ``steps_fn`` it replays whole and half blocks and
-    runs a shorter rest eagerly.  A block's graph reads the decoder state
-    from static buffers and writes the
-    block's last state back into them, so a batch's blocks run back to back
-    on its buffers; its first block copies the batch's memory and the zero
-    state in.  The capture's warm-up run advances the state, which is then
-    put back.  The graphs' buffers serve one batch at a time: the engine
-    holds ``lock`` across a batch's encode and decode.  Outputs are copied
-    out after each replay.  ``capture(fn) -> (graph, outputs)``: a test may
+    """Tacotron2's encode replayed as CUDA graphs, captured on first use per
+    (rows, text bucket): the encoder's BiLSTM steps run faster than the host
+    can launch them one by one.  A graph's input buffers serve one batch at
+    a time, under ``lock``.  ``capture(fn) -> (graph, outputs)``: a test may
     pass an eager stand-in."""
 
-    def __init__(self, params, cfg, block: int, capture=capture_cuda_graph):
-        self.params, self.cfg, self.block = params, cfg, block
+    def __init__(self, params, cfg, capture=capture_cuda_graph):
+        self.params, self.cfg = params, cfg
         self._capture = capture
-        self._blocks: typing.Dict[tuple, _Block] = {}
         self._encodes: typing.Dict[tuple, tuple] = {}
         self.lock = threading.Lock()
 
@@ -110,74 +86,17 @@ class Tacotron2Graphs:
         """``encode`` of ids [B, T] and lengths [B] on the device -> (memory,
         mask), tensors of their own."""
         key = tuple(ids.shape)
-        if key not in self._encodes:
-            inputs = ids.clone(), lengths.clone()  # the capture's warm-up reads them
-            graph, outputs = self._capture(
-                lambda: t2_model.encode(self.params, self.cfg, *inputs))
-            self._encodes[key] = inputs, graph, outputs
-        inputs, graph, outputs = self._encodes[key]
-        inputs[0].copy_(ids)
-        inputs[1].copy_(lengths)
-        graph.replay()
-        return tuple(o.clone() for o in outputs)
-
-    def _run(self, blk: _Block, n: int):
-        state, prev, mels, gates = t2_model.decode_steps(
-            self.params, self.cfg, dict(blk.state), blk.prev, blk.memory, blk.processed_memory,
-            blk.mask, n, blk.keep)
-        for name, value in state.items():
-            blk.state[name].copy_(value)
-        blk.prev.copy_(prev)
-        return mels, gates
-
-    def __call__(self, params, cfg, state, prev, memory, processed_memory, mask, n, keep=None):
-        """``decode_steps``'s n steps: as many whole blocks, then half blocks,
-        as fit, replayed; the rest eagerly."""
-        mels, gates, done = [], [], 0
-        for size in (self.block, self.block // 2):
-            while n - done >= size:
-                state, prev, mel, gate = self._replay_steps(
-                    state, prev, memory, processed_memory, mask, size,
-                    None if keep is None else keep[done : done + size])
-                mels.append(mel)
-                gates.append(gate)
-                done += size
-        if done < n:
-            state, prev, mel, gate = t2_model.decode_steps(
-                params, cfg, state, prev, memory, processed_memory, mask, n - done,
-                None if keep is None else keep[done:])
-            mels.append(mel)
-            gates.append(gate)
-        if len(mels) == 1:
-            return state, prev, mels[0], gates[0]
-        return state, prev, torch.cat(mels, dim=1), torch.cat(gates, dim=1)
-
-    def _replay_steps(self, state, prev, memory, processed_memory, mask, n, keep):
-        key = (memory.shape[0], memory.shape[1], n, keep is not None)
-        blk = self._blocks.get(key)
-        if blk is None:
-            blk = self._blocks[key] = _Block(state, prev, memory, processed_memory, mask, keep)
-        sources = (memory, processed_memory, mask)
-        if len(blk.sources) != 3 or any(a is not b for a, b in zip(blk.sources, sources)):
-            for dst, src in zip((blk.memory, blk.processed_memory, blk.mask), sources):
-                dst.copy_(src)
-            blk.sources = sources
-        for name, value in state.items():
-            if value is not blk.state[name]:
-                blk.state[name].copy_(value)
-        if prev is not blk.prev:
-            blk.prev.copy_(prev)
-        if keep is not None:
-            blk.keep.copy_(keep)
-        if blk.graph is None:
-            saved = {k: v.clone() for k, v in blk.state.items()}, blk.prev.clone()
-            blk.graph, blk.outputs = self._capture(lambda: self._run(blk, n))
-            for name, value in saved[0].items():
-                blk.state[name].copy_(value)
-            blk.prev.copy_(saved[1])
-        blk.graph.replay()
-        mels, gates = (o.clone() for o in blk.outputs)
-        return blk.state, blk.prev, mels, gates
+        with self.lock:
+            if key not in self._encodes:
+                inputs = ids.clone(), lengths.clone()  # the capture's warm-up reads them
+                graph, outputs = self._capture(
+                    lambda: t2_model.encode(self.params, self.cfg, *inputs))
+                self._encodes[key] = inputs, graph, outputs
+            inputs, graph, outputs = self._encodes[key]
+            inputs[0].copy_(ids)
+            inputs[1].copy_(lengths)
+            graph.replay()
+            return tuple(o.clone() for o in outputs)
 
 
 class ARDecodeOutput:
@@ -198,10 +117,10 @@ class Tacotron2Engine(SynthesisEngine):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        # the encode and whole blocks of decoder steps as CUDA graphs; the
-        # CPU runs them eagerly
-        self._t2_graphs = (Tacotron2Graphs(self.glow_params, self.glow_cfg,
-                                           t2_model.STOP_CHECK_STEPS)
+        # the step kernel's weights, packed once; the encode as CUDA graphs
+        # (the CPU runs it eagerly)
+        self.glow_params = t2_model.pack_params(self.glow_params, self.glow_cfg)
+        self._t2_graphs = (Tacotron2Graphs(self.glow_params, self.glow_cfg)
                            if self.device.type == "cuda" else None)
 
     def step_caps(self, id_seqs, max_decoder_steps=None) -> np.ndarray:
@@ -246,23 +165,21 @@ class Tacotron2Engine(SynthesisEngine):
             ids, lengths = to_device(ids, self.device), to_device(lengths, self.device)
         t_bucket = ids.shape[1]
         graphs = self._t2_graphs
-        with graphs.lock if graphs is not None else contextlib.nullcontext():
-            with trace.span("engine.encode", rows=b_bucket, text_bucket=t_bucket):
-                memory, mask = (t2_model.encode(params, cfg, ids, lengths) if graphs is None
-                                else graphs.encode(ids, lengths))
-            with trace.span("engine.decode", family="tacotron2", rows=b_bucket,
-                            text_bucket=t_bucket) as span:
-                mels, stops, steps, blocks = t2_model.decode_blocked(
-                    params, cfg, memory, mask, caps, keep, read=self._read_stops,
-                    steps_fn=t2_model.decode_steps if graphs is None else graphs)
-                frames = torch.arange(steps, device=self.device)
-                in_cap = (frames[None, :] < to_device(caps, self.device)[:, None]).to(mels.dtype)
-                mel = mels + t2_model.postnet(params, cfg, mels, mask=in_cap)
-                m = self.policy.mel_bucket(int(stops[:n].max()))
-                mel = torch.nn.functional.pad(mel, (0, 0, 0, max(0, m - steps)))[:, :m]
-                z_mask = (torch.arange(m, device=self.device)[None, :]
-                          < to_device(stops, self.device)[:, None]).to(mel.dtype)
-                span.set(steps=steps, blocks=blocks)
+        with trace.span("engine.encode", rows=b_bucket, text_bucket=t_bucket):
+            memory, mask = (t2_model.encode(params, cfg, ids, lengths) if graphs is None
+                            else graphs.encode(ids, lengths))
+        with trace.span("engine.decode", family="tacotron2", rows=b_bucket,
+                        text_bucket=t_bucket) as span:
+            mels, stops, steps, blocks = t2_model.decode_blocked(
+                params, cfg, memory, mask, caps, keep, read=self._read_stops)
+            frames = torch.arange(steps, device=self.device)
+            in_cap = (frames[None, :] < to_device(caps, self.device)[:, None]).to(mels.dtype)
+            mel = mels + t2_model.postnet(params, cfg, mels, mask=in_cap)
+            m = self.policy.mel_bucket(int(stops[:n].max()))
+            mel = torch.nn.functional.pad(mel, (0, 0, 0, max(0, m - steps)))[:, :m]
+            z_mask = (torch.arange(m, device=self.device)[None, :]
+                      < to_device(stops, self.device)[:, None]).to(mel.dtype)
+            span.set(steps=steps, blocks=blocks)
         trace.count("engine.ar_steps", steps)
         trace.count("engine.ar_frames", b_bucket * steps)
         return ARDecodeOutput(mel.contiguous(), z_mask, stops), None

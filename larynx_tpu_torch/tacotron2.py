@@ -80,7 +80,8 @@ class Tacotron2TextToSpeech:
             Path(model_path), backend)
         self.params = params_from_jax(tree, "tacotron2")
         self.half = half
-        self._device_params = PerDevice(lambda device, _dtype: tree_to(self.params, device))
+        self._device_params = PerDevice(lambda device, _dtype: t2_model.pack_params(
+            tree_to(self.params, device), self.model_config))
         # set by the pipeline after loading
         self.phoneme_to_id: typing.Dict[str, int] = {}
         self.audio_settings = None

@@ -208,6 +208,33 @@ def test_the_early_exit_equals_the_full_budget_decode(live):
         torch.testing.assert_close(mel[r, :length], full[r, :length], rtol=0, atol=BATCH_TOL)
 
 
+@pytest.mark.parametrize("block", [4, 7])
+def test_the_decode_ahead_equals_the_decode_in_turn(live, block):
+    """A block launched before the last one's stops are read (``ahead``, the
+    CUDA default) gives the frames, lengths, steps and blocks read of the
+    decode that reads each block's stops before the next launch; the rows
+    stop by their gates, so the decode ahead launches a block past the end
+    and drops it."""
+    ids = _ids((9, 14, 6, 11), seed=11)
+    padded = np.zeros((4, 16), dtype=np.int64)
+    for r, x in enumerate(ids):
+        padded[r, : len(x)] = x
+    caps = np.array([40, 40, 25, 30])
+    params, out = live.glow_params, {}
+    with torch.no_grad():
+        memory, mask = tm.encode(params, CFG, torch.as_tensor(padded),
+                                 torch.as_tensor([len(x) for x in ids]))
+        for ahead in (False, True):
+            keep = tm.RowKeepMasks(CFG, live.mask_entropies(4, 4))
+            out[ahead] = tm.decode_blocked(params, CFG, memory, mask, caps, keep, block=block,
+                                           ahead=ahead)
+    (mel, lengths, steps, blocks), (mel_ahead, lengths_ahead, steps_ahead, blocks_ahead) = \
+        out[False], out[True]
+    assert steps < 25 and steps % block == 0 and blocks == steps // block
+    assert (steps_ahead, blocks_ahead, list(lengths_ahead)) == (steps, blocks, list(lengths))
+    assert torch.equal(mel_ahead, mel)
+
+
 def test_a_row_is_unchanged_by_its_batchmates_and_the_budget(live):
     ids = _ids((9, 14, 6, 11), seed=5)
     alone, (n_alone,) = _decode(live, ids[:1], seed=[77])

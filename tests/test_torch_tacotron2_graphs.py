@@ -1,15 +1,13 @@
-"""Tacotron2's encode and blocks of decoder steps replayed as CUDA graphs
+"""Tacotron2's encode replayed as CUDA graphs
 (``runtime/tacotron2_engine.py::Tacotron2Graphs``): on the CPU through an
 eager stand-in whose replay writes the first run's output tensors, as a
 graph's replay writes its static outputs, a key captures once and then
-replays its encode, whole and half blocks, a shorter rest runs eagerly,
-the state carries from block to block and the capture's warm-up
-leaves it as it was;
-``test_replay_equals_the_eager_decode`` holds the replayed decode to the
-eager one bit for bit, on the CPU through the stand-in and, marked
-``card``, through real graphs on the card at NVIDIA's widths (this file
-imports no JAX: ``python -m pytest tests/test_torch_tacotron2_graphs.py -m
-card --noconftest``)."""
+replays its encode; ``test_replay_equals_the_eager_decode`` holds the
+engine's decode with the replayed encode to the eager one bit for bit, on
+the CPU through the stand-in and, marked ``card``, through real graphs and
+the step kernel on the card at NVIDIA's widths (this file imports no JAX:
+``python -m pytest tests/test_torch_tacotron2_graphs.py -m card
+--noconftest``)."""
 
 import threading
 
@@ -19,7 +17,6 @@ import torch
 
 from larynx_tpu_torch.audio import AudioSettings
 from larynx_tpu_torch.models.tacotron2 import Tacotron2Config
-from larynx_tpu_torch.models.tacotron2 import model as tm
 from larynx_tpu_torch.runtime.engine import SynthesisEngine
 from larynx_tpu_torch.runtime.tacotron2_engine import Tacotron2Graphs
 from larynx_tpu_torch.weights import init_params, params_from_jax
@@ -62,8 +59,7 @@ def _engine(device="cpu", graphs=True, gate=-50.0):
     if not graphs:
         eng._t2_graphs = None
     elif eng._t2_graphs is None:
-        eng._t2_graphs = Tacotron2Graphs(eng.glow_params, cfg, tm.STOP_CHECK_STEPS,
-                                         capture=eager_capture)
+        eng._t2_graphs = Tacotron2Graphs(eng.glow_params, cfg, capture=eager_capture)
     return eng
 
 
@@ -82,16 +78,15 @@ def _counts():
 
 
 def test_a_key_captures_once_then_replays_its_blocks():
-    """Replays and captures: the encode, then whole blocks of 32 steps, half
-    blocks, and an eager rest."""
-    assert tm.STOP_CHECK_STEPS == 32
+    """Replays and captures of the encode, one a batch, keyed by (rows, text
+    bucket); the decode's blocks replay nothing."""
     eng = _engine()
     before = _counts()
-    _decode(eng, _ids((9, 14, 6)), max_decoder_steps=56)  # blocks 32, then 16 + 8 eager
-    assert np.subtract(_counts(), before).tolist() == [3, 3]
-    _decode(eng, _ids((5, 12, 7), seed=1), max_decoder_steps=40)  # 32, then 8 eager
-    _decode(eng, _ids((3, 7), seed=2), max_decoder_steps=16)  # another rows bucket: a half block
-    assert np.subtract(_counts(), before).tolist() == [3 + 2 + 2, 3 + 0 + 2]
+    _decode(eng, _ids((9, 14, 6)), max_decoder_steps=56)
+    assert np.subtract(_counts(), before).tolist() == [1, 1]
+    _decode(eng, _ids((5, 12, 7), seed=1), max_decoder_steps=40)  # the same key
+    _decode(eng, _ids((3, 7), seed=2), max_decoder_steps=16)  # another rows bucket
+    assert np.subtract(_counts(), before).tolist() == [3, 2]
 
 
 @pytest.fixture
