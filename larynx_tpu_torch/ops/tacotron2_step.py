@@ -6,9 +6,11 @@ this kernel replaces none: it is here because a step is bound by the bytes
 of its 18.2 M float32 weights, which a step's ~59 small PyTorch launches
 stream at a fraction of the HBM rate.  :func:`decode_steps` runs ``n`` steps
 of ``models/tacotron2/model.py::decode_steps`` in one launch for a CUDA
-tensor, and :func:`decode_steps_plain`, the same arithmetic in plain torch
-on the same packed weights, for a CPU tensor.  There is no other route: a
-CUDA tensor the kernel does not take raises (:func:`check_launch`).
+tensor; on the CPU the model runs its own step loop.
+:func:`decode_steps_plain`, the same arithmetic in plain torch on the same
+packed weights, is the kernel's reference.  There is no other route: a
+tensor off CUDA raises, and so does a CUDA tensor the kernel does not take
+(:func:`check_launch`).
 
 The weights travel packed (:func:`pack_decoder`, once per loaded voice, as
 :class:`PackedDecoder`): each LSTM's ``[w_ih | w_hh]`` joined into one
@@ -286,15 +288,13 @@ def decode_steps(packed: PackedDecoder, state: dict, prev: torch.Tensor, memory:
     [B, n]), as ``models/tacotron2/model.py::decode_steps``; ``keep``
     [n, 2, B, P] (bool) or None.
 
-    A CPU tensor runs :func:`decode_steps_plain`; a CUDA tensor launches the
-    kernel once per group of at most :data:`MAX_ROWS` rows, or raises, and
-    adds ``n`` to the trace counter ``engine.ar_kernel_steps``.  The
-    returned state is new tensors (the input's are only read) and the last
-    frame a view of ``mels``."""
-    if memory.device.type == "cpu":
-        return decode_steps_plain(packed, state, prev, memory, processed_memory, mask, n, keep)
+    A CUDA tensor launches the kernel once per group of at most
+    :data:`MAX_ROWS` rows, or raises, and adds ``n`` to the trace counter
+    ``engine.ar_kernel_steps``; any other tensor raises.  The returned state
+    is new tensors (the input's are only read) and the last frame a view of
+    ``mels``."""
     if memory.device.type != "cuda":
-        raise ValueError(f"decode_steps runs on cpu or cuda tensors, got {memory.device}")
+        raise ValueError(f"decode_steps runs on cuda tensors, got {memory.device}")
     if packed.p_dropout <= 0.0:
         keep = None
     check_launch(packed, state, prev, memory, processed_memory, mask, n, keep)

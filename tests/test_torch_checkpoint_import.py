@@ -650,15 +650,30 @@ def _synthesize(voices, voice, vocoder, backend, module=larynx_tpu_torch):
             m._ENGINE_CACHE.clear()
 
 
+@pytest.fixture(scope="module")
+def npz_audio(import_voices):
+    """The port's audio of each ``.npz`` voice and vocoder, run once a pair
+    for the backends that compare against it."""
+    runs = {}
+
+    def audio(voice, vocoder):
+        if (voice, vocoder) not in runs:
+            runs[voice, vocoder] = _synthesize(import_voices, voice, vocoder,
+                                               InferenceBackend.JAX)
+        return runs[voice, vocoder]
+
+    return audio
+
+
 @pytest.mark.parametrize("voice,vocoder,backend", [
     (GLOW_VOICE, "vctk_small", InferenceBackend.PYTORCH),
     (GLOW_VOICE, "vctk_small", InferenceBackend.ONNX),
     (T2_VOICE, "t2_small", InferenceBackend.PYTORCH),
 ], ids=["glow_tts-pth", "glow_tts-onnx", "tacotron2-pth"])
-def test_voice_from_pth_or_onnx_matches_npz(import_voices, voice, vocoder, backend):
+def test_voice_from_pth_or_onnx_matches_npz(import_voices, npz_audio, voice, vocoder, backend):
     """The same weights from a ``.pth`` or ``.onnx`` voice and vocoder give
     the ``.npz`` voice's audio, 0 LSB; the JAX package's within 2 LSB."""
-    want = _synthesize(import_voices, voice, vocoder, InferenceBackend.JAX)
+    want = npz_audio(voice, vocoder)
     got = _synthesize(import_voices, voice, vocoder, backend)
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):

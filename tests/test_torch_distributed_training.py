@@ -42,6 +42,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -75,6 +76,7 @@ VOICE = "en-us_trained_dist-glow_tts"
 VOCODER = "hifi_gan/trained_dist"
 TEXT = "A voice is born. Testing one two three."
 BIG_CLIP = 1e9  # the value clip on, never binding: the gradients are compared as computed
+SPAWN_TIMEOUT = 600  # seconds for a spawned world, as for a torchrun CLI case
 
 
 # -----------------------------------------------------------------------------
@@ -213,8 +215,22 @@ def _free_port() -> int:
 
 
 def _spawn(world, problems, out_dir):
-    tmp.spawn(_worker, args=(world, _free_port(), problems, str(out_dir)), nprocs=world,
-              join=True)
+    """Every rank of a world run to its end, or the test fails at
+    ``SPAWN_TIMEOUT`` with the ranks still running terminated: a rank that
+    hangs in a collective fails the test instead of holding its worker."""
+    context = tmp.spawn(_worker, args=(world, _free_port(), problems, str(out_dir)),
+                        nprocs=world, join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT
+    while not context.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in context.processes:
+                if proc.is_alive():
+                    proc.terminate()
+            for proc in context.processes:
+                proc.join(timeout=10)
+                if proc.is_alive():
+                    proc.kill()
+            pytest.fail(f"the world of {world} ranks did not finish in {SPAWN_TIMEOUT} s")
     return [pickle.loads((Path(out_dir) / f"rank{r}.pkl").read_bytes()) for r in range(world)]
 
 

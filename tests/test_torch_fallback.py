@@ -211,8 +211,16 @@ def test_hifi_gan_mels_to_audio_matches_jax(voices, strength):
     assert model.maybe_init_denoiser("cpu") is model.maybe_init_denoiser("cpu")  # built once
 
 
+@pytest.fixture(scope="module")
+def waveglow_whole(voices):
+    """The port's WaveGlow audio of the 300-frame mel in one bucketed call:
+    the bucketed case's output and the chunked case's reference, run once."""
+    model = larynx_tpu_torch.load_vocoder_model(VocoderType.WAVEGLOW, voices / WAVEGLOW)
+    return model.mels_to_audio(_postprocessed_mel(2, 300), device="cpu")
+
+
 @pytest.mark.parametrize("mode", ["bucketed", "chunked"])
-def test_waveglow_mels_to_audio_matches_jax(voices, mode, monkeypatch):
+def test_waveglow_mels_to_audio_matches_jax(voices, waveglow_whole, mode, monkeypatch):
     """Bucketed, and chunked when MAX_VOCODE_AREA (set in both engines, as
     LARYNX_TPU_MAX_VOCODE_AREA would at import) caps a call at 256 frames:
     300 frames in two haloed chunks, whose samples are also the port's
@@ -223,7 +231,6 @@ def test_waveglow_mels_to_audio_matches_jax(voices, mode, monkeypatch):
     frames = 300
     mel = _postprocessed_mel(2, frames)
     if mode == "chunked":
-        whole = model.mels_to_audio(mel, device="cpu")
         monkeypatch.setattr(jengine, "MAX_VOCODE_AREA", 1024)
         monkeypatch.setattr(tengine, "MAX_VOCODE_AREA", 1024)
         calls = []
@@ -231,13 +238,13 @@ def test_waveglow_mels_to_audio_matches_jax(voices, mode, monkeypatch):
         monkeypatch.setattr(model, "_generate",
                             lambda m, z, d: calls.append(m.shape[-1]) or generate(m, z, d))
     ref = ref_model.mels_to_audio(mel)
-    out = model.mels_to_audio(mel, device="cpu")
+    out = model.mels_to_audio(mel, device="cpu") if mode == "chunked" else waveglow_whole
     assert out.shape == (frames * 256,) and np.abs(out.astype(np.int32)).max() > 1000
     assert _lsb(out, ref) <= LSB
     if mode == "chunked":
         halo = model._halo_frames()
         assert calls == [model.policy.mel_bucket(256 + halo), model.policy.mel_bucket(44 + halo)]
-        assert _lsb(out, whole) <= LSB
+        assert _lsb(out, waveglow_whole) <= LSB
 
 
 def test_waveglow_chunked_prior_is_one_draw(voices):
@@ -269,11 +276,18 @@ def test_the_env_var_sets_max_vocode_area():
 # Griffin-Lim in the engine
 
 
+@pytest.fixture(scope="module")
+def glow_np():
+    """The voice's GlowTTS params (JAX init, key 0) as numpy, built once for
+    the engines of the Griffin-Lim tests."""
+    return jax.tree.map(np.asarray, j_glow_init(jax.random.PRNGKey(0),
+                                                config_from_voice_json(VOICE_CONFIG)))
+
+
 @pytest.mark.parametrize("momentum", [0.0, 0.99], ids=["plain", "fast"])
-def test_engine_griffin_lim_vocode_matches_jax(injected_phase, momentum):
+def test_engine_griffin_lim_vocode_matches_jax(injected_phase, glow_np, momentum):
     """A padded batch of three rows, vocoded whole; crops of (y - 1) hops + fft."""
     glow_cfg = config_from_voice_json(VOICE_CONFIG)
-    glow_np = jax.tree.map(np.asarray, j_glow_init(jax.random.PRNGKey(0), glow_cfg))
     ref = jengine.SynthesisEngine(glow_np, glow_cfg, JAudioSettings(**AUDIO),
                                   vocoder_kind="griffin_lim", griffin_lim_momentum=momentum)
     port = tengine.SynthesisEngine(params_from_jax(glow_np, "glow_tts"),
@@ -299,11 +313,9 @@ def test_engine_griffin_lim_vocode_matches_jax(injected_phase, momentum):
         _gl_close(row, ref_row)
 
 
-def test_engine_griffin_lim_momentum_follows_the_env(monkeypatch):
+def test_engine_griffin_lim_momentum_follows_the_env(glow_np, monkeypatch):
     cfg = t_config_from_voice_json(VOICE_CONFIG)
-    glow = params_from_jax(jax.tree.map(np.asarray, j_glow_init(jax.random.PRNGKey(0),
-                                                                config_from_voice_json(VOICE_CONFIG))),
-                           "glow_tts")
+    glow = params_from_jax(glow_np, "glow_tts")
     make = lambda: tengine.SynthesisEngine(glow, cfg, AudioSettings(**AUDIO),  # noqa: E731
                                            vocoder_kind="griffin_lim", device="cpu")
     assert make().griffin_lim_momentum == 0.99
@@ -358,17 +370,29 @@ def test_text_to_speech_griffin_lim_matches_jax(voices, injected_phase, monkeypa
         _gl_close(o.audio, r.audio)
 
 
+FALLBACK_SETTINGS = {"vocoder_settings": {"denoiser_strength": 0.01}}
+
+
+@pytest.fixture(scope="module")
+def fallback_ref(voices):
+    """The JAX package's ``text_to_speech`` through its fallback (no
+    engine), denoised by the call's vocoder settings: the reference of both
+    routes, run once."""
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(larynx_tpu, "_get_engine", lambda *args, **kwargs: None)
+        return list(_library(larynx_tpu, "text_to_speech", voices, VOCODER, **FALLBACK_SETTINGS))
+
+
 @pytest.mark.parametrize("route", ["batch", "scheduler"])
-def test_text_to_speech_fallback_matches_jax(voices, monkeypatch, route):
+def test_text_to_speech_fallback_matches_jax(voices, fallback_ref, monkeypatch, route):
     """Where _get_engine has no engine (a model class of the caller's own)
     both packages take the fallback, in the batch loop and in the
     scheduler branch: HiFi-GAN audio within 2 LSB, denoised by the call's
     vocoder settings."""
     monkeypatch.setattr(larynx_tpu, "_get_engine", lambda *args, **kwargs: None)
     monkeypatch.setattr(larynx_tpu_torch, "_get_engine", lambda *args, **kwargs: None)
-    settings = {"vocoder_settings": {"denoiser_strength": 0.01}}
-    ref = list(_library(larynx_tpu, "text_to_speech", voices, VOCODER, **settings))
-    kwargs = dict(settings)
+    ref = fallback_ref
+    kwargs = dict(FALLBACK_SETTINGS)
     scheduler = None
     if route == "scheduler":
         scheduler = kwargs["scheduler"] = BatchScheduler()

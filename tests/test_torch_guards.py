@@ -3,6 +3,7 @@
 import ast
 import dataclasses
 import io
+import json
 import os
 import socket
 import subprocess
@@ -80,8 +81,6 @@ T2_CONFIG = dict(
 def _stage_tacotron2(model_dir: Path) -> Path:
     """A small Tacotron2 voice dir (random weights, gate off, so every
     decode runs its max_decoder_steps)."""
-    import json
-
     from larynx_tpu_torch.convert.native import save_params
     from larynx_tpu_torch.models.tacotron2 import Tacotron2Config
     from larynx_tpu_torch.weights import init_params
@@ -173,8 +172,8 @@ TRAINING_MODULES = ["larynx_tpu_torch.train", "larynx_tpu_torch.train_vocoder",
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
-def test_training_loads_neither_jax_nor_larynx_tpu(module):
-    _loads_neither_jax_nor_larynx_tpu(module)
+def test_training_loads_neither_jax_nor_larynx_tpu(module, imports_added):
+    _loads_neither_jax_nor_larynx_tpu(module, imports_added)
 
 
 @pytest.mark.parametrize("cli_name", ["train", "train_vocoder"])
@@ -237,16 +236,42 @@ BATCH_PATH_MODULES = ["larynx_tpu_torch", "larynx_tpu_torch.runtime.engine",
                       "larynx_tpu_torch.models.glow_tts.flows"]
 
 
-def _loads_neither_jax_nor_larynx_tpu(module):
-    """Imported in a fresh interpreter, the module brings in no module of
-    jax or of larynx_tpu, directly or through what it imports."""
-    code = (f"import sys, {module}; "
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'larynx_tpu')))")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=Path(__file__).resolve().parent.parent, timeout=120)
+# One fresh interpreter imports the modules in turn and reports, for each,
+# the jax/jaxlib/larynx_tpu modules that its import added to sys.modules (any
+# present at startup count as added by the first), and the import's error.
+_IMPORTS_ADDED = r"""
+import importlib, json, sys
+sys.path[:0] = json.loads(sys.argv[1])
+seen, report = set(), {}
+for module in json.loads(sys.argv[2]):
+    try:
+        importlib.import_module(module)
+        error = None
+    except BaseException as exc:
+        error = repr(exc)
+    now = {m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "larynx_tpu")}
+    report[module] = {"added": sorted(now - seen), "error": error}
+    seen |= now
+print(json.dumps(report))
+"""
+
+
+def _imports_added(modules, path=()):
+    """``{module: {"added": [...], "error": ...}}`` from one fresh interpreter
+    that imports ``modules`` in order, with ``path`` put first on sys.path."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORTS_ADDED, json.dumps([str(p) for p in path]),
+         json.dumps(list(modules))],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.strip() == "[]"
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _loads_neither_jax_nor_larynx_tpu(module, report):
+    """Imported in a fresh interpreter, the module brings in no module of
+    jax or of larynx_tpu, directly or through what it imports: where one
+    did, the first module whose import pulled it in is the one that fails."""
+    assert report[module] == {"added": [], "error": None}, (module, report[module])
 
 
 # Tacotron2 and checkpoint import
@@ -256,18 +281,18 @@ TACOTRON2_IMPORT_MODULES = ["larynx_tpu_torch.tacotron2", "larynx_tpu_torch.mode
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
-def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module):
-    _loads_neither_jax_nor_larynx_tpu(module)
+def test_server_and_griffin_lim_load_neither_jax_nor_larynx_tpu(module, imports_added):
+    _loads_neither_jax_nor_larynx_tpu(module, imports_added)
 
 
 @pytest.mark.parametrize("module", BATCH_PATH_MODULES)
-def test_batch_path_and_multispeaker_load_neither_jax_nor_larynx_tpu(module):
-    _loads_neither_jax_nor_larynx_tpu(module)
+def test_batch_path_and_multispeaker_load_neither_jax_nor_larynx_tpu(module, imports_added):
+    _loads_neither_jax_nor_larynx_tpu(module, imports_added)
 
 
 @pytest.mark.parametrize("module", TACOTRON2_IMPORT_MODULES)
-def test_tacotron2_and_import_load_neither_jax_nor_larynx_tpu(module):
-    _loads_neither_jax_nor_larynx_tpu(module)
+def test_tacotron2_and_import_load_neither_jax_nor_larynx_tpu(module, imports_added):
+    _loads_neither_jax_nor_larynx_tpu(module, imports_added)
 
 
 # the multi-device layer: the serving mesh, the time and grid shards, the
@@ -277,8 +302,30 @@ MESH_MODULES = ["larynx_tpu_torch.parallel.mesh", "larynx_tpu_torch.parallel.tim
 
 
 @pytest.mark.parametrize("module", MESH_MODULES)
-def test_mesh_modules_load_neither_jax_nor_larynx_tpu(module):
-    _loads_neither_jax_nor_larynx_tpu(module)
+def test_mesh_modules_load_neither_jax_nor_larynx_tpu(module, imports_added):
+    _loads_neither_jax_nor_larynx_tpu(module, imports_added)
+
+
+@pytest.fixture(scope="module")
+def imports_added():
+    """The import report of every guarded module, from one interpreter."""
+    return _imports_added(TRAINING_MODULES + SLICE_MODULES + BATCH_PATH_MODULES
+                          + TACOTRON2_IMPORT_MODULES + MESH_MODULES)
+
+
+def test_the_shared_import_guard_names_the_module_that_pulls_in_jax(tmp_path):
+    """The one interpreter fails where a fresh interpreter per module did: a
+    module that imports jax through a second module is named, the modules
+    before it pass, and the second module, imported after it, adds nothing."""
+    (tmp_path / "guard_outer.py").write_text("import guard_inner  # noqa: F401\n")
+    (tmp_path / "guard_inner.py").write_text("import jax  # noqa: F401\n")
+    report = _imports_added(["larynx_tpu_torch.device", "guard_outer", "guard_inner"],
+                            path=[tmp_path])
+    _loads_neither_jax_nor_larynx_tpu("larynx_tpu_torch.device", report)
+    assert "jax" in report["guard_outer"]["added"] and report["guard_outer"]["error"] is None
+    with pytest.raises(AssertionError, match="guard_outer"):
+        _loads_neither_jax_nor_larynx_tpu("guard_outer", report)
+    assert report["guard_inner"] == {"added": [], "error": None}
 
 
 def test_tacotron2_phonemes_to_mels_without_gpu_or_device_raises(monkeypatch, tmp_path):
@@ -335,8 +382,6 @@ def test_model_surfaces_without_gpu_or_device_raise(voices_dir, monkeypatch, nam
 
 
 def test_waveglow_mels_to_audio_without_gpu_or_device_raises(monkeypatch, tmp_path):
-    import json
-
     from larynx_tpu_torch.convert.native import save_params
     from larynx_tpu_torch.models.waveglow.config import WaveGlowConfig
     from larynx_tpu_torch.waveglow import WaveGlowVocoder

@@ -104,22 +104,38 @@ def test_mrf_packing_layout():
     np.testing.assert_array_equal(b_flat[5].numpy(), stage[1]["convs2"][0]["b"])
 
 
+@pytest.fixture(scope="module")
+def generator_runs():
+    """Per geometry, the JAX init's params (key 3), the mel and the port's
+    generator audio: the same for both JAX references, so run once."""
+    runs = {}
+
+    def run(geometry):
+        key = tuple(sorted(geometry.items()))
+        if key not in runs:
+            jcfg, tcfg = JHiFiGanConfig(**geometry), HiFiGanConfig(**geometry)
+            np_params = jax.tree.map(np.asarray, jhifi.init_params(jax.random.PRNGKey(3), jcfg))
+            mel = np.random.default_rng(4).standard_normal((2, 12, 80)).astype(np.float32)
+            params = thifi.pack_params(params_from_jax(np_params, "hifi_gan"), tcfg)
+            runs[key] = np_params, mel, thifi.generator(params, tcfg, torch.from_numpy(mel))
+        return runs[key]
+
+    return run
+
+
 @pytest.mark.parametrize(
     "geometry",
     [dict(upsample_initial_channel=64), VCTK_SMALL],
     ids=["universal_large_narrow", "vctk_small_narrow"],
 )
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas_interpret"])
-def test_generator_matches_jax(geometry, use_pallas):
-    jcfg, tcfg = JHiFiGanConfig(**geometry), HiFiGanConfig(**geometry)
-    np_params = jax.tree.map(np.asarray, jhifi.init_params(jax.random.PRNGKey(3), jcfg))
-    mel = np.random.default_rng(4).standard_normal((2, 12, 80)).astype(np.float32)
+def test_generator_matches_jax(generator_runs, geometry, use_pallas):
+    jcfg = JHiFiGanConfig(**geometry)
+    np_params, mel, out = generator_runs(geometry)
     run = jax.jit(functools.partial(
         jhifi.generator, cfg=jcfg, use_pallas=use_pallas, pallas_interpret=use_pallas
     ))
     ref = np.asarray(run(np_params, mel=jnp.asarray(mel)))
-    params = thifi.pack_params(params_from_jax(np_params, "hifi_gan"), tcfg)
-    out = thifi.generator(params, tcfg, torch.from_numpy(mel))
     assert out.shape == ref.shape == (2, 12 * jcfg.total_upsample)
     assert np.abs(ref).max() > 1e-3
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)

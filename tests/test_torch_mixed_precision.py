@@ -927,17 +927,24 @@ def _tts(module, voices_dir, **kwargs):  # noqa: F811
         no_download=True, tts_settings={"noise_scale": 0.0}, **kwargs, **extra)]
 
 
-def test_text_to_speech_half_matches_jax(voices_dir):  # noqa: F811
+@pytest.fixture(scope="module")
+def tts_runs(voices_dir):  # noqa: F811
+    """``text_to_speech``'s audio of TEXT from both packages, with ``half``
+    and in float32, each run once for the tests that compare against it."""
+    return {"out": _tts(larynx_tpu_torch, voices_dir, half=True),
+            "ref": _tts(larynx_tpu, voices_dir, half=True),
+            "f32": _tts(larynx_tpu_torch, voices_dir),
+            "ref32": _tts(larynx_tpu, voices_dir)}
+
+
+def test_text_to_speech_half_matches_jax(voices_dir, tts_runs):  # noqa: F811
     """``text_to_speech(half=True)`` runs GlowTTS and the vocoder in bf16,
     each sentence as long as its own bf16 durations give, and agrees with
     the JAX package's half run (``_half_agrees``: here a flipped frame in
     one sentence).  Against its own f32 run it is held to the JAX package's
     own half-vs-f32 distance: bf16 GlowTTS moves the mel itself (the JAX
     package's correlation there is ~0.9988, under the vocoder's 0.999)."""
-    out = _tts(larynx_tpu_torch, voices_dir, half=True)
-    ref = _tts(larynx_tpu, voices_dir, half=True)
-    f32 = _tts(larynx_tpu_torch, voices_dir)
-    ref32 = _tts(larynx_tpu, voices_dir)
+    out, ref, f32, ref32 = (tts_runs[k] for k in ("out", "ref", "f32", "ref32"))
     assert len(out) == len(ref) == len(f32) == len(ref32) == 2
     engines = [e for key, e in larynx_tpu_torch._ENGINE_CACHE.items() if key[3]]
     assert engines and all(e.dtype == BF16 and e.voc_dtype == BF16 for e in engines)
@@ -957,7 +964,7 @@ def test_text_to_speech_half_matches_jax(voices_dir):  # noqa: F811
     assert compared
 
 
-def test_stream_text_to_speech_half(voices_dir):  # noqa: F811
+def test_stream_text_to_speech_half(voices_dir, tts_runs):  # noqa: F811
     """``stream_text_to_speech(half=True)``: the bf16 chunks against the JAX
     package's half stream and against the port's own f32 stream
     (``_half_agrees``), and against the port's half batch path."""
@@ -975,7 +982,7 @@ def test_stream_text_to_speech_half(voices_dir):  # noqa: F811
     _half_agrees(out, ref)
     _half_agrees(out, f32, correlation=None)
     # the same bf16 durations and audio as the batch path (which peak-normalises)
-    batch = np.concatenate(_tts(larynx_tpu_torch, voices_dir, half=True))
+    batch = np.concatenate(tts_runs["out"])
     assert batch.shape == out.shape and _corr(batch, out) > 0.9999
 
 
@@ -1021,7 +1028,7 @@ def test_bias_spec_built_once_under_threads(small_models, monkeypatch):
         return real()
 
     monkeypatch.setattr(engine, "_compute_bias_spec", slow)
-    barrier = threading.Barrier(16)
+    barrier = threading.Barrier(16, timeout=60)
     got = []
 
     def ask():
@@ -1032,7 +1039,8 @@ def test_bias_spec_built_once_under_threads(small_models, monkeypatch):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=120)
+        assert not t.is_alive()
     assert len(calls) == 1 and len(got) == 16
     assert all(g is got[0] for g in got)
     assert got[0].dtype == torch.float32 and torch.isfinite(got[0]).all()

@@ -49,7 +49,7 @@ def _lsb(a, b):
 def _submit_all(scheduler, engine, seqs, seeds=None, order=None):
     """Submit every sequence from its own thread at once; results by index."""
     order = list(range(len(seqs))) if order is None else order
-    barrier = threading.Barrier(len(order))
+    barrier = threading.Barrier(len(order), timeout=60)
     futures, lock = {}, threading.Lock()
 
     def submit(i):
@@ -62,7 +62,8 @@ def _submit_all(scheduler, engine, seqs, seeds=None, order=None):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive()
     return {i: futures[i].result(timeout=300) for i in order}
 
 

@@ -146,14 +146,17 @@ def test_pack_params_leaves_cpu_params_as_they_are():
 
 
 def test_the_wrapper_runs_the_plain_version_for_cpu_tensors():
+    """The wrapper takes CUDA tensors only: a CPU tensor raises and launches
+    nothing.  The plain version is the kernel's reference, not a CPU route:
+    the model's own step loop runs on the CPU."""
     cfg = Tacotron2Config(**TINY)
     params = _params(cfg)
     packed = ts.pack_decoder(params["decoder"], cfg.p_prenet_dropout)
     problem = _problem(cfg, params, 3, 9, keep=True, steps=5, random_state=True)
     launches = ts.decode_steps.launches
-    got = ts.decode_steps(packed, *problem[:5], 5, problem[5])
-    want = ts.decode_steps_plain(packed, *problem[:5], 5, problem[5])
-    assert _max_err(got, want) == 0.0 and ts.decode_steps.launches == launches
+    with pytest.raises(ValueError, match="runs on cuda tensors, got cpu"):
+        ts.decode_steps(packed, *problem[:5], 5, problem[5])
+    assert ts.decode_steps.launches == launches
 
 
 def _refused(case):

@@ -59,20 +59,37 @@ def _time_shard(engine, halo):
                                        halo)
 
 
-def test_time_sharded_vocode_matches_batched(models):
+@pytest.fixture(scope="module")
+def single_vocode(models):
+    """The single-device batched vocode of ``_random_mel()``, run once for
+    the time-shard cases that compare against it."""
+    return _single(_engine(models), *_random_mel())
+
+
+@pytest.fixture(scope="module")
+def single_row(models):
+    """The single-device engine's audio of the one-sentence batch (seed 5,
+    length scale 2), plain and denoised, run once per strength."""
+    ids = [np.arange(1, 40, dtype=np.int64)]
+    return {strength: _engine(models).synthesize_batch(ids, seed=5, length_scale=2.0,
+                                                       denoiser_strength=strength)
+            for strength in (0.0, 0.01)}
+
+
+def test_time_sharded_vocode_matches_batched(models, single_vocode):
     eng = _engine(models)
     mel, mask = _random_mel()
-    want = _single(eng, mel, mask)
+    want = single_vocode
     got = _time_shard(eng, stream_halo_frames(eng.vocoder_cfg))(_replicas(eng), mel, mask)
     _close(list(got.numpy()), list(want), **PLAIN)
 
 
-def test_time_sharded_vocode_needs_halo(models):
+def test_time_sharded_vocode_needs_halo(models, single_vocode):
     eng = _engine(models)
     mel, mask = _random_mel()
     got = _time_shard(eng, 0)(_replicas(eng), mel, mask).numpy()
-    assert got.shape == _single(eng, mel, mask).shape
-    assert not np.array_equal(got, _single(eng, mel, mask))
+    assert got.shape == single_vocode.shape
+    assert not np.array_equal(got, single_vocode)
 
 
 def test_time_sharded_vocode_denoised(models):
@@ -118,25 +135,24 @@ def test_grid_needs_as_many_devices(models):
         ts.make_grid_sharded_vocode(eng.vocoder_cfg, eng.audio_settings, ["cpu"] * 3, 2, 2, 1)
 
 
-def test_mesh_engine_single_row_time_shards(models):
+def test_mesh_engine_single_row_time_shards(models, single_row):
     """A 1-sentence batch routes through the time shard (past the gate) and
     gives the single-device engine's audio, plain and denoised."""
     ids = [np.arange(1, 40, dtype=np.int64)]
     for strength in (0.0, 0.01):
         eng = _engine(models, _cpu_mesh())
-        want = _engine(models).synthesize_batch(ids, seed=5, length_scale=2.0,
-                                                denoiser_strength=strength)
+        want = single_row[strength]
         got = eng.synthesize_batch(ids, seed=5, length_scale=2.0, denoiser_strength=strength)
         assert eng._time_shard_hits == 1
         _close(got, want)
 
 
-def test_time_shard_length_gate(models, monkeypatch):
+def test_time_shard_length_gate(models, single_row, monkeypatch):
     """The gate is read at each call: above every bucket the row takes the
     group path, at 0 the time shard; the default is 2 x N x halo
     (``larynx_tpu/runtime/engine.py:537-548``)."""
     ids = [np.arange(1, 40, dtype=np.int64)]
-    want = _engine(models).synthesize_batch(ids, seed=5, length_scale=2.0)
+    want = single_row[0.0]
     eng = _engine(models, _cpu_mesh())
     monkeypatch.setenv("LARYNX_TPU_TIME_SHARD_MIN_FRAMES", "1000000")
     assert eng._time_shard_min_frames == 1000000

@@ -135,23 +135,36 @@ def test_upsample_cond_and_group_audio_match_jax():
     )
 
 
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas_interpret"])
-def test_infer_matches_jax(use_pallas):
+@pytest.fixture(scope="module")
+def infer_problem():
+    """``infer``'s problem (perturbed params, mel, prior), the port's audio
+    and JAX's audio with identity couplings (end_w = 0): the same for both
+    JAX references, so run once."""
     cfg = JWaveGlowConfig(**SMALL)
     tree = _perturbed_params(cfg, 4)
     rng = np.random.default_rng(5)
     m = 6
     mel = rng.standard_normal((2, m, cfg.mel_channels)).astype(np.float32)
     z = (rng.standard_normal((2, m * cfg.upsample_stride // cfg.groups, cfg.groups)) * 0.9).astype(np.float32)
-    ref = jwg.infer(jax.tree.map(jnp.asarray, tree), cfg, jnp.asarray(mel), z=jnp.asarray(z),
-                    use_pallas=use_pallas, pallas_interpret=use_pallas)
     out = twg.infer(_port(tree, WaveGlowConfig(**SMALL)), WaveGlowConfig(**SMALL),
                     torch.from_numpy(mel), z=torch.from_numpy(z))
+    identity_tree = jax.tree.map(np.copy, tree)
+    for flow in identity_tree["flows"]:
+        flow["wn"]["end_w"] = np.zeros_like(flow["wn"]["end_w"])
+    identity = jwg.infer(jax.tree.map(jnp.asarray, identity_tree), cfg, jnp.asarray(mel),
+                         z=jnp.asarray(z))
+    return tree, mel, z, out, identity
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas_interpret"])
+def test_infer_matches_jax(infer_problem, use_pallas):
+    cfg = JWaveGlowConfig(**SMALL)
+    tree, mel, z, out, identity = infer_problem
+    m = mel.shape[1]
+    ref = jwg.infer(jax.tree.map(jnp.asarray, tree), cfg, jnp.asarray(mel), z=jnp.asarray(z),
+                    use_pallas=use_pallas, pallas_interpret=use_pallas)
     assert out.shape == (2, m * cfg.upsample_stride)
     # the WN stacks matter: identity couplings (end_w = 0) give other audio
-    for flow in tree["flows"]:
-        flow["wn"]["end_w"] = np.zeros_like(flow["wn"]["end_w"])
-    identity = jwg.infer(jax.tree.map(jnp.asarray, tree), cfg, jnp.asarray(mel), z=jnp.asarray(z))
     assert np.abs(np.asarray(ref) - np.asarray(identity)).max() > 0.1
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
