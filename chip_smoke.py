@@ -17,7 +17,12 @@ Phases (any failure exits non-zero):
      section at C <= 64, per unit at C = 128) at the main path's sections,
      the stream's one-row windows, ragged T with an odd tile count, T under
      one tile, ResBlock2 and C=8, each row with the HBM bytes and the L2
-     weight bytes that its plan moves.
+     weight bytes that its plan moves; the flow WN kernel (csrc/flow_wn.cu,
+     GlowTTS's coupling WaveNet layers) at B=8 over ul_batch8's mel buckets
+     (rows ending mid-tile, wholly padded tile pairs), B=1, a speaker bias
+     and dilation 2, one launch a layer, each 4-layer stack timed against
+     its bound, the plain version and the torch route, and its counters
+     equal across graphed ``synthesize_batch`` calls.
   3. the HiFi-GAN path: ``larynx_tpu_torch.text_to_speech`` at full width
      (GlowTTS harvard dims + HiFi-GAN universal_large, random weights from
      a fixed seed) on eight pangram sentences, with and without the
@@ -853,6 +858,129 @@ def check_wn(wn_layer, main_shapes, dtype=torch.float32):
     return rows, wn_stack_rows(wn_layer, main_shapes, gen, dtype, "main path, 8-layer WN stack")
 
 
+FLOW_WN_ITERS = 20  # a stack takes ~0.3 ms: 3 timed runs spread by 2x
+# the flow decodes that the engines launched (one a decode_launch, one a
+# mesh position) and the flow WaveNet layers they should run, all of them and
+# those on the kernel (count_flow_decodes); each path's kernel launches,
+# counted from 0 around its own run (flow_wn_start, flow_wn_read)
+FLOW_DECODES = {"decodes": 0, "layers": 0, "kernel_layers": 0}
+FLOW_WN_LAUNCHES = {}
+_FLOW_WN_AT = {}
+_FLOW_COUNTERS = ("engine.flow_wn_layers", "engine.flow_wn_kernel_layers")
+
+
+def count_flow_decodes():
+    """Count every engine's flow decodes in FLOW_DECODES from here on: each
+    runs n_blocks_dec x n_block_layers WaveNet layers, on the kernel where
+    the engine runs GlowTTS in float32 on CUDA at the kernel's geometry
+    (bf16 with ``half``, and the CPU, on torch ops)."""
+    import threading
+
+    from larynx_tpu_torch.ops import flow_wn
+    from larynx_tpu_torch.runtime.engine import MeshEncodeOutput, SynthesisEngine
+
+    launch = SynthesisEngine.decode_launch
+    lock = threading.Lock()
+
+    def counted(self, enc_out, *args, **kwargs):
+        n = len(self.mesh.positions) if isinstance(enc_out, MeshEncodeOutput) else 1
+        layers = n * self.glow_cfg.n_blocks_dec * self.glow_cfg.n_block_layers
+        kernel = (self.device.type == "cuda" and self.dtype == torch.float32
+                  and flow_wn.packs(self.glow_cfg.dec_channels, self.glow_cfg.kernel_size_dec))
+        with lock:
+            FLOW_DECODES["decodes"] += n
+            FLOW_DECODES["layers"] += layers
+            FLOW_DECODES["kernel_layers"] += layers if kernel else 0
+        return launch(self, enc_out, *args, **kwargs)
+
+    SynthesisEngine.decode_launch = counted
+
+
+def flow_wn_start():
+    """Set a path's flow WN counts to 0, just before its run."""
+    from larynx_tpu_torch.runtime import trace
+
+    counters = trace.counters()
+    _FLOW_WN_AT.update(FLOW_DECODES, **{n: counters.get(n, 0) for n in _FLOW_COUNTERS})
+
+
+def flow_wn_read(label: str) -> int:
+    """The flow WN kernel launches of the run since :func:`flow_wn_start`,
+    kept under ``label`` in FLOW_WN_LAUNCHES.  Raises unless the port's
+    counters saw each decode's layers, n_blocks_dec x n_block_layers (48 at
+    the harvard dims), all of them on the kernel in float32 on CUDA."""
+    from larynx_tpu_torch.runtime import trace
+
+    counters = trace.counters()
+    moved = {n: counters.get(n, 0) - _FLOW_WN_AT[n] for n in _FLOW_COUNTERS}
+    want = {n: FLOW_DECODES[n] - _FLOW_WN_AT[n] for n in FLOW_DECODES}
+    if not (want["decodes"] > 0 and moved["engine.flow_wn_layers"] == want["layers"]
+            and moved["engine.flow_wn_kernel_layers"] == want["kernel_layers"]):
+        raise AssertionError(f"flow_wn, {label}: counters {moved} for {want}")
+    launches = FLOW_WN_LAUNCHES[label] = moved["engine.flow_wn_kernel_layers"]
+    log(f"flow_wn, {label}: {want['decodes']} flow decode(s), {launches} kernel launches of "
+        f"{moved['engine.flow_wn_layers']} WaveNet layers")
+    return launches
+
+
+def check_flow_wn(engine, ids, y_lengths):
+    """The flow WN kernel: each of a 4-layer stack's layers against the plain
+    version (one launch a layer) at ``ops/flow_wn.py::CHECK_CASES`` and at
+    the main path's own batch (its rows' squeezed lengths at its squeezed
+    bucket), the stack timed whole (kernel, plain version, the torch route's
+    cuDNN convs and GEMMs) beside its bound on the valid steps; then
+    ``engine.flow_wn_kernel_layers`` = ``engine.flow_wn_layers`` across
+    graphed ``synthesize_batch`` calls of ``ids`` -> rows."""
+    from larynx_tpu_torch.models.glow_tts import flows
+    from larynx_tpu_torch.ops import flow_wn
+    from larynx_tpu_torch.runtime import trace
+
+    h, layers, cfg = flow_wn.KERNEL_CHANNELS, 4, engine.glow_cfg
+    log(f"flow_wn: dynamic shared memory {flow_wn._library().flow_wn_smem_bytes()} bytes per "
+        "block, 384 threads, clusters of 2 blocks")
+    m = engine.policy.mel_bucket(int(max(y_lengths)))
+    own = (f"main path's own batch, mel bucket {m}", engine.policy.batch_bucket(len(ids)),
+           m // cfg.n_sqz, cfg.kernel_size_dec, cfg.dilation_rate, False,
+           tuple(int(y) // cfg.n_sqz for y in y_lengths)
+           + (0,) * (engine.policy.batch_bucket(len(ids)) - len(y_lengths)))
+    rows = []
+    for label, b, t, taps, rate, with_g, lengths in (own,) + flow_wn.CHECK_CASES:
+        p = flow_wn.random_stack(taps, seed=b * t, layers=layers, device="cuda")
+        torch_p = {k: v for k, v in p.items() if k != "flow_wn"}
+        x, mask, g = flow_wn.random_inputs(lengths, t, seed=t, with_g=with_g, layers=layers,
+                                           device="cuda")
+        err = flow_wn.check_stack(p, x, mask, g, rate)
+        if not err <= flow_wn.CHECK_TOLERANCE:
+            raise AssertionError(f"flow_wn {label}: relative error {err} "
+                                 f"(tol {flow_wn.CHECK_TOLERANCE})")
+        flops = 2 * sum(lengths) * layers * (2 * h * taps * h + h * 2 * h)
+        row = {
+            "case": label, "B": b, "T": t, "taps": taps, "dilation_rate": rate, "g": with_g,
+            "valid_steps": sum(lengths), "main_path": label == own[0],
+            "max_rel_err": err,
+            "ms": time_ms(lambda: flows.wavenet(p, x, mask, rate, g), FLOW_WN_ITERS),
+            "plain_ms": time_ms(lambda: flow_wn.wavenet_plain(p, x, mask, rate, g), FLOW_WN_ITERS),
+            "library_ms": time_ms(lambda: flows.wavenet(torch_p, x, mask, rate, g), FLOW_WN_ITERS),
+            "bound_ms": 1e3 * TF32_PER_F32 * flops / TF32_PEAK_FLOPS,
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"flow_wn {label}: B={b} T'={t} k={taps} rate={rate} valid {sum(lengths)} steps, "
+            f"relative err {err:.3g} (tol {flow_wn.CHECK_TOLERANCE}); 4-layer stack: kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, torch route (cuDNN, cuBLAS) "
+            f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms on the valid steps "
+            f"({row['bound_share']:.1%})")
+    engine.synthesize_batch(ids, noise_scale=0.667, length_scale=LENGTH_SCALE)  # may capture
+    replays = trace.counters().get("engine.glow_graph_replays", 0)
+    flow_wn_start()
+    engine.synthesize_batch(ids, noise_scale=0.667, length_scale=LENGTH_SCALE)
+    torch.cuda.synchronize()
+    flow_wn_read(f"engine.synthesize_batch, {len(ids)} rows, graphed")
+    if trace.counters().get("engine.glow_graph_replays", 0) == replays:
+        raise AssertionError("flow_wn: the engine's synthesize_batch replayed no graph")
+    return rows
+
+
 def wn_stack_rows(wn_layer, shapes, gen, dtype, label):
     """A whole WN stack (dilations 1..128) at each (B, T) of ``shapes``: h
     and skip after 8 layers against the plain version, with times and bound."""
@@ -993,6 +1121,7 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
     launches = {}
     for label, strength in (("no denoiser", 0.0), ("denoiser 0.005", 0.005)):
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         calls_before = engine.generator_calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1003,6 +1132,7 @@ def main_path(root: Path, mrf_block, jobs, engine, y_lengths):
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         n_launch = mrf_block.mrf_section.launches
+        flow_wn_read("text_to_speech, pangram x8" + (f", {label}" if strength else ""))
         calls = engine.generator_calls - calls_before
 
         if len(results) != 8:
@@ -1135,6 +1265,7 @@ def waveglow_path(root: Path, wn_layer, mrf_block, jobs, engine, y_lengths, plan
         wn_layer.fused_wn_layer_state.launches = 0
         wn_layer.fused_wn_layer.launches = 0
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         calls_before = engine.generator_calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1146,6 +1277,7 @@ def waveglow_path(root: Path, wn_layer, mrf_block, jobs, engine, y_lengths, plan
         wall = time.perf_counter() - start
         n_k3 = wn_layer.fused_wn_layer_state.launches
         calls = engine.generator_calls - calls_before
+        flow_wn_read("text_to_speech, pangram x8, waveglow" + (f", {label}" if strength else ""))
 
         if len(results) != 8:
             raise AssertionError(f"waveglow {label}: {len(results)} results, expected 8")
@@ -1244,6 +1376,7 @@ def stream_path(root: Path, mrf_block, engine, n_frames: int):
     for label, strength in (("no denoiser", 0.0), ("denoiser 0.005", 0.005)):
         list(stream(denoiser_strength=strength))  # warm: cuDNN/cuFFT plans, the bias
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         torch.cuda.synchronize()
         start = time.perf_counter()
         it = stream(denoiser_strength=strength)
@@ -1252,6 +1385,7 @@ def stream_path(root: Path, mrf_block, engine, n_frames: int):
         chunks += list(it)
         total = time.perf_counter() - start
         n_launch = mrf_block.mrf_section.launches
+        flow_wn_read("stream_text_to_speech, pangram" + (f", {label}" if strength else ""))
         if len(chunks) != n_chunks or n_launch != per_call * n_chunks:
             raise AssertionError(f"stream, {label}: {len(chunks)} chunks and {n_launch} MRF "
                                  f"launches, expected {n_chunks} and {per_call * n_chunks}")
@@ -1373,6 +1507,7 @@ def scheduler_path(root: Path, mrf_block, engine, shapes: set):
     scheduler = BatchScheduler(max_batch=8, max_wait_ms=50.0)
     per_call = mrf_launches_per_call(engine.vocoder_cfg)
     mrf_block.mrf_section.launches = 0
+    flow_wn_start()
     calls_before = engine.generator_calls
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -1380,6 +1515,7 @@ def scheduler_path(root: Path, mrf_block, engine, shapes: set):
         together = run(scheduler, range(n))
     wall = time.perf_counter() - start
     n_launch = mrf_block.mrf_section.launches
+    flow_wn_read(f"scheduler, {n} requests")
     calls = engine.generator_calls - calls_before
     scheduler.shutdown()
     if len(together) != n or scheduler.jobs_run != n or \
@@ -1489,6 +1625,7 @@ def cli_path(root: Path, mrf_block, engine, n_frames: int, shapes: set):
         stdout = sys.stdout
         sys.stdout = io.TextIOWrapper(io.BytesIO())
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         try:
             with recording_mrf_shapes(shapes):
                 cli.main(argv + extra)
@@ -1497,6 +1634,7 @@ def cli_path(root: Path, mrf_block, engine, n_frames: int, shapes: set):
         finally:
             sys.stdout = stdout
         n_launch = mrf_block.mrf_section.launches
+        flow_wn_read(f"cli, pangram, {mode}")
         if n_launch != per_call * calls:
             raise AssertionError(f"cli {mode}: {n_launch} MRF launches, expected {per_call * calls}")
         launches[mode] = n_launch
@@ -1605,6 +1743,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
         tts(voc, half=half, seed=1, denoiser_strength=0.005)  # the bias, in bf16
         mrf_block.mrf_section.launches = 0
         wn_layer.fused_wn_layer_state.launches = 0
+        flow_wn_start()
         calls_before = eng.generator_calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1615,6 +1754,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
         wall = time.perf_counter() - start
         n_mrf, n_wn = mrf_block.mrf_section.launches, wn_layer.fused_wn_layer_state.launches
         calls = eng.generator_calls - calls_before
+        flow_wn_read(f"text_to_speech, pangram x8, {label}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         run_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
         for a, y in zip(audios, y_lengths):
@@ -1696,6 +1836,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
 
         list(stream(half=half))
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         torch.cuda.synchronize()
         with recording_mrf_shapes(shapes):
             start = time.perf_counter()
@@ -1705,6 +1846,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
             chunks += list(it)
             total = time.perf_counter() - start
         n_launch = mrf_block.mrf_section.launches
+        flow_wn_read(f"stream_text_to_speech, pangram, {label}")
         streamed = np.concatenate(chunks)
         if n_launch != per_call * len(chunks) or (not half and len(chunks) != n_chunks):
             raise AssertionError(f"bf16 stream, {label}: {len(chunks)} chunks, {n_launch} MRF "
@@ -1728,6 +1870,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
     stdout = sys.stdout
     sys.stdout = io.TextIOWrapper(io.BytesIO())
     mrf_block.mrf_section.launches = 0
+    flow_wn_start()
     try:
         with recording_mrf_shapes(shapes):
             cli.main(argv)
@@ -1736,6 +1879,7 @@ def bf16_path(root: Path, mrf_block, wn_layer, y_lengths, wg_plan, shapes: set):
     finally:
         sys.stdout = stdout
     n_launch = mrf_block.mrf_section.launches
+    flow_wn_read("cli --half, pangram WAV")
     rate, audio = wavfile.read(io.BytesIO(data))
     if rate != 22050 or audio.shape != ref.shape or lsb(audio, ref) > AUDIO_TOLERANCE_LSB or \
             n_launch != per_call:
@@ -1933,10 +2077,12 @@ def run_jobs_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: s
         for label in ("cold", "warm"):
             calls = []
             mrf_block.mrf_section.launches = 0
+            flow_wn_start()
             gen_before = en.generator_calls
             with counting_vocode_launches(calls), recording_mrf_shapes(mrf_shapes):
                 results, t = timed_once(lambda: tts(BOOK, ssml=False))
             n_mrf, gen = mrf_block.mrf_section.launches, en.generator_calls - gen_before
+            flow_wn_read(f"text_to_speech, chapter of 16 pangrams, {label}")
             if calls != [16] or n_mrf != per_call * gen:
                 raise AssertionError(f"book, {label}: vocode launches {calls}, {n_mrf} MRF "
                                      f"launches for {gen} generator calls; expected one "
@@ -1982,12 +2128,14 @@ def run_jobs_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: s
             ssml_units[interleaved] = ref[2]
             calls = []
             mrf_block.mrf_section.launches = 0
+            flow_wn_start()
             gen_before = generator_calls("high")
             with counting_vocode_launches(calls), recording_mrf_shapes(mrf_shapes):
                 results, t = timed_once(lambda: tts(SSML, interleaved=interleaved))
             gen = generator_calls("high") - gen_before
             n_mrf = mrf_block.mrf_section.launches
             label = "interleaved" if interleaved else "consecutive"
+            flow_wn_read(f"text_to_speech, SSML ({label}), pooled")
             if calls != [len(results)] or gen != 1 or n_mrf != per_call:
                 raise AssertionError(f"SSML {label}: vocode launches {calls}, generator calls "
                                      f"{gen}, MRF launches {n_mrf}: expected one pooled launch "
@@ -2001,11 +2149,13 @@ def run_jobs_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: s
                 f"wall {t:.3f} ms")
         calls = []
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         gen_before = generator_calls("high")
         with counting_vocode_launches(calls), recording_mrf_shapes(mrf_shapes):
             results, t = timed_once(lambda: tts(SSML, pool=False))
         gen = generator_calls("high") - gen_before
         n_mrf = mrf_block.mrf_section.launches
+        flow_wn_read("text_to_speech, SSML, LARYNX_TPU_VOCODE_POOL=0")
         units = ssml_units[True]
         if len(calls) != len(units) or n_mrf != per_call * gen:
             raise AssertionError(f"SSML, LARYNX_TPU_VOCODE_POOL=0: vocode launches {calls} for "
@@ -2024,11 +2174,13 @@ def run_jobs_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: s
         ref = unit_by_unit(SSML, vocoder=wg)
         calls = []
         wn_layer.fused_wn_layer_state.launches = 0
+        flow_wn_start()
         gen_before = generator_calls(wg)
         with counting_vocode_launches(calls), recording_wn_shapes(wn_shapes):
             results, t = timed_once(lambda: tts(SSML, vocoder=wg))
         gen = generator_calls(wg) - gen_before
         n_wn = wn_layer.fused_wn_layer_state.launches
+        flow_wn_read("text_to_speech, SSML, waveglow pooled")
         if calls != [len(results)] or n_wn != 96 * gen:
             raise AssertionError(f"SSML waveglow: vocode launches {calls}, {n_wn} WN launches "
                                  f"for {gen} group calls")
@@ -2057,10 +2209,12 @@ def run_jobs_path(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes: s
     with recording_mrf_shapes(mrf_shapes):
         engine.synthesize_batch(ids, noise_scale=0.0, speaker_ids=speakers)  # warm
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         calls = engine.generator_calls
         gpu, t_gpu = timed_once(lambda: engine.synthesize_batch(ids, noise_scale=0.0,
                                                                 speaker_ids=speakers))
     n_mrf, calls = mrf_block.mrf_section.launches, engine.generator_calls - calls
+    flow_wn_read(f"engine.synthesize_batch, multi-speaker, {len(speakers)} speakers (g)")
     cpu, t_cpu = timed_once(lambda: cpu_engine.synthesize_batch(ids, noise_scale=0.0,
                                                                 speaker_ids=speakers))
     worst = 0
@@ -2309,12 +2463,14 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
             # /api/tts GET and POST against text_to_speech, and /process
             server.wav("/api/tts", voice=VOICE, text=PANGRAM)  # warm: the server's threads
             mrf_block.mrf_section.launches = 0
+            flow_wn_start()
             calls = engine.generator_calls
             torch.cuda.synchronize()
             start = time.perf_counter()
             got = server.wav("/api/tts", voice=VOICE, text=PANGRAM)
             out["ms"]["server /api/tts f32"] = 1e3 * (time.perf_counter() - start)
             n_launch, calls = mrf_block.mrf_section.launches, engine.generator_calls - calls
+            flow_wn_read("server /api/tts, pangram")
             if calls < 1 or n_launch != per_call * calls:
                 raise AssertionError(f"server /api/tts: {n_launch} MRF launches for {calls} "
                                      f"generator calls")
@@ -2349,6 +2505,7 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
             want = np.concatenate(chunks)
             server.body("/api/stream", voice=VOICE, text=PANGRAM)  # warm
             mrf_block.mrf_section.launches = 0
+            flow_wn_start()
             start = time.perf_counter()
             with server.open("/api/stream", voice=VOICE, text=PANGRAM) as resp:
                 header = resp.read(44)
@@ -2357,6 +2514,7 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
                 body = first + resp.read()
             total = time.perf_counter() - start
             n_launch = mrf_block.mrf_section.launches
+            flow_wn_read("server /api/stream, pangram")
             got = np.frombuffer(body, dtype=np.int16)
             if header[:4] != b"RIFF" or got.shape != want.shape or lsb(got, want) != 0:
                 raise AssertionError(f"server /api/stream: {got.shape} vs {want.shape}")
@@ -2398,11 +2556,13 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
                 server.body("/api/stream", voice=VOICE, text=text2, vocoder=voc)  # warm
                 wn_layer.fused_wn_layer_state.launches = 0
                 mrf_block.mrf_section.launches = 0
+                flow_wn_start()
                 start = time.perf_counter()
                 got = np.frombuffer(server.body("/api/stream", voice=VOICE, text=text2,
                                                 vocoder=voc)[44:], dtype=np.int16)
                 wg_stream_ms = 1e3 * (time.perf_counter() - start)
                 n_wn = wn_layer.fused_wn_layer_state.launches
+                flow_wn_read("server /api/stream?vocoder=waveglow (fallback), 2 sentences")
                 parts = reference()
             finally:
                 torch.backends.cudnn.deterministic = False
@@ -2426,9 +2586,11 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
             # /api/tts with WaveGlow through the engine
             server.wav("/api/tts", voice=VOICE, text=PANGRAM, vocoder="waveglow")  # warm
             wn_layer.fused_wn_layer_state.launches = 0
+            flow_wn_start()
             calls = wg_engine.generator_calls
             audio = server.wav("/api/tts", voice=VOICE, text=PANGRAM, vocoder="waveglow")
             n_wn, calls = wn_layer.fused_wn_layer_state.launches, wg_engine.generator_calls - calls
+            flow_wn_read("server /api/tts?vocoder=waveglow, pangram")
             if calls < 1 or n_wn != 96 * calls or np.abs(audio.astype(np.int32)).max() < 1000:
                 raise AssertionError(f"server /api/tts waveglow: {n_wn} WN launches, {calls} calls")
             out["launches"]["server /api/tts?vocoder=waveglow, pangram"] = n_wn
@@ -2488,6 +2650,7 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
             # the scheduler through the server: eight concurrent requests
             before = json.loads(server.body("/api/stats"))
             mrf_block.mrf_section.launches = 0
+            flow_wn_start()
             calls = engine.generator_calls
             barrier = threading.Barrier(len(SHORT_SENTENCES))
             results = {}
@@ -2506,6 +2669,7 @@ def server_path(root: Path, mrf_block, wn_layer, engine, wg_engine, mrf_shapes: 
             wall = time.perf_counter() - start
             stats = json.loads(server.body("/api/stats"))
             n_launch, calls = mrf_block.mrf_section.launches, engine.generator_calls - calls
+            flow_wn_read("server, 8 concurrent /api/tts")
             batches = stats["batches_run"] - before["batches_run"]
             sentences = stats["sentences_run"] - before["sentences_run"]
             if len(results) != 8 or sentences != 8 or not batches < 8 or \
@@ -3557,9 +3721,11 @@ def training_path(root: Path, mrf_block, mrf_shapes: set):
     with recording_mrf_shapes(mrf_shapes):
         list(larynx_tpu_torch.text_to_speech(PANGRAM, **kwargs))  # warm-up
         mrf_block.mrf_section.launches = 0
+        flow_wn_start()
         results, t_tts = timed_once(lambda: list(larynx_tpu_torch.text_to_speech(PANGRAM,
                                                                                  **kwargs)))
         n_mrf = mrf_block.mrf_section.launches
+        flow_wn_read("train: trained dirs, text_to_speech, pangram")
     if n_mrf != per_call:
         raise AssertionError(f"trained dirs: {n_mrf} MRF launches, expected {per_call}")
     audio_out = results[0].audio
@@ -3739,9 +3905,11 @@ def training_path_2(root: Path, mrf_block, wn_layer, mrf_shapes: set, wn_shapes:
     with recording_wn_shapes(wn_shapes):
         list(larynx_tpu_torch.text_to_speech(PANGRAM, **kwargs))  # warm-up
         wn_layer.fused_wn_layer_state.launches = 0
+        flow_wn_start()
         results, t_tts = timed_once(lambda: list(larynx_tpu_torch.text_to_speech(PANGRAM,
                                                                                  **kwargs)))
         n_wn = wn_layer.fused_wn_layer_state.launches
+        flow_wn_read("train: trained waveglow, text_to_speech, pangram")
     wg_audio = results[0].audio
     if n_wn != per_group:
         raise AssertionError(f"trained waveglow: {n_wn} WN launches, expected {per_group}")
@@ -3997,9 +4165,11 @@ def mesh_serving(root: Path, mrf_block, wn_layer, mesh, label, mrf_shapes, wn_sh
                 meshed.synthesize_batch(rows, denoiser_strength=strength, **kw)  # warm-up
                 hits = (meshed._time_shard_hits, meshed._grid_shard_hits)
                 mrf_block.mrf_section.launches = 0
+                flow_wn_start()
                 got, t_mesh = timed_once(lambda: meshed.synthesize_batch(
                     rows, denoiser_strength=strength, **kw))
                 launches = mrf_block.mrf_section.launches
+                flow_wn_read(f"mesh {label}, {precision} {route}")
                 _, t_single = timed_once(lambda: single.synthesize_batch(
                     rows, denoiser_strength=strength, **kw))
                 dt = (meshed._time_shard_hits - hits[0], meshed._grid_shard_hits - hits[1])
@@ -4021,9 +4191,11 @@ def mesh_serving(root: Path, mrf_block, wn_layer, mesh, label, mrf_shapes, wn_sh
                     f"{per_call}), single device {t_single:.3f} ms, mesh {t_mesh:.3f} ms")
             # the stream runs on the first position: the single-device bytes
             mrf_block.mrf_section.launches = 0
+            flow_wn_start()
             got = list(meshed.synthesize_stream(ids[0], seed=STREAM_SEED,
                                                 length_scale=LENGTH_SCALE))
             stream_launches = mrf_block.mrf_section.launches
+            flow_wn_read(f"mesh {label}, {precision} stream")
             want = list(single.synthesize_stream(ids[0], seed=STREAM_SEED,
                                                  length_scale=LENGTH_SCALE))
         if len(got) != len(want) or any(not np.array_equal(a, b) for a, b in zip(got, want)):
@@ -4067,9 +4239,11 @@ def mesh_serving(root: Path, mrf_block, wn_layer, mesh, label, mrf_shapes, wn_sh
     with recording_wn_shapes(wn_shapes):
         want = wg_single.synthesize_batch(ids[:1], **kw)
         wn_layer.fused_wn_layer_state.launches = 0
+        flow_wn_start()
         hits = wg_mesh._grid_shard_hits
         got, t_wg = timed_once(lambda: wg_mesh.synthesize_batch(ids[:1], **kw))
         wg_launches = wn_layer.fused_wn_layer_state.launches
+        flow_wn_read(f"mesh {label}, waveglow grid")
     if wg_mesh._grid_shard_hits != hits + 1:
         raise AssertionError(f"{label} waveglow: the grid did not run (plan "
                              f"{wg_mesh._grid_vocode_plan(1, 1024, wg_mesh._wg_halo_frames)})")
@@ -4482,8 +4656,8 @@ def main() -> int:
     from larynx_tpu_torch.ops import build, mrf_block, wn_layer
 
     start = time.perf_counter()
-    build.build(["mrf_section", "wn_layer", "mrf_bf16", "wn_bf16", "tacotron2_step"])
-    for name in ("mrf_section", "wn_layer", "mrf_bf16", "wn_bf16", "tacotron2_step"):
+    build.build(["mrf_section", "wn_layer", "mrf_bf16", "wn_bf16", "tacotron2_step", "flow_wn"])
+    for name in ("mrf_section", "wn_layer", "mrf_bf16", "wn_bf16", "tacotron2_step", "flow_wn"):
         lines = build.BUILD_LOGS.get(name, "").splitlines()
         ptxas = sorted({line.split(":", 1)[-1].split(" for the function")[0].strip()
                         for line in lines
@@ -4536,6 +4710,8 @@ def main() -> int:
         mrf_cases, mrf_units = phase2_mrf_cases(main_cases, stream)
         rows = check_mrf(mrf_block, mrf_cases, mrf_units)
         wn_rows, wn_stacks = check_wn(wn_layer, wg_shapes)
+        count_flow_decodes()
+        flow_rows = check_flow_wn(engine, [j["ids"] for j in jobs], y_lengths)
         bf16_cases = list(main_cases) + list(stream) + [
             ("vctk_medium stage 4 (C=8, inputs padded to 16), 512-frame mel", 8, R1, 8, 131072,
              False),
@@ -4781,6 +4957,19 @@ def main() -> int:
            for path, shapes in path_wn.items() for b, t in sorted(shapes)}}
     kernels.append(bf16_wn)
     kernels.append(t2_step_entry(t2, t2_step_rows))
+    # the main path's flow decode: its batch's 4-layer stack, once a coupling
+    flow_main = [r for r in flow_rows if r["main_path"]]
+    blocks = engine.glow_cfg.n_blocks_dec
+    kernels.append({
+        "name": "flow_wn", "route": "cuda", "source": "larynx_tpu_torch/csrc/flow_wn.cu",
+        "replaces": "none (larynx_tpu/models/glow_tts/flows.py::wavenet is left to XLA)",
+        "launches": FLOW_WN_LAUNCHES["text_to_speech, pangram x8"],
+        "launches_by_path": dict(FLOW_WN_LAUNCHES),
+        "max_rel_err": max(r["max_rel_err"] for r in flow_rows),
+        **{k: blocks * sum(r[k] for r in flow_main)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "operations", "cases": flow_rows,
+    })
     for path, ms in bf16_wn["ms_by_path"].items():
         log(f"wn_layer (bf16) by path: {path}: {ms:.3f} ms")
     for k in kernels[2:]:

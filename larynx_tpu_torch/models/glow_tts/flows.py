@@ -12,6 +12,13 @@ gin], ``cond_b``) that maps the speaker embedding into every WaveNet layer.
 Every step runs in the tensors' dtype; in bfloat16 (``half``) the grouped
 invertible 1x1 is computed in float32 and cast back, as in the JAX package;
 float32 and float64 stay as they are.
+
+On the card each coupling's WaveNet runs one kernel launch a layer
+(``ops/flow_wn.py``) where its weights were packed at load
+(``model.py::pack_params``) and the input is a CUDA float32 tensor that
+needs no gradient; bfloat16, float64, the CPU and training keep the torch
+ops.  Counters: ``engine.flow_wn_layers`` (every WaveNet layer, either
+route) and ``engine.flow_wn_kernel_layers`` (the kernel's).
 """
 
 import typing
@@ -20,6 +27,8 @@ import torch
 
 from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.nn import conv1d, matmul1x1
+from larynx_tpu_torch.ops import flow_wn
+from larynx_tpu_torch.runtime import trace
 
 Params = typing.Dict[str, typing.Any]
 
@@ -91,6 +100,9 @@ def wavenet(p: Params, x, mask, dilation_rate: int = 1, g=None):
     ``g`` is the speaker conditioning [B, 1, 2h * n_layers] out of the
     coupling's cond 1x1: layer i adds its 2h slice before the gate."""
     n_layers = p["in_w"].shape[0]
+    trace.count("engine.flow_wn_layers", n_layers)
+    if flow_wn.kernel_route(x.device.type, x.dtype, x.requires_grad, "flow_wn" in p):
+        return flow_wn.wavenet(p, x, mask, dilation_rate, g)
     h = x.shape[-1]
     mask1 = mask[..., None]
     output = torch.zeros_like(x)

@@ -10,7 +10,8 @@ an explicit ``torch.Generator``.  A multi-speaker voice takes ``g``, the
 L2-normalised speaker embedding (:func:`speaker_embedding`), in the duration
 predictor's input and in every flow coupling.  The params'
 dtype is the compute dtype (bfloat16 with ``half``): the masks and the
-latent noise take it, the duration math stays float32.
+latent noise take it, the duration math stays float32.  :func:`pack_params`
+adds the flow WaveNets' kernel weights, once, at load.
 """
 
 import math
@@ -22,8 +23,26 @@ from larynx_tpu_torch.models.glow_tts import encoder as enc
 from larynx_tpu_torch.models.glow_tts import flows
 from larynx_tpu_torch.models.glow_tts.config import GlowTTSConfig
 from larynx_tpu_torch.models.nn import matmul1x1, sequence_mask
+from larynx_tpu_torch.ops import flow_wn
 
 Params = typing.Dict[str, typing.Any]
+
+
+def pack_params(params: Params) -> Params:
+    """params plus, where the kernel takes the flow's WaveNet geometry
+    (hidden 192, odd k <= 5) and the params are float32, each coupling's
+    packed layer weights: ``decoder.coupling.wn.flow_wn`` [blocks, L, n]
+    (``ops/flow_wn.py::pack_stack``), which routes the reverse flow's
+    WaveNets on CUDA through the kernel.  Call once, on the device the
+    params run on."""
+    wn = params["decoder"]["coupling"]["wn"]
+    _blocks, _layers, _two_h, h, k = wn["in_w"].shape
+    if wn["in_w"].dtype != torch.float32 or not flow_wn.packs(h, k):
+        return params
+    packed = torch.stack([flow_wn.pack_stack(w_in, w_rs)
+                          for w_in, w_rs in zip(wn["in_w"], wn["res_skip_w"])])
+    coupling = dict(params["decoder"]["coupling"], wn=dict(wn, flow_wn=packed))
+    return dict(params, decoder=dict(params["decoder"], coupling=coupling))
 
 
 def encode(

@@ -60,7 +60,9 @@ On a CUDA device GlowTTS's encode and flow decode replay CUDA graphs, one
 per bucket key (:class:`GlowGraphs`, ``runtime/glow_graphs.py``): their
 ~1280 small kernels a batch of 8 run faster than the host can launch
 them one by one.  Shapes beyond the bucket grid, and the mesh's stages, run
-eagerly, as does every stage on the CPU.
+eagerly, as does every stage on the CPU.  In float32 on CUDA the flow's
+WaveNet layers run one kernel launch each (``ops/flow_wn.py``), on weights
+packed here at load (``models/glow_tts/model.py::pack_params``).
 
 Precision, as in the JAX engine: ``half`` runs GlowTTS and the vocoder in
 bfloat16, ``vocoder_half`` the vocoder alone; by default the vocoder is
@@ -366,6 +368,9 @@ class SynthesisEngine:
         self.dtype = torch.bfloat16 if half and not self.autoregressive else torch.float32
         self.voc_dtype = torch.bfloat16 if self.vocoder_half else torch.float32
         self.glow_params = cast(tree_to(glow_params, self.device), self.dtype)
+        if self.device.type == "cuda" and not self.autoregressive:
+            # the flow WaveNets' kernel weights (float32 only), once
+            self.glow_params = glow_model.pack_params(self.glow_params)
         # GlowTTS's encode and flow decode as CUDA graphs per bucket key
         self._glow_graphs = (GlowGraphs(self.glow_params, glow_cfg, self.policy, self.device)
                              if self.device.type == "cuda" and not self.autoregressive else None)

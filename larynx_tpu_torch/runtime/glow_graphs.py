@@ -30,7 +30,11 @@ eager stage's own draw, so it is bit-identical.
 Counters (``runtime/trace.py``): ``engine.glow_graph_replays`` and
 ``engine.glow_graph_captures``, the stages replayed and captured, and
 ``engine.glow_eager`` (:meth:`GlowGraphs.eager`), the stages that an engine
-with graphs ran eagerly: beyond the grid, or on a serving mesh.
+with graphs ran eagerly: beyond the grid, or on a serving mesh.  What a
+stage counts while it runs (``engine.flow_wn_layers`` and
+``engine.flow_wn_kernel_layers``) is tallied in its captured run and added
+again at every replay, the work the replay does; a capture's own runs count
+nothing.
 """
 
 import contextlib
@@ -66,15 +70,24 @@ class _Stage:
     def __init__(self, fn, inputs: typing.Dict[str, typing.Optional[torch.Tensor]]):
         self.fn, self.inputs = fn, inputs
         self.graph = self.outputs = None
+        self.counts: typing.Dict[str, int] = {}  # what the captured run counted
+
+    def _tallied(self):
+        with trace.tally() as counts:
+            out = self.fn(**self.inputs)
+        self.counts = counts  # the last run's: the captured one
+        return out
 
     def run(self, capture) -> tuple:
         """Replay (capturing first, on the first run) -> fresh copies of the
         outputs."""
         if self.graph is None:
-            self.graph, self.outputs = capture(functools.partial(self.fn, **self.inputs))
+            self.graph, self.outputs = capture(self._tallied)
             trace.count("engine.glow_graph_captures")
         self.graph.replay()
         trace.count("engine.glow_graph_replays")
+        for name, n in self.counts.items():
+            trace.count(name, n)
         return tuple(o.clone() for o in self.outputs)
 
 

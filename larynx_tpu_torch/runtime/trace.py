@@ -25,16 +25,19 @@ wait, a request served across ``await``): it has no parent and never
 reaches the profiler.
 
 ``count(name, n=1)`` adds to a named integer counter; counters are always
-on.  :func:`snapshot` returns the counters, the span aggregates and the
-buffered spans; :func:`stats` the counters and, while tracing is on, the
-aggregates (``/api/stats``'s ``trace`` object); :func:`reset` clears spans
-and aggregates.
+on.  Inside :func:`tally` the counts a thread makes are collected in the
+tally instead (a CUDA graph's capture, whose work runs at each replay: the
+replay adds them).  :func:`snapshot` returns the counters, the span
+aggregates and the buffered spans; :func:`stats` the counters and, while
+tracing is on, the aggregates (``/api/stats``'s ``trace`` object);
+:func:`reset` clears spans and aggregates.
 
 The module's functions are those of one :class:`Registry`, ``REGISTRY``; a
 test may build a registry of its own.
 """
 
 import collections
+import contextlib
 import itertools
 import os
 import threading
@@ -222,8 +225,26 @@ class Registry:
             agg.add(dur, self_ns)
 
     def count(self, name: str, n: int = 1) -> None:
+        tallies = getattr(self._local, "tallies", None)
+        if tallies:
+            tallies[-1][name] = tallies[-1].get(name, 0) + int(n)
+            return
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Collect the counts this thread makes inside the block in the
+        yielded dict, instead of adding them to the counters."""
+        tallies = getattr(self._local, "tallies", None)
+        if tallies is None:
+            tallies = self._local.tallies = []
+        counts: typing.Dict[str, int] = {}
+        tallies.append(counts)
+        try:
+            yield counts
+        finally:
+            tallies.pop()
 
     def counters(self) -> typing.Dict[str, int]:
         with self._lock:
@@ -264,6 +285,7 @@ enabled = REGISTRY.enabled
 span = REGISTRY.span
 record = REGISTRY.record
 count = REGISTRY.count
+tally = REGISTRY.tally
 counters = REGISTRY.counters
 snapshot = REGISTRY.snapshot
 stats = REGISTRY.stats

@@ -6,7 +6,8 @@ eager stand-in whose replay writes the first run's output tensors, as a
 graph's replay writes its static outputs: a key's second call replays and
 does not capture, two calls at one key return tensors of their own, shapes
 beyond the grid, the mesh and a CPU engine run eagerly, and the three
-counters count what they say.  ``test_replay_equals_the_eager_stages``
+counters count what they say, and a replay counts what its capture
+counted.  ``test_replay_equals_the_eager_stages``
 holds the replayed stages to the eager ones bit for bit: on the CPU through
 the stand-in (the static buffers, the text axis's padding, the noise), and,
 marked ``card``, through real CUDA graphs at GlowTTS's published widths
@@ -113,6 +114,17 @@ def test_a_key_captures_once_then_replays():
     assert _delta(before) == (2, 2, 0)
     _synth(eng, _ids((3, 8), seed=1), mel_bucket_override=64)  # the same keys
     assert _delta(before) == (4, 2, 0)
+
+
+def test_a_replay_counts_what_its_capture_counted():
+    """The flow's WaveNet layers that a decode counts are counted once a
+    replay, the capture's own runs none."""
+    eng = _engine()
+    per_decode = eng.glow_cfg.n_blocks_dec * eng.glow_cfg.n_block_layers
+    before = trace.counters().get("engine.flow_wn_layers", 0)
+    _synth(eng, _ids((5, 7)), mel_bucket_override=64)  # capture, then the first replay
+    _synth(eng, _ids((3, 8), seed=1), mel_bucket_override=64)
+    assert trace.counters()["engine.flow_wn_layers"] - before == 2 * per_decode
 
 
 def test_two_calls_at_one_key_return_tensors_of_their_own():
